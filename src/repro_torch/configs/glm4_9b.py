@@ -1,0 +1,29 @@
+"""GLM4-9B: 40L d_model=4096 32H (GQA kv=2) d_ff=13696 vocab=151552. RoPE, GQA.
+[hf:THUDM/glm-4-9b]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="glm4-9b",
+    family="dense",
+    num_layers=40,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=2,
+    head_dim=128,
+    d_ff=13696,
+    vocab_size=151552,
+    rope_theta=10000.0,
+)
+
+SMOKE = ModelConfig(
+    name="glm4-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=1,
+    head_dim=16,
+    d_ff=192,
+    vocab_size=256,
+    rope_theta=10000.0,
+)

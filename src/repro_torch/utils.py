@@ -1,0 +1,65 @@
+"""Small shared utilities: dtypes, devices, commit checksums, tree maps."""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. Raises rather than falling back to the CPU when no card is
+    present, so a measurement never runs silently on the host."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the host explicitly")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    return device
+
+
+def checksum(x: torch.Tensor) -> torch.Tensor:
+    """Commit-stream checksum of a tensor: (mean, mean|x|) in f32."""
+    xf = x.float()
+    return torch.stack([xf.mean(), xf.abs().mean()])
+
+
+def has_nan_bit(x: torch.Tensor) -> torch.Tensor:
+    """Single-bit 'activation overflow' coverage toggle (f32 nan/inf)."""
+    return ~torch.isfinite(x.float()).all()
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Map ``fn`` over the leaves of nested dicts, tuples and lists (the
+    parameter and cache layouts), keeping the containers' types."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the host)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -110,3 +110,8 @@ def _install_hypothesis_shim():
 
 
 _install_hypothesis_shim()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skips where CUDA is absent")

@@ -1,0 +1,113 @@
+"""Boundaries of the port: it imports neither jax nor the JAX package, its
+entry points refuse to run without a card unless asked for the CPU, its
+configs and prompts equal the reference's, and its CLI reaches the full
+config."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.utils import resolve_device  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(Path(repro_torch.__file__).parent.rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_nothing_of_the_reference(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get_smoke_config("glm4-9b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.serve(cfg, 1, 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    from repro_torch.models import build_model
+    with pytest.raises(RuntimeError):
+        build_model(cfg).init(0)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_registry_ports_two_archs_and_names_the_rest():
+    assert tconfigs.ARCH_IDS == ("glm4-9b", "granite-8b")
+    full = tconfigs.get_config("glm4-9b")
+    assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+            full.head_dim, full.vocab_size) == (40, 4096, 32, 2, 128, 151552)
+    with pytest.raises(KeyError, match="later slice"):
+        tconfigs.get_config("mixtral-8x7b")
+    with pytest.raises(KeyError, match="unknown"):
+        tconfigs.get_smoke_config("gpt-2")
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
+def test_configs_and_prompts_equal_the_reference(arch):
+    pytest.importorskip("jax")
+    from repro.configs import get_config, get_smoke_config
+    from repro.data.pipeline import make_batch_fn as jax_batch_fn
+    for mine, ref in ((tconfigs.get_config(arch), get_config(arch)),
+                      (tconfigs.get_smoke_config(arch),
+                       get_smoke_config(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert mine.param_count() == ref.param_count()
+    cfg = tconfigs.get_config(arch)
+    for step in (0, 3):
+        a = make_batch_fn(cfg, 4, 64, seed=7)(step)
+        b = jax_batch_fn(get_config(arch), 4, 64, seed=7)(step)
+        assert set(a) == set(b)
+        for k in a:
+            assert np.array_equal(a[k], b[k])
+
+
+def test_cli_reaches_the_full_config(monkeypatch, capsys):
+    seen = {}
+
+    def fake_serve(cfg, *a, **kw):
+        seen["cfg"] = cfg
+        return {"ok": True}
+
+    monkeypatch.setattr(tserve, "serve", fake_serve)
+    tserve.main(["--no-smoke", "--device", "cpu"])
+    assert seen["cfg"].name == "glm4-9b" and seen["cfg"].num_layers == 40
+    tserve.main(["--arch", "granite-8b", "--device", "cpu"])
+    assert seen["cfg"].name == "granite-smoke"
+    assert '"ok": true' in capsys.readouterr().out
+
+
+def test_unported_families_raise_naming_the_later_slice():
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as ttfm
+    cfg = tconfigs.get_smoke_config("glm4-9b")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_model(dataclasses.replace(cfg, family="moe"))
+    for spec in (("mamba", None), ("rglru", "mlp"), ("attn", "moe")):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ttfm.init_block(None, cfg, spec, "meta")
