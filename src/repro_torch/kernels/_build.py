@@ -1,11 +1,12 @@
 """Builder and loader of the port's CUDA kernels.
 
-Each source under ``repro_torch/csrc/`` has a plain C interface. It is
-compiled with nvcc for Hopper (``sm_90a``) into a shared library under the
-checkout's ``build/kernels/`` at first use and loaded with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs
-at import: the CPU tests import every module on a host without nvcc.
+Each kernel ``name`` is one source, ``repro_torch/csrc/<name>.cu``, with a
+plain C interface. It is compiled with nvcc for Hopper (``sm_90a``) into a
+shared library under the checkout's ``build/kernels/`` at first use and
+loaded with ``ctypes``. The library's file name carries a hash of its
+source and flags, so an edited source is rebuilt and a stale library is
+never loaded. Nothing here runs at import: the CPU tests import every
+module on a host without nvcc.
 """
 from __future__ import annotations
 
@@ -15,16 +16,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-
-# kernel name -> source file under csrc/
-SOURCES = {"decode_attention": "decode_attention.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -39,48 +37,35 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / SOURCES[name]
+    src = _CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return _BUILD / f"lib{name}-{digest}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile every named kernel (all by default) that is not built yet.
-    One nvcc per source, all started together. Returns each compiled
-    kernel's compiler log (registers, shared memory, spills); raises with
-    the log if any build fails."""
-    names = list(SOURCES) if names is None else list(names)
-    procs = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(_CSRC / SOURCES[name])]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    logs, failed = {}, []
-    for name, out, tmp, proc in procs:
-        logs[name], _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, out)      # atomic: concurrent builders agree
-    if failed:
-        raise RuntimeError("nvcc failed for "
-                           + ", ".join(f"{n}:\n{logs[n]}" for n in failed))
-    return logs
+def build(name: str) -> str:
+    """Compile kernel ``name`` unless it is built already. Returns nvcc's
+    log (registers, shared memory, spills; empty when nothing was
+    compiled); raises with the log if the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, out)          # atomic: concurrent builders agree
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     """The named kernel's library, built on first use in this process."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(name)
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

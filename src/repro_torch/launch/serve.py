@@ -28,7 +28,7 @@ from repro_torch.core import Watchdog, WindowScheduler
 from repro_torch.core.pshell import (FifoSpec, ShellConfig, csr_accum, drain,
                                      fifo_push, shell_init)
 from repro_torch.data.pipeline import make_batch_fn
-from repro_torch.models import Runtime, build_model
+from repro_torch.models import build_model
 from repro_torch.serve import make_prefill_step
 from repro_torch.utils import resolve_device, sync, tree_map
 
@@ -80,7 +80,7 @@ def serve(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     ``repro_torch.interop``) must already be on it. ``timer`` is handed to
     the scheduler (its "device" phase wraps each window's dispatch)."""
     device = resolve_device(device)
-    model = build_model(cfg, Runtime())
+    model = build_model(cfg)
     with torch.inference_mode():
         return _serve(model, cfg, batch, prompt_len, gen, seed,
                       sample_interval, device, params, timer)

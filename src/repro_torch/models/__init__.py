@@ -1,3 +1,2 @@
 """Models of the port: the dense decoder family's serve path."""
 from repro_torch.models.model import Model, build_model  # noqa: F401
-from repro_torch.models.runtime import Runtime  # noqa: F401

@@ -117,14 +117,15 @@ def init_cache(cfg, batch: int, max_len: int, window: int, device):
             cache_spec(cfg, batch, max_len, window).items()}
 
 
-def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0,
-                           impl: str = "kernel"):
+def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0):
     """One-token decode. x: (B,1,D); pos: 0-d int32 device tensor (the
     current index).
 
     Writes the new k/v into ring slot ``pos % W`` of ``cache`` IN PLACE
     (the reference donates the cache to the same effect) and attends over
-    it. The slot is a device index: no host sync per layer per step.
+    it through the K2 wrapper: the CUDA kernel on the card, its plain
+    version on host tensors. The slot is a device index: no host sync per
+    layer per step.
     """
     B = x.shape[0]
     W = cache["k"].shape[1]
@@ -135,14 +136,6 @@ def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0,
     ck.index_copy_(1, slot, k)
     cv.index_copy_(1, slot, v)
 
-    if impl == "kernel":
-        out = da_ops.decode_attention(
-            q[:, 0], ck, cv, pos=pos, window=W,
-            softcap=cfg.attn_logit_softcap)
-        out = out.reshape(B, 1, -1)
-    elif impl == "plain":
-        valid = torch.arange(W, device=x.device) <= pos
-        out = _attend(cfg, q, ck, cv, valid[None, :])
-    else:
-        raise ValueError(f"unknown attention impl {impl!r}")
-    return dense_apply(p["o"], out), cache
+    out = da_ops.decode_attention(q[:, 0], ck, cv, pos=pos, window=W,
+                                  softcap=cfg.attn_logit_softcap)
+    return dense_apply(p["o"], out.reshape(B, 1, -1)), cache

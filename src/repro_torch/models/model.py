@@ -1,6 +1,6 @@
 """Model facade of the port: the dense decoder family's serve path.
 
-``build_model(cfg, rt)`` returns a Model with:
+``build_model(cfg)`` returns a Model with:
   init(seed, device) -> params
   cache_spec(batch, max_len) -> (shape, dtype) tree
   prefill(params, batch, max_len) -> (cache, last_logits)
@@ -16,18 +16,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_apply, logits_apply, norm_apply
-from repro_torch.models.runtime import Runtime
 from repro_torch.utils import resolve_device
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, rt: Runtime = Runtime()):
+    def __init__(self, cfg: ModelConfig):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (a later slice "
                 "of the port); this slice serves the dense family")
         self.cfg = cfg
-        self.rt = rt
 
     # ----------------------------------------------------------- params ---
     def init(self, seed: int = 0, *, device=None):
@@ -44,7 +42,7 @@ class Model:
         return tfm.stack_cache_spec(self.cfg, batch, max_len)
 
     def prefill(self, params, batch, max_len: int):
-        cfg, rt = self.cfg, self.rt
+        cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32,
@@ -52,23 +50,23 @@ class Model:
         x = embed_apply(params["embed"], tokens,
                         positions if cfg.learned_pos else None)
         x, cache = tfm.stack_prefill(params["stack"], cfg, x, positions,
-                                     max_len, rt)
+                                     max_len)
         x = norm_apply(cfg, params["final_norm"], x)
         return cache, logits_apply(params, cfg, x[:, -1:])
 
     def decode_step(self, params, cache, tokens1):
         """serve_step: one new token against the standing cache, which is
         updated in place."""
-        cfg, rt = self.cfg, self.rt
+        cfg = self.cfg
         pos = cache["pos"]
         B = tokens1.shape[0]
         x = embed_apply(params["embed"], tokens1,
                         pos.reshape(1, 1).expand(B, 1)
                         if cfg.learned_pos else None)
-        x, cache = tfm.stack_decode(params["stack"], cfg, x, cache, rt)
+        x, cache = tfm.stack_decode(params["stack"], cfg, x, cache)
         x = norm_apply(cfg, params["final_norm"], x)
         return cache, logits_apply(params, cfg, x)
 
 
-def build_model(cfg: ModelConfig, rt: Runtime = Runtime()) -> Model:
-    return Model(cfg, rt)
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -20,7 +20,6 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (init_dense, init_embed, init_mlp,
                                        init_norm, mlp_apply, norm_apply)
-from repro_torch.models.runtime import Runtime
 from repro_torch.utils import dtype_of, tree_map
 
 _ATTN_KINDS = ("attn", "swa", "local")
@@ -60,21 +59,20 @@ def block_cache_spec(cfg, spec, batch: int, max_len: int):
     return attn.cache_spec(cfg, batch, max_len, _mixer_window(cfg, spec[0]))
 
 
-def block_decode(p, cfg, spec, x1, cache, pos, rt: Runtime):
+def block_decode(p, cfg, spec, x1, cache, pos):
     """One-token block step; ``cache`` is updated in place."""
     mixer, ffn = spec
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x1)
     y, cache = attn.decode_attention_apply(
-        p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer),
-        impl=rt.attention_impl)
+        p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer))
     x1 = x1 + y
     if ffn is not None:
         x1 = x1 + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x1))
     return x1, cache
 
 
-def block_prefill(p, cfg, spec, x, positions, max_len: int, rt: Runtime):
+def block_prefill(p, cfg, spec, x, positions, max_len: int):
     """Full-seq forward that also emits this block's decode cache."""
     mixer, ffn = spec
     _check_spec(spec)
@@ -156,7 +154,7 @@ def stack_cache_spec(cfg, batch: int, max_len: int):
     return {"scanned": scanned, "tail": tail, "pos": ((), torch.int32)}
 
 
-def stack_decode(stack, cfg, x1, cache, rt: Runtime):
+def stack_decode(stack, cfg, x1, cache):
     """One-token decode through all layers; returns (x1, cache) with the
     layer caches updated in place and ``pos`` advanced on the device."""
     P_len, n_periods, _ = _partition(cfg)
@@ -166,21 +164,21 @@ def stack_decode(stack, cfg, x1, cache, rt: Runtime):
         for j in range(P_len):
             x1, _ = block_decode(_period(stack["blocks"][j], i), cfg,
                                  pattern[j], x1,
-                                 _period(cache["scanned"][j], i), pos, rt)
+                                 _period(cache["scanned"][j], i), pos)
     for i, p in enumerate(stack["tail"]):
         x1, _ = block_decode(p, cfg, pattern[i % P_len], x1,
-                             cache["tail"][i], pos, rt)
+                             cache["tail"][i], pos)
     return x1, {**cache, "pos": pos + 1}
 
 
-def stack_prefill(stack, cfg, x, positions, max_len: int, rt: Runtime):
+def stack_prefill(stack, cfg, x, positions, max_len: int):
     P_len, n_periods, _ = _partition(cfg)
     pattern = cfg.layer_pattern
     per_pos = [[] for _ in range(P_len)]
     for i in range(n_periods):
         for j in range(P_len):
             x, c = block_prefill(_period(stack["blocks"][j], i), cfg,
-                                 pattern[j], x, positions, max_len, rt)
+                                 pattern[j], x, positions, max_len)
             per_pos[j].append(c)
     cache: Dict[str, Any] = {"scanned": tuple(
         tree_map(lambda *cs: torch.stack(cs), *cs) for cs in per_pos)
@@ -188,7 +186,7 @@ def stack_prefill(stack, cfg, x, positions, max_len: int, rt: Runtime):
     tail_c = []
     for i, p in enumerate(stack["tail"]):
         x, c = block_prefill(p, cfg, pattern[i % P_len], x, positions,
-                             max_len, rt)
+                             max_len)
         tail_c.append(c)
     cache["tail"] = tuple(tail_c)
     cache["pos"] = torch.full((), x.shape[1], dtype=torch.int32,

@@ -23,7 +23,7 @@ from repro.models import build_model as jax_build  # noqa: E402
 from repro.models.runtime import Runtime as JaxRuntime  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.interop import params_from_jax, params_to_numpy  # noqa: E402
-from repro_torch.models import Runtime, build_model  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -43,9 +43,10 @@ def _close(a, b, dtype):
         assert err <= TOL[dtype], err
 
 
-def _run_both(jcfg, tcfg, *, jimpl, timpl, B=2, S=20, steps=4, seed=0):
+def _run_both(jcfg, tcfg, *, jimpl, B=2, S=20, steps=4, seed=0):
+    """The port's one decode path against the reference's ``jimpl``."""
     jm = jax_build(jcfg, JaxRuntime(attention_impl=jimpl))
-    tm = build_model(tcfg, Runtime(attention_impl=timpl))
+    tm = build_model(tcfg)
     jp = jm.init(jax.random.key(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
     rng = np.random.default_rng(seed)
@@ -80,23 +81,21 @@ def _check(gen, dtype):
 
 @pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("impl", [("pallas_interpret", "kernel"),
-                                  ("xla", "plain")])
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
 def test_prefill_and_decode_match(arch, dtype, impl):
     jcfg = dataclasses.replace(jax_smoke(arch), dtype=dtype)
     tcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
-    _check(_run_both(jcfg, tcfg, jimpl=impl[0], timpl=impl[1]), dtype)
+    _check(_run_both(jcfg, tcfg, jimpl=impl), dtype)
 
 
-@pytest.mark.parametrize("impl", [("pallas_interpret", "kernel"),
-                                  ("xla", "plain")])
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
 def test_sliding_window_ring_cache(impl):
     """swa with window 8 < prompt 20: the prefill places the last W keys at
     slot t % W, and every decode step runs with the ring full."""
     kw = dict(layer_pattern=(("swa", "mlp"),), window=8, dtype="float32")
     jcfg = dataclasses.replace(jax_smoke("glm4-9b"), **kw)
     tcfg = dataclasses.replace(get_smoke_config("glm4-9b"), **kw)
-    gen = _run_both(jcfg, tcfg, jimpl=impl[0], timpl=impl[1], steps=10)
+    gen = _run_both(jcfg, tcfg, jimpl=impl, steps=10)
     first = next(gen)
     assert tuple(first[3]["scanned"][0]["k"].shape)[2] == 8   # W = window
     _check([first], "float32")

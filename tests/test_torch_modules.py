@@ -24,7 +24,6 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
-from repro_torch.models.runtime import Runtime  # noqa: E402
 from repro_torch.utils import tree_map  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -111,8 +110,9 @@ def test_norms_mlp_rope_embed_logits(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pos", [3, 19, 45])   # ring filling, just full, wrapped
 def test_decode_attention_apply(arch, dtype, pos):
-    """kernel path vs impl="pallas_interpret", plain path vs impl="xla":
-    the output and the in-place ring-slot write of the cache."""
+    """The port's one path (the K2 wrapper, its plain version on host
+    tensors) against both impl="pallas_interpret" and impl="xla": the
+    output and the in-place ring-slot write of the cache."""
     jcfg, tcfg = _cfgs(arch, dtype)
     p = jattn.init_attention(jax.random.key(4), jcfg)
     rng = np.random.default_rng(pos)
@@ -120,13 +120,12 @@ def test_decode_attention_apply(arch, dtype, pos):
     jx, tx = _pair(rng, (B, 1, jcfg.d_model), dtype)
     jk, tk = _pair(rng, (B, W, jcfg.num_kv_heads, jcfg.head_dim), dtype)
     jv, tv = _pair(rng, (B, W, jcfg.num_kv_heads, jcfg.head_dim), dtype)
-    for jimpl, timpl in (("pallas_interpret", "kernel"), ("xla", "plain")):
+    for jimpl in ("pallas_interpret", "xla"):
         y, c = jattn.decode_attention_apply(
             p, jcfg, jx, {"k": jk, "v": jv}, jnp.int32(pos), impl=jimpl)
         tc = {"k": tk.clone(), "v": tv.clone()}
         ty, tc2 = tattn.decode_attention_apply(
-            _to_torch(p), tcfg, tx, tc, torch.tensor(pos, dtype=torch.int32),
-            impl=timpl)
+            _to_torch(p), tcfg, tx, tc, torch.tensor(pos, dtype=torch.int32))
         assert tc2["k"] is tc["k"]                 # updated in place
         _close(ty, y, dtype)
         _close(tc["k"], c["k"], dtype)
@@ -148,8 +147,7 @@ def test_block_prefill_chunked_causal(dtype):
     y, c = jtfm.block_prefill(p, jcfg, spec, jx, jnp.asarray(pos), max_len,
                               JaxRuntime())
     ty, tc = ttfm.block_prefill(_to_torch(p), tcfg, spec, tx,
-                                torch.from_numpy(pos.copy()), max_len,
-                                Runtime())
+                                torch.from_numpy(pos.copy()), max_len)
     assert tuple(tc["k"].shape) == tuple(c["k"].shape) == (1, max_len, 1, 16)
     _close(ty, y, dtype)
     _close(tc["k"], c["k"], dtype)
