@@ -6,22 +6,24 @@ Run from the root of a checkout on a machine with a card. Any failure
 exits non-zero; no phase is caught. Phases:
 
   1. device  — the card's name and count, nvidia-smi's name and power
-               limit, and the nvcc build of the kernel with its time;
+               limit, and the nvcc builds of both kernels (one process per
+               source, started together) with their time;
   2. kernel  — K2 (decode attention) against its plain version on the
                card: the reference's test grid, glm4-9b's and granite-8b's
                decode shapes, softcap 0 and 30, f32 at 2e-5 and bf16 at
                2e-2 (the tolerances of tests/test_kernels.py), and bf16
                also at a normwise relative error of 6e-3;
   3. serve   — the port's serve() on the full glm4-9b config (40 layers,
-               bf16, random weights from a seed drawn on the card): batch
-               8, prompt 2048, 64 generated tokens, windows of 8. The K2
-               launch count is set to 0 just before and must read exactly
-               40 x 63 after; every decode window's dispatch runs under
-               CUDA sync-debug mode "error", so a host sync inside a window
-               fails the run. The decode is traced with torch.profiler
-               (device activity only) from window 3 to its end: device
-               busy time, span and idle share, device operations per
-               step, and the kernels that take the most device time;
+               bf16, random weights from a seed drawn on the card, kept
+               for phases 7 and 8): batch 8, prompt 2048, 64 generated
+               tokens, windows of 8. The K2 launch count is set to 0 just
+               before and must read exactly 40 x 63 after; every decode
+               window's dispatch runs under CUDA sync-debug mode "error",
+               so a host sync inside a window fails the run. The decode is
+               traced with torch.profiler (device activity only) from
+               window 3 to its end: device busy time, span and idle share,
+               device operations per step, and the kernels that take the
+               most device time;
   4. parity  — the glm4-9b and granite-8b smoke configs in f32 through
                serve() on the card (kernel) and on the host (plain), from
                the same weights: the greedy tokens must be equal;
@@ -29,7 +31,31 @@ exits non-zero; no phase is caught. Phases:
                that cycle through 40 distinct layer caches (so the 50 MB L2
                does not hold the ~17 MB working set), beside its bound,
                its plain version and F.scaled_dot_product_attention (timed
-               only; the port never calls it), as one JSON line.
+               only; the port never calls it);
+  6. k1      — K1 (flash attention) against its plain version on the
+               card: the reference's grid and masks, glm4-9b's and
+               granite-8b's forward shapes (B=2, S=4096, H=32, K=2 or 8,
+               hd=128, causal) and a ragged S=4000 with window 33 and
+               softcap 30, f32 at 2e-5 and bf16 at 2e-2, and bf16 also at
+               a normwise relative error of 6e-3;
+  7. forward — Model.loss with the commit and coverage taps on the full
+               glm4-9b config and phase 3's weights, B=2, S=4096, under
+               inference mode: the K1 launch count is set to 0 just before
+               and must read exactly 40 after; the taps go through
+               make_ingest into the P-Shell and are drained: 40 commit
+               rows, none dropped, finite checksums and loss. Wall time
+               (synchronised) and peak memory;
+  8. scale-down — verify_extraction at layers 0, 20 and 39 of the same
+               model on the same batch's activations (bitwise, 41 K1
+               launches each), and scanned_vs_unrolled (0.0, 80 launches);
+  9. forward parity — the glm4-9b and granite-8b smoke configs in f32,
+               loss and (L,2) checksums on the card (K1) and on the host
+               (plain) from the same weights within 1e-5 relative, and
+               every layer's replay bitwise on both;
+ 10. k1 time — K1 timed at the glm4-9b forward shape over 40 distinct
+               q/k/v sets (~2.9 GB, beyond the 50 MB L2), beside its
+               bound, its plain version and F.scaled_dot_product_attention
+               (timed only). Both kernels go into one JSON line.
 
 The last line is {"ok": true, "device": {...}}. The full record is also
 written to chiprun_out/chip_smoke.json.
@@ -44,6 +70,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -53,6 +81,9 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 # glm4-9b serve cell; its decode is profiled from window TRACED on
 ARCH, BATCH, PROMPT, GEN, INTERVAL = "glm4-9b", 8, 2048, 64, 8
 TRACED = 3
+# the commit-tapped forward at glm4-9b's full width and depth
+FWD_BATCH, FWD_SEQ = 2, 4096
+SCALE_DOWN_LAYERS = (0, 20, 39)
 
 
 def log(**kw):
@@ -128,6 +159,95 @@ def time_ms(torch, fn, n_args, reps):
     return start.elapsed_time(end) / (reps * n_args)
 
 
+def forward_phase(cfg, params, B=FWD_BATCH, S=FWD_SEQ):
+    """Model.loss with the commit and coverage taps on one make_batch_fn
+    batch on the card, its taps ingested into the P-Shell and drained.
+    Checks the K1 launch count (one per layer), the commit rows and the
+    loss; returns the record, the model and the batch."""
+    import torch
+
+    from repro_torch.core import (default_shell_config, drain, make_ingest,
+                                  shell_init)
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.testing import TAPS
+
+    model = build_model(cfg, Runtime(taps=TAPS))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             make_batch_fn(cfg, B, S, seed=0)(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.flash_attention.launches = 0
+    t = time.perf_counter()
+    with torch.inference_mode():
+        loss, (metrics, aux) = model.loss(params, batch)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = fa_ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    shell = make_ingest(cfg)(shell_init(default_shell_config(cfg), "cuda"),
+                             aux, metrics)
+    records, _ = drain(shell)
+    commits = records["fifos"]["commits"]
+    L = cfg.num_layers
+    loss_val = float(loss)
+    assert launches == L, launches
+    assert commits["count"] == L, commits["count"]
+    assert commits["dropped"] == 0, commits["dropped"]
+    assert commits["data"][:, 0].tolist() == list(range(L))
+    assert np.isfinite(commits["data"]).all()
+    assert np.isfinite(loss_val)
+    assert float(records["csrs"]["loss_last"]) == loss_val
+    assert int(records["csrs"]["steps"]) == 1
+    assert not records["csrs"]["nan_bits"].any()
+    rec = {"arch": cfg.name, "batch": B, "seq": S, "layers": L,
+           "loss": loss_val, "wall_s": wall_s, "max_memory_allocated": peak,
+           "k1_launches": launches, "commit_rows": commits["count"],
+           "dropped": commits["dropped"],
+           "checksums_first_last": [commits["data"][0, 1:].tolist(),
+                                    commits["data"][-1, 1:].tolist()]}
+    return rec, model, batch
+
+
+def scale_down_phase(cfg, params, model, batch, layers=SCALE_DOWN_LAYERS):
+    """verify_extraction at ``layers`` on the batch's activations (bitwise,
+    one K1 launch per layer of the capture plus the replay), then
+    scanned_vs_unrolled (0.0, two launches per layer)."""
+    import torch
+
+    from repro_torch.core.decompose import (scanned_vs_unrolled,
+                                            verify_extraction)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.layers import embed_apply
+
+    B, S = batch["tokens"].shape
+    L = cfg.num_layers
+    positions = torch.arange(S, dtype=torch.int32,
+                             device="cuda").expand(B, S)
+    reports = {}
+    with torch.inference_mode():
+        x = embed_apply(params["embed"], batch["tokens"])
+        for layer in layers:
+            fa_ops.flash_attention.launches = 0
+            t = time.perf_counter()
+            rep = verify_extraction(params, cfg, x, positions, model.rt,
+                                    layer)
+            torch.cuda.synchronize()
+            rep.update(seconds=time.perf_counter() - t,
+                       k1_launches=fa_ops.flash_attention.launches)
+            assert rep["k1_launches"] == L + 1, rep
+            assert rep["bitwise_identical"], rep
+            reports[layer] = rep
+        fa_ops.flash_attention.launches = 0
+        svu = scanned_vs_unrolled(params, cfg, x, positions, model.rt)
+        svu_launches = fa_ops.flash_attention.launches
+    assert svu_launches == 2 * L, svu_launches
+    assert svu == 0.0, svu
+    return {"verify_extraction": reports, "scanned_vs_unrolled": svu,
+            "scanned_vs_unrolled_k1_launches": svu_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -141,7 +261,9 @@ def main() -> int:
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
-    from repro_torch.testing import NoSyncInWindow, check_decode_attention
+    from repro_torch.testing import (NoSyncInWindow, check_decode_attention,
+                                     check_flash_attention,
+                                     check_forward_parity)
     from repro_torch.utils import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -160,12 +282,19 @@ def main() -> int:
     record["device"] = {"name": name, "count": count, "nvidia_smi": smi,
                         "torch": torch.__version__,
                         "cuda": torch.version.cuda}
+    kernels = ("decode_attention", "flash_attention")
     t = time.perf_counter()
-    build_log = _build.build("decode_attention")
+    build_logs = _build.build(*kernels)
     build_s = time.perf_counter() - t
-    print(f"nvcc decode_attention:\n{build_log.strip()}", flush=True)
-    log(phase="build", seconds=build_s, built=["decode_attention"])
+    for kname, text in build_logs.items():
+        # registers, shared memory and spills of each instance
+        print(f"nvcc {kname}:", flush=True)
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line or "error" in line:
+                print("  " + line.strip(), flush=True)
+    log(phase="build", seconds=build_s, built=list(kernels))
     record["build_s"] = build_s
+    record["build_logs"] = build_logs
 
     # ---------------------------------------------------------- 2. kernel --
     errs: dict = {}         # case group -> [max abs err, normwise err]
@@ -194,11 +323,12 @@ def main() -> int:
 
     # ----------------------------------------------------------- 3. serve --
     cfg = get_config(ARCH)
+    params = build_model(cfg).init(0, device="cuda")   # kept for 7 and 8
     timer = tracing_timer(TRACED)
     torch.cuda.reset_peak_memory_stats()
     ops.decode_attention.launches = 0
     out = serve(cfg, BATCH, PROMPT, GEN, seed=0, sample_interval=INTERVAL,
-                device="cuda", timer=timer)
+                device="cuda", params=params, timer=timer)
     launches = ops.decode_attention.launches
     peak = torch.cuda.max_memory_allocated()
     t = time.perf_counter()
@@ -309,13 +439,122 @@ def main() -> int:
         "library_max_abs_err": lib_err,
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
     }
-    record["kernels"] = [k2]
+    del qs, ks, vs
+
+    # -------------------------------------------------------------- 6. k1 --
+    fa_errs: dict = {}      # case group -> [max abs err, normwise err]
+
+    def fa_case(key, *a, **kw):
+        got = check_flash_attention(*a, **kw)
+        fa_errs[key] = [max(x, y) for x, y in zip(fa_errs.get(key, got),
+                                                   got)]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for shape in ((1, 128, 4, 2, 32), (2, 256, 4, 4, 64),
+                      (1, 96, 2, 1, 16), (1, 160, 8, 2, 32)):
+            fa_case(f"grid_{dname}", *shape, dtype)
+        for window, causal, softcap in ((64, True, 0.0), (33, True, 0.0),
+                                        (0, False, 0.0), (0, True, 20.0)):
+            fa_case(f"grid_{dname}", 1, 192, 4, 2, 32, dtype, window=window,
+                    causal=causal, softcap=softcap)
+        fa_case(f"glm4_{dname}", FWD_BATCH, FWD_SEQ, 32, 2, 128, dtype)
+        fa_case(f"granite_{dname}", FWD_BATCH, FWD_SEQ, 32, 8, 128, dtype)
+        fa_case(f"ragged_{dname}", FWD_BATCH, 4000, 32, 8, 128, dtype,
+                window=33, softcap=30.0)
+    log(phase="k1", max_abs_err_and_normwise_err=fa_errs)
+    record["k1_errors"] = fa_errs
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- 7. forward --
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    fwd, model, batch = forward_phase(cfg, params)
+    log(phase="forward", **fwd)
+    record["forward"] = fwd
+    fwd_launches = fwd["k1_launches"]
+
+    # ------------------------------------------------------ 8. scale-down --
+    scale_down = scale_down_phase(cfg, params, model, batch)
+    log(phase="scale_down", **scale_down)
+    record["scale_down"] = scale_down
+    del batch
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 9. forward parity --
+    fwd_parity = {}
+    for arch in ("glm4-9b", "granite-8b"):
+        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        fwd_parity[arch] = check_forward_parity(scfg)
+    log(phase="forward_parity", **fwd_parity)
+    record["forward_parity"] = fwd_parity
+
+    # --------------------------------------------------------- 10. k1 time --
+    B, S, H, K, hd = FWD_BATCH, FWD_SEQ, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    qs = [torch.randn(B, S, H, hd, generator=g, device=dev).to(bf16)
+          for _ in range(L)]
+    ks = [torch.randn(B, S, K, hd, generator=g, device=dev).to(bf16)
+          for _ in range(L)]
+    vs = [torch.randn(B, S, K, hd, generator=g, device=dev).to(bf16)
+          for _ in range(L)]
+    # the library call in its own layout, (B, heads, S, hd), made outside
+    # the timing
+    qt = [t.transpose(1, 2).contiguous() for t in qs]
+    kt = [t.transpose(1, 2).contiguous() for t in ks]
+    vt = [t.transpose(1, 2).contiguous() for t in vs]
+
+    def fa_kernel(i):
+        return fa_ops.flash_attention(qs[i], ks[i], vs[i], causal=True)
+
+    def fa_plain(i):
+        return flash_attention_ref(qs[i], ks[i], vs[i], causal=True)
+
+    def fa_library(i):
+        return F.scaled_dot_product_attention(qt[i], kt[i], vt[i],
+                                              is_causal=True,
+                                              enable_gqa=True)
+
+    fa_lib_err = float((fa_library(0).transpose(1, 2).float()
+                        - fa_kernel(0).float()).abs().max())
+    fa_ms = time_ms(torch, fa_kernel, L, reps=2)
+    fa_plain_ms = time_ms(torch, fa_plain, L, reps=1)
+    fa_library_ms = time_ms(torch, fa_library, L, reps=5)
+    fa_ms_2 = time_ms(torch, fa_kernel, L, reps=2)
+    pairs = S * (S + 1) // 2                       # causal (q, k) pairs
+    fa_flops = 4 * B * H * pairs * hd              # QK^T and PV
+    fa_bytes = (2 * B * S * H * hd + 2 * B * S * K * hd) * elt  # q,out,k,v
+    fa_bytes_ms = fa_bytes / HBM_BYTES_PER_S * 1e3
+    fa_ops_ms = fa_flops / BF16_FLOPS * 1e3
+    fa_bound_ms = max(fa_bytes_ms, fa_ops_ms)
+    k1 = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/"
+                    "flash_attention.py:84",
+        "launches": fwd_launches,
+        "max_abs_err": fa_errs["glm4_bfloat16"][0],
+        "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound_ms,
+        "bound_by": "bytes" if fa_bytes_ms >= fa_ops_ms else "operations",
+        "library_ms": fa_library_ms,
+        "launches_per_step": cfg.num_layers,
+        "ms_repeat": fa_ms_2,
+        "bound_share": fa_bound_ms / fa_ms,
+        "bytes": fa_bytes, "flops": fa_flops,
+        "shape": {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
+                  "causal": True, "window": 0, "dtype": "bfloat16"},
+        "library_max_abs_err": fa_lib_err,
+        "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)",
+    }
+    record["kernels"] = [k2, k1]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=float))
-    print(json.dumps({"kernels": [k2]}, default=float), flush=True)
+    print(json.dumps({"kernels": [k2, k1]}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

@@ -1,0 +1,620 @@
+// Blocked GQA flash attention (forward), for NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/flash_attention/flash_attention.py:84
+// flash_attention_kernel (body `_kernel`). q (B,S,H,hd) attends over
+// k/v (B,T,K,hd); query head h reads kv head h / (H/K). The causal,
+// sliding-window and key-length masks come from the indices 0..S-1 and
+// 0..T-1, the logits may be soft-capped, and the softmax is an online one
+// in f32. As on the TPU: masked scores are -1e30 (not -inf), the weights
+// are rounded to v's dtype before the PV product, PV accumulates in f32,
+// the normaliser is clamped at 1e-30 and the output is in q's dtype.
+//
+// Where the TPU runs the k blocks as a sequential grid dimension with the
+// accumulator in VMEM scratch, here one thread block owns one
+// (batch, query head, 64-row q tile) and loops over the 64-key tiles
+// itself, with m, l and the accumulator in registers.
+//
+// What bounds it on this card: operations. At glm4-9b's forward shape
+// (B=2, S=T=4096, H=32, K=2, hd=128, causal, bf16) the causal half of
+// QK^T and PV is 2.75e11 FLOP, 0.28 ms at the 989 TFLOP/s bf16
+// tensor-core peak, against ~143 MB of q, k, v and output, 0.043 ms at
+// 3.35 TB/s. What the design does about it:
+//   * tiles that cannot contribute are never loaded or computed: above
+//     the causal diagonal, before the window and past T. At causal
+//     S=4096 that halves the work, as on the TPU;
+//   * the bf16 instance (the model's) does its products on the tensor
+//     cores with mma.sync, keeps S and P in registers, and copies the
+//     next k/v tile into shared memory (cp.async) while it computes this
+//     one; the f32 instance stays on the CUDA cores' f32 FMAs, which
+//     keeps it exact to 2e-5 (a 4x4 block of scores per thread, float4
+//     shared-memory reads, the next tile's 16-byte loads in flight in
+//     registers);
+//   * the q tiles are issued heaviest first (the diagonal is last in q),
+//     so causal blocks do not leave a long tail.
+// wgmma with TMA and warp specialisation is the next step toward the
+// bound for the bf16 instance.
+//
+// Plain C interface, loaded with ctypes: flash_attention_launch returns
+// cudaGetLastError() after the launch, or -1 for arguments it does not
+// take (the Python wrapper checks them first, including the 16-byte
+// alignment of q, k and v).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64;   // query rows per block: 16 row groups of 4
+constexpr int kBK = 64;   // keys per tile: 16 column groups, 4 keys each
+constexpr int kCG = 16;   // column groups; tid = row group * kCG + column group
+constexpr float kNegInf = -1e30f;
+static_assert(kThreads == (kBQ / 4) * kCG, "one thread per 4x4 score block");
+static_assert(kBK == 4 * kCG, "each column group takes 4 keys");
+
+// ----------------------------------------------- f32: CUDA-core FMAs ----
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+// reductions over the 16 lanes of one row group (a half warp)
+__device__ __forceinline__ float group_max(float x) {
+  for (int o = kCG / 2; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float group_sum(float x) {
+  for (int o = kCG / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Shared-memory layout, in floats. Rows of k are padded so that the
+// float4 reads of 8 neighbouring keys hit distinct banks; q rows are read
+// as broadcasts and v rows contiguously, so they need no padding. p is
+// kept transposed (key-major) so one float4 holds a thread's 4 rows.
+template <int HD>
+struct Layout {
+  static constexpr int kKRow = HD + 4;
+  static constexpr int kPRow = kBQ + 4;
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + kBQ * HD;
+  static constexpr int v_off = k_off + kBK * kKRow;
+  static constexpr int p_off = v_off + kBK * HD;
+  static constexpr int floats = p_off + kBK * kPRow;
+  static constexpr size_t bytes = floats * sizeof(float);
+};
+
+// The output dims a thread owns: HD/16 of them, as float4 runs at
+// (cg + 16 j) * 4 where HD >= 64, else single dims at cg + 16 j.
+template <int HD>
+__device__ __forceinline__ int out_dim(int cg, int dd) {
+  if constexpr (HD >= 64)
+    return (cg + kCG * (dd / 4)) * 4 + dd % 4;
+  else
+    return cg + kCG * dd;
+}
+
+// q, out: (B, S, H, HD); k, v: (B, T, K, HD).
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int S, int T_len, int H,
+                           int K, int causal, int window, float scale,
+                           float softcap) {
+  using L = Layout<HD>;
+  constexpr int kDPT = HD / kCG;                 // output dims per thread
+  constexpr int kPerVec = 4;                     // floats per 16 bytes
+  constexpr int kVecsPerRow = HD / kPerVec;
+  constexpr int kTileVecs = kBK * kVecsPerRow;
+  constexpr int kLoads = (kTileVecs + kThreads - 1) / kThreads;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem + L::q_off;
+  float* k_s = smem + L::k_off;
+  float* v_s = smem + L::v_off;
+  float* p_s = smem + L::p_off;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;     // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int q_lo = qt * kBQ;
+  const int tid = threadIdx.x, rg = tid / kCG, cg = tid % kCG;
+  const int row0 = rg * 4;                       // this thread's 4 rows
+
+  // q tile, rows past S zero-filled
+  const size_t q_row = (size_t)H * HD;           // elements between rows
+  const float* qb = q + ((size_t)b * S * H + h) * HD;
+  for (int i = tid; i < kBQ * kVecsPerRow; i += kThreads) {
+    const int r = i / kVecsPerRow, c = i % kVecsPerRow;
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q_lo + r < S)
+      u = *reinterpret_cast<const float4*>(qb + (size_t)(q_lo + r) * q_row +
+                                           c * kPerVec);
+    *reinterpret_cast<float4*>(q_s + r * HD + c * kPerVec) = u;
+  }
+
+  // the k tiles that can contribute: [k_begin, k_end)
+  int k_begin = 0;
+  if (window > 0 && q_lo - window + 1 > 0)
+    k_begin = (q_lo - window + 1) / kBK * kBK;
+  const int k_end = causal ? min(T_len, q_lo + kBQ) : T_len;
+
+  const size_t kv_row = (size_t)K * HD;
+  const float* kb = k + ((size_t)b * T_len * K + kvh) * HD;
+  const float* vb = v + ((size_t)b * T_len * K + kvh) * HD;
+  // this thread's share of one k/v tile, in flight in registers
+  float4 k_r[kLoads], v_r[kLoads];
+  auto fetch = [&](int t0) {
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = tid + j * kThreads;
+      const int t = i / kVecsPerRow, c = i % kVecsPerRow;
+      if (i < kTileVecs && t0 + t < T_len) {
+        const size_t off = (size_t)(t0 + t) * kv_row + c * kPerVec;
+        k_r[j] = *reinterpret_cast<const float4*>(kb + off);
+        v_r[j] = *reinterpret_cast<const float4*>(vb + off);
+      } else {
+        k_r[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        v_r[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+
+  float acc[4][kDPT];
+  float m_r[4], l_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < kDPT; ++dd) acc[i][dd] = 0.f;
+  }
+
+  if (k_begin < k_end) fetch(k_begin);
+  for (int t0 = k_begin; t0 < k_end; t0 += kBK) {
+    __syncthreads();  // q_s written; the previous tile's readers are done
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = tid + j * kThreads;
+      if (i < kTileVecs) {
+        const int t = i / kVecsPerRow, c = i % kVecsPerRow;
+        *reinterpret_cast<float4*>(k_s + t * L::kKRow + c * kPerVec) = k_r[j];
+        *reinterpret_cast<float4*>(v_s + t * HD + c * kPerVec) = v_r[j];
+      }
+    }
+    __syncthreads();
+    if (t0 + kBK < k_end) fetch(t0 + kBK);
+
+    // scores of rows row0..row0+3 against keys cg + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[4], kx[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_s + (row0 + i) * HD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kx[j] = *reinterpret_cast<const float4*>(
+            k_s + (cg + kCG * j) * L::kKRow + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(qv[i], kx[j], s[i][j]);
+    }
+
+    // masks and the online softmax, one row at a time
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q_lo + row0 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = t0 + cg + kCG * j;
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        bool ok = c < T_len;
+        if (causal) ok = ok && c <= r;
+        if (window > 0) ok = ok && c > r - window;
+        s[i][j] = ok ? x : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m_r[i], group_max(mx));
+      const float alpha = expf(m_r[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+      l_r[i] = l_r[i] * alpha + group_sum(sum);
+      m_r[i] = m_new;
+#pragma unroll
+      for (int dd = 0; dd < kDPT; ++dd) acc[i][dd] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(p_s + (cg + kCG * j) * L::kPRow + row0) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+    // PV: acc[i][:] += sum over keys t of p[t][row0 + i] * v[t][:]
+#pragma unroll 4
+    for (int t = 0; t < kBK; ++t) {
+      const float4 p = *reinterpret_cast<const float4*>(p_s + t * L::kPRow +
+                                                        row0);
+      float vx[kDPT];
+      if constexpr (HD >= 64) {
+#pragma unroll
+        for (int jj = 0; jj < kDPT / 4; ++jj) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              v_s + t * HD + (cg + kCG * jj) * 4);
+          vx[4 * jj + 0] = w.x;
+          vx[4 * jj + 1] = w.y;
+          vx[4 * jj + 2] = w.z;
+          vx[4 * jj + 3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int dd = 0; dd < kDPT; ++dd) vx[dd] = v_s[t * HD + cg + kCG * dd];
+      }
+#pragma unroll
+      for (int dd = 0; dd < kDPT; ++dd) {
+        acc[0][dd] = fmaf(p.x, vx[dd], acc[0][dd]);
+        acc[1][dd] = fmaf(p.y, vx[dd], acc[1][dd]);
+        acc[2][dd] = fmaf(p.z, vx[dd], acc[2][dd]);
+        acc[3][dd] = fmaf(p.w, vx[dd], acc[3][dd]);
+      }
+    }
+  }
+
+  float* ob = out + ((size_t)b * S * H + h) * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q_lo + row0 + i;
+    if (r < S) {
+      const float l = fmaxf(l_r[i], 1e-30f);
+      float* o = ob + (size_t)r * q_row;
+#pragma unroll
+      for (int dd = 0; dd < kDPT; ++dd)
+        o[out_dim<HD>(cg, dd)] = acc[i][dd] / l;
+    }
+  }
+}
+
+// ------------------------------------------------ bf16: tensor cores ----
+//
+// The bf16 instance runs QK^T and PV on the tensor cores with
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate). Four warps share one
+// 64-row q tile, 16 rows each. Each warp keeps its q rows as A fragments
+// in registers for the whole loop; k and v tiles are copied into shared
+// memory with cp.async, two stages deep, so the next tile's copy runs
+// under this tile's products. S = QK^T stays in registers, and its
+// accumulator layout is already the A-fragment layout of P for the PV
+// product, so P never goes through shared memory; v is read with
+// ldmatrix.trans. The rounding points are the same as the f32-FMA
+// kernel's: f32 scores, f32 online softmax, p rounded to bf16 before PV
+// (which the tensor core's bf16 input needs anyway), f32 accumulation.
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+static_assert(kBQ == 16 * kMmaWarps, "one 16-row m-tile per warp");
+
+template <int HD>
+struct MmaLayout {
+  static constexpr int kRow = HD + 8;  // bf16 elements; +16 B: no conflicts
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + kBQ * kRow;      // two stages
+  static constexpr int v_off = k_off + 2 * kBK * kRow;  // two stages
+  static constexpr int elems = v_off + 2 * kBK * kRow;
+  static constexpr size_t bytes = elems * sizeof(__nv_bfloat16);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// two f32 -> one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ out, int S,
+                           int T_len, int H, int K, int causal, int window,
+                           float scale, float softcap) {
+  using L = MmaLayout<HD>;
+  constexpr int kRow = L::kRow;
+  constexpr int kKSteps = HD / 16;        // k-steps of QK^T
+  constexpr int kNTiles = kBK / 8;        // 8-key n-tiles of S
+  constexpr int kDTiles = HD / 8;         // 8-dim n-tiles of O
+  constexpr int kVecsPerRow = HD / 8;     // 16-byte vectors per row
+  extern __shared__ __align__(16) __nv_bfloat16 mma_smem[];
+  __nv_bfloat16* q_s = mma_smem + L::q_off;
+  __nv_bfloat16* k_s = mma_smem + L::k_off;
+  __nv_bfloat16* v_s = mma_smem + L::v_off;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;     // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int q_lo = qt * kBQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;        // mma fragment coordinates
+  const int wrow = warp * 16;                    // this warp's first row
+
+  const size_t q_row = (size_t)H * HD;
+  const size_t kv_row = (size_t)K * HD;
+  const __nv_bfloat16* qb = q + ((size_t)b * S * H + h) * HD;
+  const __nv_bfloat16* kb = k + ((size_t)b * T_len * K + kvh) * HD;
+  const __nv_bfloat16* vb = v + ((size_t)b * T_len * K + kvh) * HD;
+
+  int k_begin = 0;
+  if (window > 0 && q_lo - window + 1 > 0)
+    k_begin = (q_lo - window + 1) / kBK * kBK;
+  const int k_end = causal ? min(T_len, q_lo + kBQ) : T_len;
+
+  // q tile (rows past S zero-filled) and the first k/v tile: one group
+  for (int i = tid; i < kBQ * kVecsPerRow; i += kMmaThreads) {
+    const int r = i / kVecsPerRow, c = (i % kVecsPerRow) * 8;
+    const bool ok = q_lo + r < S;
+    cp_async16(q_s + r * kRow + c,
+               qb + (ok ? (size_t)(q_lo + r) * q_row + c : 0), ok);
+  }
+  auto load_kv = [&](int t0, int stage) {
+    __nv_bfloat16* ks = k_s + stage * kBK * kRow;
+    __nv_bfloat16* vs = v_s + stage * kBK * kRow;
+    for (int i = tid; i < kBK * kVecsPerRow; i += kMmaThreads) {
+      const int t = i / kVecsPerRow, c = (i % kVecsPerRow) * 8;
+      const bool ok = t0 + t < T_len;
+      const size_t off = ok ? (size_t)(t0 + t) * kv_row + c : 0;
+      cp_async16(ks + t * kRow + c, kb + off, ok);
+      cp_async16(vs + t * kRow + c, vb + off, ok);
+    }
+  };
+  if (k_begin < k_end) load_kv(k_begin, 0);
+  cp_async_commit();
+
+  float o[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  // rows wrow + g (index 0) and wrow + g + 8 (index 1); l is this
+  // thread's partial sum over its columns, reduced over the 4 lanes of
+  // the row at the end
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  uint32_t qa[kKSteps][4];
+
+  int stage = 0;
+  for (int t0 = k_begin; t0 < k_end; t0 += kBK, stage ^= 1) {
+    const bool more = t0 + kBK < k_end;
+    if (more) load_kv(t0 + kBK, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // all but the newest group landed
+    __syncthreads();
+    if (t0 == k_begin) {
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const __nv_bfloat16* r0 = q_s + (wrow + g) * kRow + ks * 16 + tig * 2;
+        qa[ks][0] = *reinterpret_cast<const uint32_t*>(r0);
+        qa[ks][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow);
+        qa[ks][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+        qa[ks][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow + 8);
+      }
+    }
+    const __nv_bfloat16* ks_ = k_s + stage * kBK * kRow;
+    const __nv_bfloat16* vs_ = v_s + stage * kBK * kRow;
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float sc[kNTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {
+        const __nv_bfloat16* kr = ks_ + (nt * 8 + g) * kRow + ks * 16 + tig * 2;
+        mma_bf16(sc[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+
+    // masks and the online softmax; element e of n-tile nt is row
+    // wrow + g + 8 (e / 2), key t0 + nt * 8 + tig * 2 + e % 2
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q_lo + wrow + g + 8 * (e / 2);
+        const int c = t0 + nt * 8 + tig * 2 + e % 2;
+        float x = sc[nt][e] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        bool ok = c < T_len;
+        if (causal) ok = ok && c <= r;
+        if (window > 0) ok = ok && c > r - window;
+        sc[nt][e] = ok ? x : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], sc[nt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      alpha[i] = expf(m_r[i] - m_new);
+      m_r[i] = m_new;
+      l_r[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[nt][e] - m_r[e / 2]);
+        l_r[e / 2] += p;
+        sc[nt][e] = p;
+      }
+#pragma unroll
+    for (int dt = 0; dt < kDTiles; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // O += P V: P's A fragments come straight from S's accumulators
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(sc[2 * j][0], sc[2 * j][1]);
+      pa[1] = pack_bf16(sc[2 * j][2], sc[2 * j][3]);
+      pa[2] = pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
+      pa[3] = pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
+      // lane l gives row l % 8 of matrix l / 8: keys +8 for odd
+      // matrices, dims +8 for the upper two
+      const int mi = lane / 8;
+      const __nv_bfloat16* vrow =
+          vs_ + (j * 16 + (mi & 1) * 8 + lane % 8) * kRow + (mi >> 1) * 8;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; dt += 2) {
+        uint32_t vb4[4];
+        ldmatrix_x4_trans(vb4, vrow + dt * 8);
+        mma_bf16(o[dt], pa, vb4[0], vb4[1]);
+        mma_bf16(o[dt + 1], pa, vb4[2], vb4[3]);
+      }
+    }
+    __syncthreads();  // this stage is read; the next prefetch may reuse it
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* ob = out + ((size_t)b * S * H + h) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int r = q_lo + wrow + g + 8 * i;
+    if (r < S) {
+      __nv_bfloat16* orow = ob + (size_t)r * q_row + tig * 2;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+            __floats2bfloat162_rn(o[dt][2 * i] / l, o[dt][2 * i + 1] / l);
+    }
+  }
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              int B, int S, int T_len, int H, int K, int causal, int window,
+              float scale, float softcap, int dtype, cudaStream_t stream) {
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    constexpr size_t bytes = MmaLayout<HD>::bytes;
+    // more than 48 KB of dynamic shared memory only when opted in
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_mma_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_attention_mma_kernel<HD><<<grid, kMmaThreads, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), S, T_len, H,
+        K, causal, window, scale, softcap);
+  } else {
+    constexpr size_t bytes = Layout<HD>::bytes;
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_f32_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_attention_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), S, T_len, H,
+        K, causal, window, scale, softcap);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; causal: 0 or 1. Returns 0 on a good
+// launch.
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* out, int B, int S,
+                                      int T, int H, int K, int hd,
+                                      int causal, int window, float scale,
+                                      float softcap, int dtype,
+                                      void* stream) {
+  if (B < 1 || S < 1 || T < 1 || K < 1 || H < K || H % K || window < 0 ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16:
+      return launch_hd<16>(q, k, v, out, B, S, T, H, K, causal, window,
+                           scale, softcap, dtype, s);
+    case 32:
+      return launch_hd<32>(q, k, v, out, B, S, T, H, K, causal, window,
+                           scale, softcap, dtype, s);
+    case 64:
+      return launch_hd<64>(q, k, v, out, B, S, T, H, K, causal, window,
+                           scale, softcap, dtype, s);
+    case 128:
+      return launch_hd<128>(q, k, v, out, B, S, T, H, K, causal, window,
+                            scale, softcap, dtype, s);
+    default:
+      return -1;
+  }
+}

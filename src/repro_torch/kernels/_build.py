@@ -2,8 +2,9 @@
 
 Each kernel ``name`` is one source, ``repro_torch/csrc/<name>.cu``, with a
 plain C interface. It is compiled with nvcc for Hopper (``sm_90a``) into a
-shared library under the checkout's ``build/kernels/`` at first use and
-loaded with ``ctypes``. The library's file name carries a hash of its
+shared library under the checkout's ``build/kernels/`` at first use (one
+nvcc process per source; ``build`` starts several together) and loaded
+with ``ctypes``. The library's file name carries a hash of its
 source and flags, so an edited source is rebuilt and a stale library is
 never loaded. Nothing here runs at import: the CPU tests import every
 module on a host without nvcc.
@@ -43,22 +44,34 @@ def library_path(name: str) -> Path:
     return _BUILD / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> str:
-    """Compile kernel ``name`` unless it is built already. Returns nvcc's
-    log (registers, shared memory, spills; empty when nothing was
-    compiled); raises with the log if the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, out)          # atomic: concurrent builders agree
-    return proc.stdout
+def build(*names: str) -> Dict[str, str]:
+    """Compile the named kernels that are not built yet: one nvcc process
+    per source, all started together, each waited for. Returns nvcc's log
+    per kernel (registers, shared memory, spills; empty when nothing was
+    compiled); raises with the logs of the builds that failed."""
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = (proc, tmp, out)
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)      # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,17 +1,22 @@
-"""GQA attention: full / sliding-window / local, prefill and decode paths.
+"""GQA attention: full / sliding-window / local; forward, prefill and
+decode paths.
 
-The prefill path is q-chunked above ``_Q_CHUNK`` query positions so the
-S x S score tensor is never materialized whole. Decode uses a ring-buffer
-KV cache: bounded at ``cfg.window`` for swa/local mixers, full-length
-otherwise. Keys are stored post-RoPE at their absolute positions, so ring
-overwrites stay position-correct. Layouts follow the JAX package: q is
-(B,S,H,hd), a layer's cache is (B,W,K,hd).
+The forward (``attention_apply``, the path the commit-tapped model
+forward and the Scale-Down replay run) goes through the K1 wrapper. The
+prefill path keeps the reference's plain attention, q-chunked above
+``_Q_CHUNK`` query positions so the S x S score tensor is never
+materialized whole. Decode uses a ring-buffer KV cache: bounded at
+``cfg.window`` for swa/local mixers, full-length otherwise. Keys are
+stored post-RoPE at their absolute positions, so ring overwrites stay
+position-correct. Layouts follow the JAX package: q is (B,S,H,hd), a
+layer's cache is (B,W,K,hd).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, dense_apply, init_dense
 from repro_torch.utils import dtype_of
 
@@ -99,6 +104,20 @@ def _chunked_causal(cfg, q, k, v, positions, window: int):
         mask = _causal_window_mask(pi, pos, window)
         outs.append(_attend(cfg, q[:, c0:c0 + _Q_CHUNK], k, v, mask))
     return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------- forward path ----
+def attention_apply(p, cfg, x, positions, *, window: int = 0,
+                    causal: bool = True):
+    """Self-attention over the full sequence. x: (B,S,D); positions:
+    (B,S) or (S,) int32, read by RoPE only: like the TPU kernel, K1 masks
+    from the indices 0..S-1. The K1 wrapper is the one path: the CUDA
+    kernel on the card, its plain version on host tensors."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, x, positions, positions, rope=True)
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cfg.attn_logit_softcap)
+    return dense_apply(p["o"], out.reshape(B, S, -1))
 
 
 # ----------------------------------------------------------- decode path ----

@@ -1,13 +1,16 @@
-"""Model facade of the port: the dense decoder family's serve path.
+"""Model facade of the port: the dense decoder family.
 
-``build_model(cfg)`` returns a Model with:
+``build_model(cfg, rt)`` returns a Model with:
   init(seed, device) -> params
+  logits(params, batch) -> (logits, aux)           [commit-tapped forward]
+  loss(params, batch) -> (scalar, (metrics, aux))  [the train objective]
   cache_spec(batch, max_len) -> (shape, dtype) tree
   prefill(params, batch, max_len) -> (cache, last_logits)
   decode_step(params, cache, tokens1) -> (cache, logits)   [serve_step]
 
-Other families (moe, ssm, hybrid, encdec, vlm) and the train path
-(``logits`` / ``loss``) arrive with later slices of the port.
+``aux`` carries the P-Shell taps that ``rt.taps`` asks for. Gradients,
+the optimizer and the train step come with the training slice; the other
+families (moe, ssm, hybrid, encdec, vlm) with later slices of the port.
 """
 from __future__ import annotations
 
@@ -16,16 +19,40 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_apply, logits_apply, norm_apply
+from repro_torch.models.runtime import Runtime
 from repro_torch.utils import resolve_device
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B,T,V) f32; labels (B,T) int -> mean NLL."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - ll).mean()
+
+
+def _on_device(batch, params):
+    """The batch as tensors on the params' device. Tensors stay where they
+    are; host arrays go to the card (``resolve_device``, which raises
+    without one), so only tensors already on the CPU run on the host."""
+    out = {k: v if torch.is_tensor(v)
+           else torch.from_numpy(v).to(resolve_device())
+           for k, v in batch.items()}
+    dev = params["embed"]["tok"].device
+    for k, v in out.items():
+        if v.device != dev:
+            raise ValueError(f"batch[{k!r}] is on {v.device}, the params "
+                             f"on {dev}")
+    return out
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, rt: Runtime = Runtime()):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (a later slice "
-                "of the port); this slice serves the dense family")
+                "of the port); the dense family is ported")
         self.cfg = cfg
+        self.rt = rt
 
     # ----------------------------------------------------------- params ---
     def init(self, seed: int = 0, *, device=None):
@@ -36,6 +63,22 @@ class Model:
         g = None if device.type == "meta" \
             else torch.Generator(device=device).manual_seed(seed)
         return tfm.init_lm(g, self.cfg, device)
+
+    # ---------------------------------------------------------- forward ---
+    def logits(self, params, batch):
+        """Commit-tapped forward: f32 logits (B,S,V) and the aux tree."""
+        batch = _on_device(batch, params)
+        return tfm.lm_logits(params, self.cfg, batch["tokens"], self.rt)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy. The dense family has no MoE aux
+        loss, so ``loss`` is ``ce`` and ``moe_aux`` a 0-d f32 zero."""
+        batch = _on_device(batch, params)
+        logits, aux = self.logits(params, batch)
+        ce = cross_entropy(logits, batch["labels"])
+        moe_aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        metrics = {"loss": ce, "ce": ce, "moe_aux": moe_aux}
+        return ce, (metrics, aux)
 
     # ------------------------------------------------------------ serve ---
     def cache_spec(self, batch: int, max_len: int):
@@ -68,5 +111,5 @@ class Model:
         return cache, logits_apply(params, cfg, x)
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, rt: Runtime = Runtime()) -> Model:
+    return Model(cfg, rt)

@@ -7,8 +7,15 @@ remainder (``num_layers % period``) is kept as ``tail``. The layout
 ``{"blocks": tuple, "tail": list}`` and the period-major layer order are
 the reference's, so carried-across weights and per-layer streams line up.
 
-This slice ports the attention mixers (attn / swa / local) with the GLU
-MLP. The SSM and RG-LRU mixers and the MoE FFN arrive with the slice that
+The forward (``block_apply``, ``stack_apply``, ``lm_hidden``,
+``lm_logits``) emits the reference's instrumentation ``aux`` tree under
+``rt.taps``: per-layer activation checksums ("commits") and nan/inf bits
+("coverage"), as ``{"scanned": tuple(pattern position) of dicts whose
+leaves are stacked over periods on axis 0, "tail": tuple of dicts}``.
+``core/commit.py`` reads that layout in period-major layer order.
+
+The attention mixers (attn / swa / local) with the GLU MLP are ported.
+The SSM and RG-LRU mixers and the MoE FFN arrive with the slice that
 ports the other model families.
 """
 from __future__ import annotations
@@ -18,9 +25,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (init_dense, init_embed, init_mlp,
-                                       init_norm, mlp_apply, norm_apply)
-from repro_torch.utils import dtype_of, tree_map
+from repro_torch.models.layers import (embed_apply, init_dense, init_embed,
+                                       init_mlp, init_norm, logits_apply,
+                                       mlp_apply, norm_apply)
+from repro_torch.models.runtime import Runtime
+from repro_torch.utils import checksum, dtype_of, has_nan_bit, tree_map
 
 _ATTN_KINDS = ("attn", "swa", "local")
 _LATER = "is not ported yet (the slice that ports the other model families)"
@@ -52,6 +61,25 @@ def init_block(g, cfg, spec, device):
 
 def _mixer_window(cfg, mixer):
     return cfg.window if mixer in ("swa", "local") else 0
+
+
+def block_apply(p, cfg, spec, x, positions, rt: Runtime):
+    """Full-sequence forward of one block. Returns (x, aux) with the taps
+    of ``rt.taps``: "checksum" (commits) and "nan_bit" (coverage) of the
+    block's output."""
+    mixer, ffn = spec
+    _check_spec(spec)
+    h = norm_apply(cfg, p["norm1"], x)
+    x = x + attn.attention_apply(p["attn"], cfg, h, positions,
+                                 window=_mixer_window(cfg, mixer))
+    if ffn is not None:
+        x = x + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x))
+    aux: Dict[str, Any] = {}
+    if "commits" in rt.taps:
+        aux["checksum"] = checksum(x)
+    if "coverage" in rt.taps:
+        aux["nan_bit"] = has_nan_bit(x)
+    return x, aux
 
 
 def block_cache_spec(cfg, spec, batch: int, max_len: int):
@@ -138,6 +166,31 @@ def init_stack(g, cfg, device):
     return {"blocks": tuple(blocks), "tail": tail}
 
 
+def stack_apply(stack, cfg, x, positions, rt: Runtime):
+    """Forward through all layers in period-major order. Returns (x, aux)
+    in the reference's layout: "scanned" (present when there is at least
+    one period) holds one dict per pattern position with each tap stacked
+    over periods; "tail" one dict per tail layer."""
+    P_len, n_periods, _ = _partition(cfg)
+    pattern = cfg.layer_pattern
+    per_pos = [[] for _ in range(P_len)]
+    for i in range(n_periods):
+        for j in range(P_len):
+            x, aux = block_apply(_period(stack["blocks"][j], i), cfg,
+                                 pattern[j], x, positions, rt)
+            per_pos[j].append(aux)
+    aux_all: Dict[str, Any] = {}
+    if n_periods > 0:
+        aux_all["scanned"] = tuple(
+            tree_map(lambda *a: torch.stack(a), *auxes) for auxes in per_pos)
+    tail_aux = []
+    for i, p in enumerate(stack["tail"]):
+        x, aux = block_apply(p, cfg, pattern[i % P_len], x, positions, rt)
+        tail_aux.append(aux)
+    aux_all["tail"] = tuple(tail_aux)
+    return x, aux_all
+
+
 def stack_cache_spec(cfg, batch: int, max_len: int):
     """(shape, dtype) of every cache leaf, in the reference's layout."""
     P_len, n_periods, remainder = _partition(cfg)
@@ -206,3 +259,21 @@ def init_lm(g, cfg, device):
                                        dtype_of(cfg.dtype), device)
     return params
 
+
+
+def lm_hidden(params, cfg, tokens, rt: Runtime):
+    """tokens (B,S) -> final hidden (B,S,D), aux, at positions 0..S-1. As
+    in the reference's forward without explicit positions, a learned
+    position table is not added (only RoPE reads the positions)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x = embed_apply(params["embed"], tokens)
+    x, aux = stack_apply(params["stack"], cfg, x, positions, rt)
+    return norm_apply(cfg, params["final_norm"], x), aux
+
+
+def lm_logits(params, cfg, tokens, rt: Runtime):
+    """tokens (B,S) -> f32 logits (B,S,V), aux."""
+    h, aux = lm_hidden(params, cfg, tokens, rt)
+    return logits_apply(params, cfg, h), aux

@@ -1,14 +1,25 @@
 """Checks of the port on the card, shared by ``chip_smoke.py`` and
 ``tests/test_torch_gpu.py``: a scheduler timer that forbids host syncs
-inside a decode window, and K2 held against its plain version."""
+inside a decode window, K1 and K2 held against their plain versions, and
+the commit-tapped forward with its Scale-Down replay on the card against
+the same on the host."""
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
+from repro_torch.core.commit import layer_checksums, nan_bits
+from repro_torch.core.decompose import verify_extraction
+from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.kernels.decode_attention import ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models import Runtime, build_model
+from repro_torch.models.layers import embed_apply
+from repro_torch.utils import tree_map
 
 # elementwise rtol = atol: the tolerances of tests/test_kernels.py
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -19,6 +30,14 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # different points (the kernel rounds weights before they are normalised)
 # and differ by about 3e-3 normwise on an H100.
 BF16_NORM_REL = 6e-3
+# K1's bf16 limit, set the same way from readings on an H100 (PERF.md):
+# the kernel rounds its unnormalised weights to bf16, the plain version
+# its normalised ones.
+FA_BF16_NORM_REL = 6e-3
+# card against host in f32: the co-emulator's relative error
+# |a - b| / (|b| + 1e-6) of the loss and of each (L,2) checksum
+PARITY_RTOL = 1e-5
+TAPS = frozenset({"commits", "coverage"})
 
 
 class NoSyncInWindow:
@@ -56,12 +75,85 @@ def check_decode_attention(B, H, K, W, hd, pos, dtype, softcap=0.0, seed=0):
     ref = decode_attention_ref(q, k, v, pos=p, window=W, softcap=softcap)
     case = (f"K2 vs plain, B={B} H={H} K={K} W={W} hd={hd} pos={pos} "
             f"{dtype} softcap={softcap}")
-    assert out.dtype == dtype and out.shape == q.shape, case
+    return _compare(out, ref, dtype, case, BF16_NORM_REL)
+
+
+def _compare(out, ref, dtype, case, norm_limit):
+    """Elementwise at TOL, and in bf16 also normwise under
+    ``norm_limit``; returns (max abs error, normwise relative error)."""
+    assert out.dtype == dtype and out.shape == ref.shape, case
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
                                atol=TOL[dtype],
                                msg=lambda m: f"{case}: {m}")
     diff = out.float() - ref.float()
     rel = float(diff.norm() / ref.float().norm().clamp_min(1e-30))
     if dtype == torch.bfloat16:
-        assert rel <= BF16_NORM_REL, f"{case}: normwise error {rel}"
+        assert rel <= norm_limit, f"{case}: normwise error {rel}"
     return float(diff.abs().max()), rel
+
+
+def check_flash_attention(B, S, H, K, hd, dtype, T=None, causal=True,
+                          window=0, softcap=0.0, seed=0):
+    """K1 on random inputs drawn on the card from ``seed`` (q and k scaled
+    by 3 under a softcap, so the cap bites), against its plain version on
+    the same inputs.
+    Raises AssertionError where they disagree; returns (max abs error,
+    normwise relative error)."""
+    T = S if T is None else T
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sc = 3.0 if softcap > 0 else 1.0
+    q = (sc * torch.randn(B, S, H, hd, generator=g, device=dev)).to(dtype)
+    k = (sc * torch.randn(B, T, K, hd, generator=g, device=dev)).to(dtype)
+    v = torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    case = (f"K1 vs plain, B={B} S={S} T={T} H={H} K={K} hd={hd} {dtype} "
+            f"causal={causal} window={window} softcap={softcap}")
+    return _compare(out, ref, dtype, case, FA_BF16_NORM_REL)
+
+
+def check_forward_parity(cfg, B=2, S=24, seed=0):
+    """The commit-tapped loss and the Scale-Down replay of every layer of
+    ``cfg`` (an f32 config), from the same weights drawn on the host, on
+    the card (K1 and cuBLAS) and on the host (plain versions). The loss
+    and the (L,2) checksums must agree within PARITY_RTOL, the nan bits
+    exactly, and every replay must be bitwise on both. Returns the errors
+    and the K1 launches on the card."""
+    model = build_model(cfg, Runtime(taps=TAPS))
+    host = model.init(seed, device="cpu")
+    batch = make_batch_fn(cfg, B, S, seed)(0)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), host)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = fa_ops.flash_attention.launches
+        with torch.inference_mode():
+            loss, (_, aux) = model.loss(params, b)
+            x = embed_apply(params["embed"], b["tokens"])
+            pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+            bitwise = [verify_extraction(params, cfg, x, pos, model.rt,
+                                         i)["bitwise_identical"]
+                       for i in range(cfg.num_layers)]
+        runs.append({"loss": loss.cpu().numpy(),
+                     "cks": layer_checksums(aux).cpu().numpy(),
+                     "nan": nan_bits(aux).cpu().numpy(),
+                     "bitwise": bitwise,
+                     "launches": fa_ops.flash_attention.launches - before})
+    a, b = runs
+
+    def rel(x, y):
+        return float((np.abs(x - y) / (np.abs(y) + 1e-6)).max())
+
+    out = {"loss": float(a["loss"]), "loss_rel_err": rel(a["loss"],
+                                                         b["loss"]),
+           "checksum_rel_err": rel(a["cks"], b["cks"]),
+           "bitwise": [a["bitwise"], b["bitwise"]],
+           "k1_launches": a["launches"]}
+    case = f"forward parity {cfg.name}: {out}"
+    assert out["loss_rel_err"] <= PARITY_RTOL, case
+    assert out["checksum_rel_err"] <= PARITY_RTOL, case
+    assert np.array_equal(a["nan"], b["nan"]), case
+    assert all(a["bitwise"]) and all(b["bitwise"]), case
+    return out

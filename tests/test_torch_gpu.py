@@ -1,13 +1,14 @@
-"""Card-only tests of the port: the CUDA decode-attention kernel (K2)
-against its plain version on the card, and the serve slice on the card
-against the same slice on the host. They skip where CUDA is absent. On a
-machine with an NVIDIA card:
+"""Card-only tests of the port: the CUDA flash-attention (K1) and
+decode-attention (K2) kernels against their plain versions on the card,
+and the serve slice and the commit-tapped forward with its Scale-Down
+replay on the card against the same on the host. They skip where CUDA is
+absent. On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances are those of tests/test_kernels.py, f32 2e-5 and bf16 2e-2,
-and in bf16 also a normwise relative error of 6e-3
-(``repro_torch.testing``).
+Kernel tolerances are those of tests/test_kernels.py, f32 2e-5 and bf16
+2e-2, and in bf16 also a normwise relative error of 6e-3; the forward
+holds the loss and checksums within 1e-5 relative (``repro_torch.testing``).
 """
 import dataclasses
 
@@ -17,10 +18,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
-                                 check_decode_attention)
+                                 check_decode_attention,
+                                 check_flash_attention,
+                                 check_forward_parity)
 from repro_torch.utils import tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -91,3 +95,71 @@ def test_serve_on_card_matches_host(cuda, arch):
                     params=host)
     assert on_card["tokens"] == on_host["tokens"]
     assert on_card["decode_fifo_rows"] == on_host["decode_fifo_rows"] == 7
+
+
+# ------------------------------------------------------------------- K1 ----
+def _check_fa(*args, **kw):
+    before = fa_ops.flash_attention.launches
+    check_flash_attention(*args, **kw)
+    assert fa_ops.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd", [(1, 128, 4, 2, 32),
+                                        (2, 256, 4, 4, 64),
+                                        (1, 96, 2, 1, 16),
+                                        (1, 160, 8, 2, 32)])
+def test_flash_kernel_matches_plain_on_the_reference_grid(cuda, B, S, H, K,
+                                                          hd, dtype):
+    _check_fa(B, S, H, K, hd, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,causal,softcap", [
+    (0, True, 0.0), (64, True, 0.0), (33, True, 0.0), (0, False, 0.0),
+    (0, True, 20.0), (33, False, 0.0)])
+def test_flash_kernel_masks_and_softcap(cuda, window, causal, softcap,
+                                        dtype):
+    _check_fa(1, 192, 4, 2, 32, dtype, window=window, causal=causal,
+              softcap=softcap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,K,window,softcap", [(4096, 2, 0, 0.0),
+                                                (4096, 8, 0, 0.0),
+                                                (4000, 8, 33, 30.0)])
+def test_flash_kernel_matches_plain_at_the_slice_shapes(cuda, S, K, window,
+                                                        softcap, dtype):
+    """glm4-9b (K=2) and granite-8b (K=8) forward: B=2, H=32, hd=128,
+    causal; and a ragged S=4000 with a window and a softcap."""
+    _check_fa(2, S, 32, K, 128, dtype, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("hd,H,K,T", [(16, 16, 1, 77), (64, 16, 1, 77),
+                                      (128, 16, 16, 130), (32, 6, 3, 300)])
+def test_flash_kernel_head_dims_groups_and_lengths(cuda, hd, H, K, T):
+    """G from 1 to 16, and S != T in both directions."""
+    _check_fa(2, 77, H, K, hd, torch.float32, T=T)
+    _check_fa(2, 77, H, K, hd, torch.bfloat16, T=T, causal=False)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 4, 48, device=cuda)
+    k = torch.zeros(1, 8, 1, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="cuda"):
+        fa_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
+def test_forward_on_card_matches_host(cuda, arch):
+    """f32 smoke config: the loss and checksums on the card (K1) and on
+    the host (plain) within 1e-5 relative; every layer's replay bitwise
+    on both."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    out = check_forward_parity(cfg)
+    # one launch per layer in the loss, and per layer of each
+    # verify_extraction: its in-situ capture plus the replay
+    L = cfg.num_layers
+    assert out["k1_launches"] == L + L * (L + 1)

@@ -3,7 +3,8 @@ CPU, on the same weights and inputs (numpy from a seed, handed to both).
 
 Tolerances: f32 1e-4 (same arithmetic, another summation order); bf16
 3e-2 (the two frameworks round to bf16 at a few different points, e.g.
-inside silu).
+inside silu). The forward attention (``attention_apply``) is held tighter:
+f32 at 1e-5 of the output's largest magnitude, bf16 at 2e-2.
 """
 import dataclasses
 
@@ -106,6 +107,43 @@ def test_norms_mlp_rope_embed_logits(dtype):
 
 
 # -------------------------------------------------------------- attention ---
+@pytest.mark.parametrize("arch,kw", [
+    ("glm4-9b", {}),
+    ("granite-8b", {}),
+    ("glm4-9b", {"use_qk_norm": True}),
+    ("granite-8b", {"attn_logit_softcap": 30.0}),
+], ids=["glm4", "granite", "glm4-qk_norm", "granite-softcap"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 7], ids=["attn", "swa"])
+def test_attention_apply(arch, kw, dtype, window):
+    """The forward's one path (the K1 wrapper, its plain version on host
+    tensors) against both impl="pallas_interpret" and impl="xla"."""
+    jcfg, tcfg = _cfgs(arch, dtype, **kw)
+    key = jax.random.key(14)
+    p = jattn.init_attention(key, jcfg)
+    if jcfg.use_qk_norm:        # non-trivial norm scales
+        rng = np.random.default_rng(15)
+        for n in ("q_norm", "k_norm"):
+            p[n]["scale"] = jnp.asarray(
+                1 + 0.5 * rng.standard_normal(jcfg.head_dim), jnp.float32)
+    rng = np.random.default_rng(16)
+    B, S = 2, 40
+    jx, tx = _pair(rng, (B, S, jcfg.d_model), dtype, scale=2.0)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    out = tattn.attention_apply(_to_torch(p), tcfg, tx, torch.from_numpy(pos),
+                                window=window)
+    assert out.dtype == TDT[dtype] and tuple(out.shape) == tuple(jx.shape)
+    for impl in ("pallas_interpret", "xla"):
+        ref = jattn.attention_apply(p, jcfg, jx, jnp.asarray(pos),
+                                    window=window, impl=impl)
+        a, b = _np(out), _np(ref)
+        if dtype == "float32":
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), impl
+        else:
+            assert_allclose(a, b, rtol=2e-2, atol=2e-2, err_msg=impl)
+
+
+
 @pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pos", [3, 19, 45])   # ring filling, just full, wrapped

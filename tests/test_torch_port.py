@@ -37,6 +37,16 @@ def _imported_roots(path):
             yield str(node.args[0].value).split(".")[0]
 
 
+def test_import_guard_covers_every_module_of_the_port():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py", "models/runtime.py",
+                "core/commit.py", "core/coverage.py", "core/decompose.py",
+                "kernels/decode_attention/ops.py", "testing.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    assert "chip_smoke.py" in names
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_no_jax_and_nothing_of_the_reference(path):
@@ -55,6 +65,32 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         build_model(cfg).init(0)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_forward_raises_without_a_card_unless_given_host_tensors(
+        monkeypatch):
+    """Model.logits / Model.loss run where the tensors are: host tensors on
+    the host; numpy batches go to the card, so without one they raise."""
+    from repro_torch.models import Runtime, build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get_smoke_config("glm4-9b")
+    model = build_model(cfg, Runtime(taps=frozenset({"commits"})))
+    params = model.init(0, device="cpu")
+    batch = make_batch_fn(cfg, 1, 8)(0)
+    for fn in (model.logits, model.loss):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(params, batch)
+    host = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.inference_mode():
+        logits, aux = model.logits(params, host)
+        loss, (metrics, _) = model.loss(params, host)
+    assert logits.shape == (1, 8, cfg.vocab_size) and logits.device.type \
+        == "cpu"
+    assert aux["scanned"][0]["checksum"].shape == (cfg.num_layers, 2)
+    assert torch.isfinite(loss) and set(metrics) == {"loss", "ce",
+                                                     "moe_aux"}
+    with pytest.raises(ValueError, match="params on"):
+        model.logits(params, {k: v.to("meta") for k, v in host.items()})
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
