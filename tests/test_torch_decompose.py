@@ -25,13 +25,13 @@ import jax.numpy as jnp  # noqa: E402
 from numpy.testing import assert_allclose  # noqa: E402
 
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
-from repro.models import build_model as jax_build  # noqa: E402
 from repro.models.runtime import Runtime as JaxRuntime  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import decompose as tdec  # noqa: E402
 from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
 from repro_torch.interop import params_from_jax, params_to_numpy  # noqa: E402
 from repro_torch.models import Runtime  # noqa: E402
+from jax_weights import seeded_params  # noqa: E402
 
 _MOVED = ("ClosedJaxpr", "Jaxpr", "Literal", "ShapedArray", "Var")
 TAPS = frozenset({"commits", "coverage"})
@@ -64,19 +64,7 @@ def _params(jcfg, tcfg, seed=0):
     """The reference's param tree with every drawn leaf redrawn from numpy
     (its own init salts keys with Python's per-process string hash), and
     the port's copy of it."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, a):
-        a = np.asarray(a)
-        if a.ndim < 2:
-            return jnp.asarray(a)
-        std = 0.02 if "embed" in jax.tree_util.keystr(path) \
-            else a.shape[-2] ** -0.5
-        return jnp.asarray((rng.standard_normal(a.shape) * std)
-                           .astype(np.float32)).astype(a.dtype)
-
-    jp = jax.tree_util.tree_map_with_path(
-        leaf, jax_build(jcfg).init(jax.random.key(0)))
+    jp = seeded_params(jcfg, seed)
     return jp, params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
 
 

@@ -41,6 +41,7 @@ from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.models import Runtime, build_model  # noqa: E402
 from repro_torch.models.model import cross_entropy  # noqa: E402
+from jax_weights import seeded_params  # noqa: E402
 
 _MOVED = ("ClosedJaxpr", "Jaxpr", "Literal", "ShapedArray", "Var")
 TAPS = frozenset({"commits", "coverage"})
@@ -90,27 +91,6 @@ def _logits_close(a, b, dtype):
 def _cfgs(arch, dtype, **kw):
     return (dataclasses.replace(jax_smoke(arch), dtype=dtype, **kw),
             dataclasses.replace(get_smoke_config(arch), dtype=dtype, **kw))
-
-
-def seeded_params(jcfg, seed=0):
-    """The reference's param tree with every drawn leaf redrawn from numpy:
-    the reference's init salts its keys with Python's per-process string
-    hash, so its own draw differs from run to run. Scales are the
-    reference's (0.02 for embeddings, d_in ** -0.5 for dense weights);
-    norm scales and biases keep their constant init."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, a):
-        a = np.asarray(a)
-        if a.ndim < 2:
-            return jnp.asarray(a)
-        std = 0.02 if "embed" in jax.tree_util.keystr(path) \
-            else a.shape[-2] ** -0.5
-        return jnp.asarray((rng.standard_normal(a.shape) * std)
-                           .astype(np.float32)).astype(a.dtype)
-
-    return jax.tree_util.tree_map_with_path(
-        leaf, jax_build(jcfg).init(jax.random.key(0)))
 
 
 def _setup(jcfg, tcfg, B=2, S=24, seed=3):

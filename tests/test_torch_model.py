@@ -25,6 +25,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.interop import params_from_jax, params_to_numpy  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
+from jax_weights import seeded_params  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -47,7 +48,7 @@ def _run_both(jcfg, tcfg, *, jimpl, B=2, S=20, steps=4, seed=0):
     """The port's one decode path against the reference's ``jimpl``."""
     jm = jax_build(jcfg, JaxRuntime(attention_impl=jimpl))
     tm = build_model(tcfg)
-    jp = jm.init(jax.random.key(0))
+    jp = seeded_params(jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, jcfg.vocab_size, size=(B, S)).astype(np.int32)
@@ -110,7 +111,7 @@ def test_serve_steps_match_the_reference():
     jcfg = dataclasses.replace(jax_smoke("glm4-9b"), dtype="float32")
     tcfg = dataclasses.replace(get_smoke_config("glm4-9b"), dtype="float32")
     jm, tm = jax_build(jcfg), build_model(tcfg)
-    jp = jm.init(jax.random.key(0))
+    jp = seeded_params(jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
     rng = np.random.default_rng(1)
     toks = rng.integers(0, jcfg.vocab_size, size=(2, 9)).astype(np.int32)
@@ -129,7 +130,7 @@ def test_serve_steps_match_the_reference():
 @pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
 def test_interop_round_trip_is_bitwise(arch):
     cfg = jax_smoke(arch)
-    jp = jax_build(cfg).init(jax.random.key(0))
+    jp = seeded_params(cfg)
     np_tree = jax.tree.map(np.asarray, jp)
     tp = params_from_jax(np_tree, get_smoke_config(arch), "cpu")
     assert tp["embed"]["tok"].dtype == torch.bfloat16
@@ -144,8 +145,7 @@ def test_interop_round_trip_is_bitwise(arch):
 
 def test_interop_rejects_a_mismatched_tree():
     cfg = jax_smoke("glm4-9b")
-    np_tree = jax.tree.map(np.asarray,
-                           jax_build(cfg).init(jax.random.key(0)))
+    np_tree = jax.tree.map(np.asarray, seeded_params(cfg))
     with pytest.raises(ValueError, match="expects"):
         params_from_jax(np_tree, get_smoke_config("granite-8b"), "cpu")
     np_tree["final_norm"]["scale"] = np_tree["final_norm"]["scale"][:3]

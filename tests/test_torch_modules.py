@@ -26,6 +26,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.utils import tree_map  # noqa: E402
+from jax_weights import seeded  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -80,7 +81,7 @@ def test_norms_mlp_rope_embed_logits(dtype):
                                     "bias": jnp.asarray(bias)}, jx, 1e-5),
            dtype)
 
-    mlp = jlayers.init_mlp(jax.random.key(1), jcfg, jcfg.d_ff)
+    mlp = seeded(jlayers.init_mlp(jax.random.key(1), jcfg, jcfg.d_ff), 1)
     _close(tlayers.mlp_apply(_to_torch(mlp), tx),
            jlayers.mlp_apply(mlp, jx), dtype)
 
@@ -89,9 +90,10 @@ def test_norms_mlp_rope_embed_logits(dtype):
     _close(tlayers.apply_rope(tq, torch.from_numpy(pos), 10000.0),
            jlayers.apply_rope(jq, jnp.asarray(pos), 10000.0), dtype)
 
-    emb = jlayers.init_embed(jax.random.key(2), jcfg)
-    head = jlayers.init_dense(jax.random.key(3), jcfg.d_model,
-                              jcfg.vocab_size, JDT[dtype])
+    emb = seeded({"embed": jlayers.init_embed(jax.random.key(2), jcfg)},
+                 2)["embed"]
+    head = seeded(jlayers.init_dense(jax.random.key(3), jcfg.d_model,
+                                     jcfg.vocab_size, JDT[dtype]), 3)
     toks = rng.integers(0, jcfg.vocab_size, size=(2, 5)).astype(np.int32)
     _close(tlayers.embed_apply(_to_torch(emb), torch.from_numpy(toks)),
            jlayers.embed_apply(emb, jnp.asarray(toks)), dtype)
@@ -119,8 +121,7 @@ def test_attention_apply(arch, kw, dtype, window):
     """The forward's one path (the K1 wrapper, its plain version on host
     tensors) against both impl="pallas_interpret" and impl="xla"."""
     jcfg, tcfg = _cfgs(arch, dtype, **kw)
-    key = jax.random.key(14)
-    p = jattn.init_attention(key, jcfg)
+    p = seeded(jattn.init_attention(jax.random.key(14), jcfg), 14)
     if jcfg.use_qk_norm:        # non-trivial norm scales
         rng = np.random.default_rng(15)
         for n in ("q_norm", "k_norm"):
@@ -152,7 +153,7 @@ def test_decode_attention_apply(arch, dtype, pos):
     tensors) against both impl="pallas_interpret" and impl="xla": the
     output and the in-place ring-slot write of the cache."""
     jcfg, tcfg = _cfgs(arch, dtype)
-    p = jattn.init_attention(jax.random.key(4), jcfg)
+    p = seeded(jattn.init_attention(jax.random.key(4), jcfg), 4)
     rng = np.random.default_rng(pos)
     B, W = 2, 20
     jx, tx = _pair(rng, (B, 1, jcfg.d_model), dtype)
@@ -177,7 +178,7 @@ def test_block_prefill_chunked_causal(dtype):
     kw = dict(d_model=32, num_heads=2, num_kv_heads=1, head_dim=16, d_ff=64)
     jcfg, tcfg = _cfgs("glm4-9b", dtype, **kw)
     spec = ("attn", "mlp")
-    p = jtfm.init_block(jax.random.key(5), jcfg, spec)
+    p = seeded(jtfm.init_block(jax.random.key(5), jcfg, spec), 5)
     rng = np.random.default_rng(6)
     S, max_len = 2048, 2056
     jx, tx = _pair(rng, (1, S, jcfg.d_model), dtype)
@@ -264,7 +265,7 @@ def _spec_leaves(tree):
 def test_init_shapes_follow_the_reference_layout():
     jcfg, tcfg = _cfgs("granite-8b", "bfloat16", use_qk_norm=True,
                        use_bias=True)
-    jp = jtfm.init_lm(jax.random.key(0), jcfg)
+    jp = seeded(jtfm.init_lm(jax.random.key(0), jcfg))
     tp = ttfm.init_lm(torch.Generator().manual_seed(0), tcfg, "cpu")
     jshapes = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jp)
     tshapes = tree_map(lambda t: (tuple(t.shape),

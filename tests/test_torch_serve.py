@@ -31,6 +31,7 @@ from repro.serve import make_prefill_step as jax_prefill_step  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from jax_weights import seeded_params  # noqa: E402
 
 
 _MOVED = ("ClosedJaxpr", "Jaxpr", "Literal", "ShapedArray", "Var")
@@ -94,7 +95,7 @@ def test_serve_slice_matches_reference(ref, arch, batch, prompt_len, gen,
                                        interval):
     jcfg = dataclasses.replace(jax_smoke(arch), dtype="float32")
     tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-    jp = jax_build(jcfg).init(jax.random.key(0))
+    jp = seeded_params(jcfg)
     ref_toks, ref_drained = _jax_serve(ref, jcfg, jp, batch, prompt_len, gen,
                                        interval)
     out = serve(tcfg, batch, prompt_len, gen, sample_interval=interval,
