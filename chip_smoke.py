@@ -3,11 +3,14 @@
   python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a card. Any failure
-exits non-zero; no phase is caught. Phases:
+exits non-zero; no phase is caught. Before each main path (a serve run,
+a forward, a Scale-Down check) every kernel's launch count is set to 0,
+and after it each count must read what that path launches. Phases:
 
-  1. device  — the card's name and count, nvidia-smi's name and power
-               limit, and the nvcc builds of both kernels (one process per
-               source, started together) with their time;
+  1. device  — the card's name, count and SMs, nvidia-smi's name, power
+               limit and maximum SM clock, and the nvcc builds of the three
+               kernels (one process per source, started together) with
+               their time;
   2. kernel  — K2 (decode attention) against its plain version on the
                card: the reference's test grid, glm4-9b's and granite-8b's
                decode shapes, softcap 0 and 30, f32 at 2e-5 and bf16 at
@@ -55,10 +58,39 @@ exits non-zero; no phase is caught. Phases:
  10. k1 time — K1 timed at the glm4-9b forward shape over 40 distinct
                q/k/v sets (~2.9 GB, beyond the 50 MB L2), beside its
                bound, its plain version and F.scaled_dot_product_attention
-               (timed only). Both kernels go into one JSON line.
+               (timed only).
 
-The last line is {"ok": true, "device": {...}}. The full record is also
-written to chiprun_out/chip_smoke.json.
+glm4-9b's weights are then freed and the peak-memory counter reset, so
+the falcon-mamba-7b phases report their own peak:
+
+ 11. k3      — K3 (selective scan) against its plain version on the card,
+               f32, y and h_last at 1e-4 (the tolerance of the reference's
+               test_ssm_scan): the reference's grid, a ragged S=4000 with
+               Din=8192, B_ and C_ as strided views, and the forward
+               (B=2, S=4096) and serve-prefill (B=8, S=2048) shapes;
+ 12. ssm serve — serve() on the full falcon-mamba-7b config (64 layers,
+               bf16, random weights from a seed drawn on the card, kept
+               for 14 and 15): batch 8, prompt 2048, 64 generated tokens,
+               windows of 8, every window under sync-debug mode "error".
+               Exactly 64 K3 launches, all in the prefill (read when the
+               first window starts), no K1 or K2 launch, 63 decode-FIFO
+               rows; the decode traced from window 3 on as in phase 3;
+ 13. ssm parity — the falcon-mamba smoke config in f32 through serve() on
+               the card and on the host: the same greedy tokens;
+ 14. ssm forward — Model.loss with the taps at full width and depth, B=2,
+               S=4096: exactly 64 K3 launches, 64 commit rows, none
+               dropped, a finite loss; wall time and peak memory;
+ 15. ssm scale-down — verify_extraction at layers 0, 32 and 63 (bitwise,
+               65 K3 launches each) and scanned_vs_unrolled (0.0, 128);
+ 16. ssm forward parity — the falcon-mamba smoke config in f32, loss and
+               checksums card against host within 1e-5, replays bitwise;
+ 17. k3 time — K3 timed with CUDA events at the forward and the prefill
+               shapes, beside its bound and its plain version (no PyTorch
+               call computes the selective scan, so no library time).
+
+K2, K1 and K3 go into one JSON line. The last line is
+{"ok": true, "device": {...}}. The full record is also written to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -77,6 +109,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+# exponentials (MUFU.EX2) a clock per SM on compute capability 9.0: the
+# arithmetic-instruction throughput table of the CUDA C++ Programming
+# Guide; times the SMs and the maximum SM clock the card reports
+SFU_PER_CLOCK_PER_SM = 16
 
 # glm4-9b serve cell; its decode is profiled from window TRACED on
 ARCH, BATCH, PROMPT, GEN, INTERVAL = "glm4-9b", 8, 2048, 64, 8
@@ -84,6 +121,34 @@ TRACED = 3
 # the commit-tapped forward at glm4-9b's full width and depth
 FWD_BATCH, FWD_SEQ = 2, 4096
 SCALE_DOWN_LAYERS = (0, 20, 39)
+# falcon-mamba-7b: the same serve cell and forward shape, full width and
+# depth
+SSM_ARCH = "falcon-mamba-7b"
+SSM_SCALE_DOWN_LAYERS = (0, 32, 63)
+
+
+def kernel_ops():
+    """The kernels' wrappers, each carrying its launch count."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    return {"k1": fa_ops.flash_attention, "k2": da_ops.decode_attention,
+            "k3": ssm_ops.ssm_scan}
+
+
+def reset_counts():
+    for fn in kernel_ops().values():
+        fn.launches = 0
+
+
+def counts():
+    return {k: fn.launches for k, fn in kernel_ops().items()}
+
+
+def expect_counts(got, want, what):
+    """Every kernel's count as ``want`` says (0 where it names none)."""
+    full = {k: want.get(k, 0) for k in kernel_ops()}
+    assert got == full, (what, got, full)
 
 
 def log(**kw):
@@ -106,9 +171,12 @@ def tracing_timer(first):
 
     class Tracing(NoSyncInWindow):
         prof = None
+        counts_at_decode = None     # launch counts when window 0 starts
 
         @contextlib.contextmanager
         def phase(self, name):
+            if name == "device" and self.windows == 0:
+                self.counts_at_decode = counts()
             if name == "device" and self.windows == first:
                 self.prof = profile(activities=[ProfilerActivity.CUDA])
                 self.prof.start()
@@ -159,17 +227,17 @@ def time_ms(torch, fn, n_args, reps):
     return start.elapsed_time(end) / (reps * n_args)
 
 
-def forward_phase(cfg, params, B=FWD_BATCH, S=FWD_SEQ):
+def forward_phase(cfg, params, kernel, B=FWD_BATCH, S=FWD_SEQ):
     """Model.loss with the commit and coverage taps on one make_batch_fn
     batch on the card, its taps ingested into the P-Shell and drained.
-    Checks the K1 launch count (one per layer), the commit rows and the
-    loss; returns the record, the model and the batch."""
+    Checks the launch count of ``kernel`` (one per layer; no other kernel
+    launched), the commit rows and the loss; returns the record, the model
+    and the batch."""
     import torch
 
     from repro_torch.core import (default_shell_config, drain, make_ingest,
                                   shell_init)
     from repro_torch.data.pipeline import make_batch_fn
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import Runtime, build_model
     from repro_torch.testing import TAPS
 
@@ -178,13 +246,13 @@ def forward_phase(cfg, params, B=FWD_BATCH, S=FWD_SEQ):
              make_batch_fn(cfg, B, S, seed=0)(0).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.flash_attention.launches = 0
+    reset_counts()
     t = time.perf_counter()
     with torch.inference_mode():
         loss, (metrics, aux) = model.loss(params, batch)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
-    launches = fa_ops.flash_attention.launches
+    launch_counts = counts()
     peak = torch.cuda.max_memory_allocated()
     shell = make_ingest(cfg)(shell_init(default_shell_config(cfg), "cuda"),
                              aux, metrics)
@@ -192,7 +260,7 @@ def forward_phase(cfg, params, B=FWD_BATCH, S=FWD_SEQ):
     commits = records["fifos"]["commits"]
     L = cfg.num_layers
     loss_val = float(loss)
-    assert launches == L, launches
+    expect_counts(launch_counts, {kernel: L}, "forward")
     assert commits["count"] == L, commits["count"]
     assert commits["dropped"] == 0, commits["dropped"]
     assert commits["data"][:, 0].tolist() == list(range(L))
@@ -203,22 +271,22 @@ def forward_phase(cfg, params, B=FWD_BATCH, S=FWD_SEQ):
     assert not records["csrs"]["nan_bits"].any()
     rec = {"arch": cfg.name, "batch": B, "seq": S, "layers": L,
            "loss": loss_val, "wall_s": wall_s, "max_memory_allocated": peak,
-           "k1_launches": launches, "commit_rows": commits["count"],
+           f"{kernel}_launches": launch_counts[kernel],
+           "launches": launch_counts, "commit_rows": commits["count"],
            "dropped": commits["dropped"],
            "checksums_first_last": [commits["data"][0, 1:].tolist(),
                                     commits["data"][-1, 1:].tolist()]}
     return rec, model, batch
 
 
-def scale_down_phase(cfg, params, model, batch, layers=SCALE_DOWN_LAYERS):
+def scale_down_phase(cfg, params, model, batch, layers, kernel):
     """verify_extraction at ``layers`` on the batch's activations (bitwise,
-    one K1 launch per layer of the capture plus the replay), then
-    scanned_vs_unrolled (0.0, two launches per layer)."""
+    one launch of ``kernel`` per layer of the capture plus the replay),
+    then scanned_vs_unrolled (0.0, two launches per layer)."""
     import torch
 
     from repro_torch.core.decompose import (scanned_vs_unrolled,
                                             verify_extraction)
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.layers import embed_apply
 
     B, S = batch["tokens"].shape
@@ -229,23 +297,167 @@ def scale_down_phase(cfg, params, model, batch, layers=SCALE_DOWN_LAYERS):
     with torch.inference_mode():
         x = embed_apply(params["embed"], batch["tokens"])
         for layer in layers:
-            fa_ops.flash_attention.launches = 0
+            reset_counts()
             t = time.perf_counter()
             rep = verify_extraction(params, cfg, x, positions, model.rt,
                                     layer)
             torch.cuda.synchronize()
+            got = counts()
             rep.update(seconds=time.perf_counter() - t,
-                       k1_launches=fa_ops.flash_attention.launches)
-            assert rep["k1_launches"] == L + 1, rep
+                       **{f"{kernel}_launches": got[kernel]})
+            expect_counts(got, {kernel: L + 1}, f"verify layer {layer}")
             assert rep["bitwise_identical"], rep
             reports[layer] = rep
-        fa_ops.flash_attention.launches = 0
+        reset_counts()
         svu = scanned_vs_unrolled(params, cfg, x, positions, model.rt)
-        svu_launches = fa_ops.flash_attention.launches
-    assert svu_launches == 2 * L, svu_launches
+        got = counts()
+    expect_counts(got, {kernel: 2 * L}, "scanned_vs_unrolled")
     assert svu == 0.0, svu
     return {"verify_extraction": reports, "scanned_vs_unrolled": svu,
-            "scanned_vs_unrolled_k1_launches": svu_launches}
+            f"scanned_vs_unrolled_{kernel}_launches": got[kernel]}
+
+
+def serve_phase(cfg, params, prefill_counts, total_counts):
+    """serve() on ``cfg`` at the serve cell with ``params``, every decode
+    window under sync-debug mode "error" and the decode traced from window
+    TRACED on. All launch counts are set to 0 just before; they must read
+    ``prefill_counts`` when the first window starts and ``total_counts``
+    at the end. Returns the serve record and the trace."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+
+    timer = tracing_timer(TRACED)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(cfg, BATCH, PROMPT, GEN, seed=0, sample_interval=INTERVAL,
+                device="cuda", params=params, timer=timer)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    timer.prof.stop()
+    stop_s = time.perf_counter() - t
+    trace = device_trace(timer.prof, GEN - 1 - TRACED * INTERVAL)
+    trace.update(windows=f"{TRACED}-end", profiler_stop_s=stop_s)
+    steps = GEN - 1
+    n_windows = -(-steps // INTERVAL)
+    toks = out["tokens"]
+    expect_counts(timer.counts_at_decode, prefill_counts, "serve prefill")
+    expect_counts(got, total_counts, "serve")
+    assert out["decode_fifo_rows"] == steps, out["decode_fifo_rows"]
+    assert len(out["drained"]) == n_windows == timer.windows, \
+        (len(out["drained"]), timer.windows)
+    assert [d["tokens_csr"] for d in out["drained"]][-1] == BATCH * steps
+    assert len(toks) == BATCH and all(len(r) == GEN for r in toks)
+    assert all(0 <= t < cfg.vocab_size for r in toks for t in r)
+    assert not out["hung"]
+    rec = {k: out[k] for k in ("prefill_s", "decode_s", "decode_tok_per_s",
+                               "decode_window_ms", "decode_fifo_rows",
+                               "generated")}
+    rec.update(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+               sample_interval=INTERVAL, layers=cfg.num_layers,
+               launches=got, launches_in_prefill=timer.counts_at_decode,
+               windows=n_windows, max_memory_allocated=peak)
+    return rec, trace
+
+
+def serve_parity(archs):
+    """Each arch's smoke config in f32 through serve() on the card
+    (kernels) and on the host (plain), from the same weights: the greedy
+    tokens must be equal. Returns the tokens per arch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.testing import NoSyncInWindow
+    from repro_torch.utils import tree_map
+
+    parity = {}
+    for arch in archs:
+        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        host = build_model(scfg).init(0, device="cpu")
+        on_card = serve(scfg, 2, 16, 8, sample_interval=3, device="cuda",
+                        params=tree_map(lambda x: x.to("cuda"), host),
+                        timer=NoSyncInWindow())
+        on_host = serve(scfg, 2, 16, 8, sample_interval=3, device="cpu",
+                        params=host)
+        assert on_card["tokens"] == on_host["tokens"], (arch, on_card,
+                                                        on_host)
+        assert on_card["decode_fifo_rows"] == on_host["decode_fifo_rows"]
+        parity[arch] = on_card["tokens"]
+    return parity
+
+
+def k3_check_phase(cfg):
+    """K3 against its plain version on the card (``check_ssm_scan``, f32,
+    y and h_last at 1e-4). Returns, per case group, the max abs errors of
+    y and of h_last."""
+    from repro_torch.testing import check_ssm_scan
+
+    Din, N = cfg.d_inner, cfg.ssm_state
+    errs: dict = {}
+
+    def case(key, *a, **kw):
+        got = check_ssm_scan(*a, **kw)
+        errs[key] = [max(x, y) for x, y in zip(errs.get(key, got), got)]
+
+    for shape in ((2, 64, 32, 8), (1, 100, 48, 4)):
+        case("grid", *shape)
+    case("ragged", FWD_BATCH, 4000, Din, N)
+    for shape in ((2, 64, 32, 8), (1, 100, 48, 4), (FWD_BATCH, 4000, Din,
+                                                     N)):
+        case("strided", *shape, strided=True)
+    case("forward", FWD_BATCH, FWD_SEQ, Din, N, strided=True)
+    case("prefill", BATCH, PROMPT, Din, N, strided=True)
+    return errs
+
+
+def k3_time(cfg, B, S, exp_per_s):
+    """K3 and its plain version timed with CUDA events on inputs shaped as
+    the model passes them (B_ and C_ strided views of one projection),
+    cycling through two input sets of ~0.5 GB each or more, beside the
+    bound: the larger of the bytes over the memory rate and the
+    exponentials and f32 operations over their rates."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    Din, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    sets = []
+    for _ in range(2):
+        _, B_, C_ = torch.split(rand(B, S, R + 2 * N), [R, N, N], dim=-1)
+        sets.append((F.softplus(rand(B, S, Din)),
+                     -torch.exp(0.5 * rand(Din, N)), B_, C_,
+                     rand(B, S, Din)))
+    ms = time_ms(torch, lambda i: ssm_ops.ssm_scan(*sets[i]), 2, reps=5)
+    plain_ms = time_ms(torch, lambda i: ssm_scan_ref(*sets[i]), 1, reps=1)
+    ms_2 = time_ms(torch, lambda i: ssm_ops.ssm_scan(*sets[i]), 2, reps=5)
+    elems = B * S * Din
+    # dt, x in and y out; A, B_, C_ in and h_last out, all f32
+    nbytes = 4 * (3 * elems + Din * N + 2 * B * S * N + B * Din * N)
+    exps = elems * N
+    # per state: dt*A, (dt*x)*B, the state's multiply-add, y's
+    # multiply-add; and dt*x per channel and step
+    flops = elems * (6 * N + 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / exp_per_s * 1e3
+    flop_ms = flops / F32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, exp_ms, flop_ms)
+    return {"ms": ms, "ms_repeat": ms_2, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= max(exp_ms, flop_ms)
+            else "operations",
+            "bound_share": bound_ms / ms, "bytes": nbytes, "bytes_ms": bytes_ms,
+            "exps": exps, "exp_ms": exp_ms, "flops": flops,
+            "flop_ms": flop_ms,
+            "shape": {"B": B, "S": S, "Din": Din, "N": N,
+                      "dtype": "float32", "B_C": "strided views"}}
 
 
 def main() -> int:
@@ -259,12 +471,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
-    from repro_torch.testing import (NoSyncInWindow, check_decode_attention,
+    from repro_torch.testing import (check_decode_attention,
                                      check_flash_attention,
                                      check_forward_parity)
-    from repro_torch.utils import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -273,16 +483,26 @@ def main() -> int:
     # ---------------------------------------------------------- 1. device --
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    print(f"device: {name} count={count}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def smi_query(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip().splitlines()[0]
+
+    smi = smi_query("name,power.limit")
+    sm_clock_mhz = float(smi_query("clocks.max.sm").split()[0])
+    exp_per_s = SFU_PER_CLOCK_PER_SM * sms * sm_clock_mhz * 1e6
+    print(f"device: {name} count={count} sms={sms} "
+          f"max_sm_clock_mhz={sm_clock_mhz}", flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     record["device"] = {"name": name, "count": count, "nvidia_smi": smi,
+                        "sms": sms, "max_sm_clock_mhz": sm_clock_mhz,
+                        "exp_per_s": exp_per_s,
                         "torch": torch.__version__,
                         "cuda": torch.version.cuda}
-    kernels = ("decode_attention", "flash_attention")
+    kernels = ("decode_attention", "flash_attention", "ssm_scan")
     t = time.perf_counter()
     build_logs = _build.build(*kernels)
     build_s = time.perf_counter() - t
@@ -324,55 +544,18 @@ def main() -> int:
     # ----------------------------------------------------------- 3. serve --
     cfg = get_config(ARCH)
     params = build_model(cfg).init(0, device="cuda")   # kept for 7 and 8
-    timer = tracing_timer(TRACED)
-    torch.cuda.reset_peak_memory_stats()
-    ops.decode_attention.launches = 0
-    out = serve(cfg, BATCH, PROMPT, GEN, seed=0, sample_interval=INTERVAL,
-                device="cuda", params=params, timer=timer)
-    launches = ops.decode_attention.launches
-    peak = torch.cuda.max_memory_allocated()
-    t = time.perf_counter()
-    timer.prof.stop()
-    stop_s = time.perf_counter() - t
-    trace = device_trace(timer.prof, GEN - 1 - TRACED * INTERVAL)
-    trace.update(windows=f"{TRACED}-end", profiler_stop_s=stop_s)
-    steps = GEN - 1
-    n_windows = -(-steps // INTERVAL)
-    toks = out["tokens"]
-    assert launches == cfg.num_layers * steps, launches
-    assert out["decode_fifo_rows"] == steps, out["decode_fifo_rows"]
-    assert len(out["drained"]) == n_windows == timer.windows, \
-        (len(out["drained"]), timer.windows)
-    assert [d["tokens_csr"] for d in out["drained"]][-1] == BATCH * steps
-    assert len(toks) == BATCH and all(len(r) == GEN for r in toks)
-    assert all(0 <= t < cfg.vocab_size for r in toks for t in r)
-    assert not out["hung"]
-    serve_rec = {k: out[k] for k in ("prefill_s", "decode_s",
-                                     "decode_tok_per_s", "decode_window_ms",
-                                     "decode_fifo_rows", "generated")}
-    serve_rec.update(arch=ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
-                     sample_interval=INTERVAL, layers=cfg.num_layers,
-                     k2_launches=launches, windows=n_windows,
-                     max_memory_allocated=peak)
+    L = cfg.num_layers
+    serve_rec, trace = serve_phase(cfg, params, {},
+                                   {"k2": L * (GEN - 1)})
+    launches = serve_rec["launches"]["k2"]
+    serve_rec["k2_launches"] = launches
     log(phase="serve", **serve_rec)
     record["serve"] = serve_rec
     log(phase="trace", **trace)
     record["trace"] = trace
 
     # ---------------------------------------------------------- 4. parity --
-    parity = {}
-    for arch in ("glm4-9b", "granite-8b"):
-        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-        host = build_model(scfg).init(0, device="cpu")
-        on_card = serve(scfg, 2, 16, 8, sample_interval=3, device="cuda",
-                        params=tree_map(lambda x: x.to("cuda"), host),
-                        timer=NoSyncInWindow())
-        on_host = serve(scfg, 2, 16, 8, sample_interval=3, device="cpu",
-                        params=host)
-        assert on_card["tokens"] == on_host["tokens"], (arch, on_card,
-                                                        on_host)
-        assert on_card["decode_fifo_rows"] == on_host["decode_fifo_rows"]
-        parity[arch] = on_card["tokens"]
+    parity = serve_parity(("glm4-9b", "granite-8b"))
     log(phase="parity", tokens_equal=True, tokens=parity)
     record["parity"] = parity
 
@@ -470,13 +653,14 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    fwd, model, batch = forward_phase(cfg, params)
+    fwd, model, batch = forward_phase(cfg, params, "k1")
     log(phase="forward", **fwd)
     record["forward"] = fwd
     fwd_launches = fwd["k1_launches"]
 
     # ------------------------------------------------------ 8. scale-down --
-    scale_down = scale_down_phase(cfg, params, model, batch)
+    scale_down = scale_down_phase(cfg, params, model, batch,
+                                  SCALE_DOWN_LAYERS, "k1")
     log(phase="scale_down", **scale_down)
     record["scale_down"] = scale_down
     del batch
@@ -548,13 +732,80 @@ def main() -> int:
         "library_call": "F.scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True)",
     }
-    record["kernels"] = [k2, k1]
+    del qs, ks, vs, qt, kt, vt, params, model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -------------------------------------------------------------- 11. k3 --
+    scfg = get_config(SSM_ARCH)
+    k3_errs = k3_check_phase(scfg)
+    log(phase="k3", max_abs_err_y_and_h_last=k3_errs)
+    record["k3_errors"] = k3_errs
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- 12. ssm serve --
+    sparams = build_model(scfg).init(0, device="cuda")   # kept for 14, 15
+    SL = scfg.num_layers
+    ssm_serve, ssm_trace = serve_phase(scfg, sparams, {"k3": SL},
+                                       {"k3": SL})
+    log(phase="ssm_serve", **ssm_serve)
+    record["ssm_serve"] = ssm_serve
+    log(phase="ssm_trace", **ssm_trace)
+    record["ssm_trace"] = ssm_trace
+
+    # ------------------------------------------------------- 13. ssm parity --
+    ssm_parity = serve_parity((SSM_ARCH,))
+    log(phase="ssm_parity", tokens_equal=True, tokens=ssm_parity)
+    record["ssm_parity"] = ssm_parity
+
+    # ------------------------------------------------------ 14. ssm forward --
+    ssm_fwd, smodel, sbatch = forward_phase(scfg, sparams, "k3")
+    log(phase="ssm_forward", **ssm_fwd)
+    record["ssm_forward"] = ssm_fwd
+
+    # --------------------------------------------------- 15. ssm scale-down --
+    ssm_sd = scale_down_phase(scfg, sparams, smodel, sbatch,
+                              SSM_SCALE_DOWN_LAYERS, "k3")
+    log(phase="ssm_scale_down", **ssm_sd)
+    record["ssm_scale_down"] = ssm_sd
+    del sparams, smodel, sbatch
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------- 16. ssm forward parity --
+    ssm_fwd_parity = check_forward_parity(
+        dataclasses.replace(get_smoke_config(SSM_ARCH), dtype="float32"))
+    SSL = get_smoke_config(SSM_ARCH).num_layers
+    assert ssm_fwd_parity["k1_launches"] == 0
+    assert ssm_fwd_parity["k3_launches"] == SSL + SSL * (SSL + 1)
+    log(phase="ssm_forward_parity", **ssm_fwd_parity)
+    record["ssm_forward_parity"] = ssm_fwd_parity
+
+    # ---------------------------------------------------------- 17. k3 time --
+    k3_fwd = k3_time(scfg, FWD_BATCH, FWD_SEQ, exp_per_s)
+    k3_pre = k3_time(scfg, BATCH, PROMPT, exp_per_s)
+    k3 = {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:55",
+        "launches": ssm_fwd["k3_launches"],
+        "max_abs_err": max(k3_errs["forward"]),
+        "ms": k3_fwd["ms"], "plain_ms": k3_fwd["plain_ms"],
+        "bound_ms": k3_fwd["bound_ms"], "bound_by": k3_fwd["bound_by"],
+        "library_ms": None,
+        "launches_per_forward": SL,
+        "launches_serve": ssm_serve["launches"]["k3"],
+        "forward_shape": k3_fwd, "prefill_shape": k3_pre,
+        "max_abs_err_prefill": max(k3_errs["prefill"]),
+        "library_call": "none: no PyTorch call computes the selective scan",
+    }
+    log(phase="k3_time", forward=k3_fwd, prefill=k3_pre)
+    record["kernels"] = [k2, k1, k3]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=float))
-    print(json.dumps({"kernels": [k2, k1]}, default=float), flush=True)
+    print(json.dumps({"kernels": [k2, k1, k3]}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

@@ -47,7 +47,7 @@ def layer_checksums(aux) -> torch.Tensor:
 
 def moe_toggles(aux):
     """(n_moe_layers, E) router toggles, or None (always for the dense
-    family, whose blocks emit no "moe" tap)."""
+    and SSM families, whose blocks emit no "moe" tap)."""
     rows = []
     for pos in aux.get("scanned", ()):
         if "moe" in pos and "expert_toggles" in pos["moe"]:

@@ -1,4 +1,4 @@
-"""Model facade of the port: the dense decoder family.
+"""Model facade of the port: the dense decoder and Mamba-1 SSM families.
 
 ``build_model(cfg, rt)`` returns a Model with:
   init(seed, device) -> params
@@ -10,7 +10,7 @@
 
 ``aux`` carries the P-Shell taps that ``rt.taps`` asks for. Gradients,
 the optimizer and the train step come with the training slice; the other
-families (moe, ssm, hybrid, encdec, vlm) with later slices of the port.
+families (moe, hybrid, encdec, vlm) with later slices of the port.
 """
 from __future__ import annotations
 
@@ -47,10 +47,10 @@ def _on_device(batch, params):
 
 class Model:
     def __init__(self, cfg: ModelConfig, rt: Runtime = Runtime()):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (a later slice "
-                "of the port); the dense family is ported")
+                "of the port); the dense and ssm families are ported")
         self.cfg = cfg
         self.rt = rt
 
@@ -71,8 +71,8 @@ class Model:
         return tfm.lm_logits(params, self.cfg, batch["tokens"], self.rt)
 
     def loss(self, params, batch):
-        """Mean next-token cross-entropy. The dense family has no MoE aux
-        loss, so ``loss`` is ``ce`` and ``moe_aux`` a 0-d f32 zero."""
+        """Mean next-token cross-entropy. The ported families have no MoE
+        aux loss, so ``loss`` is ``ce`` and ``moe_aux`` a 0-d f32 zero."""
         batch = _on_device(batch, params)
         logits, aux = self.logits(params, batch)
         ce = cross_entropy(logits, batch["labels"])

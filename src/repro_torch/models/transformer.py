@@ -14,9 +14,9 @@ The forward (``block_apply``, ``stack_apply``, ``lm_hidden``,
 leaves are stacked over periods on axis 0, "tail": tuple of dicts}``.
 ``core/commit.py`` reads that layout in period-major layer order.
 
-The attention mixers (attn / swa / local) with the GLU MLP are ported.
-The SSM and RG-LRU mixers and the MoE FFN arrive with the slice that
-ports the other model families.
+The attention mixers (attn / swa / local) with the GLU MLP, and the
+Mamba-1 mixer with no FFN, are ported. The RG-LRU mixer and the MoE FFN
+arrive with the slices that port those families.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed_apply, init_dense, init_embed,
                                        init_mlp, init_norm, logits_apply,
                                        mlp_apply, norm_apply)
@@ -32,15 +33,15 @@ from repro_torch.models.runtime import Runtime
 from repro_torch.utils import checksum, dtype_of, has_nan_bit, tree_map
 
 _ATTN_KINDS = ("attn", "swa", "local")
-_LATER = "is not ported yet (the slice that ports the other model families)"
+_LATER = "is not ported yet (a later slice of the port)"
 
 
 # ------------------------------------------------------------------ block ---
 def _check_spec(spec):
     mixer, ffn = spec
-    if mixer in ("rglru", "mamba"):
+    if mixer == "rglru":
         raise NotImplementedError(f"mixer {mixer!r} {_LATER}")
-    if mixer not in _ATTN_KINDS:
+    if mixer not in _ATTN_KINDS + ("mamba",):
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn == "moe":
         raise NotImplementedError(f"ffn 'moe' {_LATER}")
@@ -50,9 +51,12 @@ def _check_spec(spec):
 
 def init_block(g, cfg, spec, device):
     _check_spec(spec)
-    _, ffn = spec
-    p: Dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, device),
-                         "attn": attn.init_attention(g, cfg, device)}
+    mixer, ffn = spec
+    p: Dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, device)}
+    if mixer == "mamba":
+        p["mamba"] = ssm_mod.init_mamba(g, cfg, device)
+    else:
+        p["attn"] = attn.init_attention(g, cfg, device)
     if ffn is not None:
         p["norm2"] = init_norm(cfg, cfg.d_model, device)
         p["mlp"] = init_mlp(g, cfg, cfg.d_ff, device)
@@ -70,8 +74,11 @@ def block_apply(p, cfg, spec, x, positions, rt: Runtime):
     mixer, ffn = spec
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x)
-    x = x + attn.attention_apply(p["attn"], cfg, h, positions,
-                                 window=_mixer_window(cfg, mixer))
+    if mixer == "mamba":
+        x = x + ssm_mod.mamba_apply(p["mamba"], cfg, h)
+    else:
+        x = x + attn.attention_apply(p["attn"], cfg, h, positions,
+                                     window=_mixer_window(cfg, mixer))
     if ffn is not None:
         x = x + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x))
     aux: Dict[str, Any] = {}
@@ -84,6 +91,8 @@ def block_apply(p, cfg, spec, x, positions, rt: Runtime):
 
 def block_cache_spec(cfg, spec, batch: int, max_len: int):
     _check_spec(spec)
+    if spec[0] == "mamba":
+        return ssm_mod.mamba_state_spec(cfg, batch)
     return attn.cache_spec(cfg, batch, max_len, _mixer_window(cfg, spec[0]))
 
 
@@ -92,8 +101,11 @@ def block_decode(p, cfg, spec, x1, cache, pos):
     mixer, ffn = spec
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x1)
-    y, cache = attn.decode_attention_apply(
-        p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer))
+    if mixer == "mamba":
+        y, cache = ssm_mod.mamba_decode(p["mamba"], cfg, h, cache)
+    else:
+        y, cache = attn.decode_attention_apply(
+            p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer))
     x1 = x1 + y
     if ffn is not None:
         x1 = x1 + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x1))
@@ -105,9 +117,23 @@ def block_prefill(p, cfg, spec, x, positions, max_len: int):
     mixer, ffn = spec
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x)
+    if mixer == "mamba":
+        y, cache = ssm_mod.mamba_prefill(p["mamba"], cfg, h)
+    else:
+        y, cache = _attention_prefill(p["attn"], cfg, mixer, h, positions,
+                                      max_len)
+    x = x + y
+    if ffn is not None:
+        x = x + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x))
+    return x, cache
+
+
+def _attention_prefill(p, cfg, mixer, h, positions, max_len: int):
+    """Plain attention over the prompt (q-chunked above ``_Q_CHUNK``) and
+    the layer's ring KV cache."""
     window = _mixer_window(cfg, mixer)
-    B, S, _ = x.shape
-    q, k, v = attn._project_qkv(p["attn"], cfg, h, h, positions, positions,
+    B, S, _ = h.shape
+    q, k, v = attn._project_qkv(p, cfg, h, h, positions, positions,
                                 rope=True)
     pos = positions[0] if positions.dim() > 1 else positions
     if S > attn._Q_CHUNK and S % attn._Q_CHUNK == 0:
@@ -115,7 +141,7 @@ def block_prefill(p, cfg, spec, x, positions, max_len: int):
     else:
         mask = attn._causal_window_mask(pos, pos, window)
         out = attn._attend(cfg, q, k, v, mask)
-    y = attn.dense_apply(p["attn"]["o"], out)
+    y = attn.dense_apply(p["o"], out)
     W = min(window, max_len) if window > 0 else max_len
     ck = k.new_zeros((B, W) + k.shape[2:])
     cv = v.new_zeros((B, W) + v.shape[2:])
@@ -124,13 +150,10 @@ def block_prefill(p, cfg, spec, x, positions, max_len: int):
         cv[:, :S] = v
     else:
         # ring-consistent placement of the last W keys (slot = t % W)
-        slots = torch.arange(S - W, S, device=x.device) % W
+        slots = torch.arange(S - W, S, device=h.device) % W
         ck.index_copy_(1, slots, k[:, S - W:])
         cv.index_copy_(1, slots, v[:, S - W:])
-    x = x + y
-    if ffn is not None:
-        x = x + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x))
-    return x, {"k": ck, "v": cv}
+    return y, {"k": ck, "v": cv}
 
 
 # --------------------------------------------------------------- assembly ---

@@ -1,8 +1,8 @@
 """Checks of the port on the card, shared by ``chip_smoke.py`` and
 ``tests/test_torch_gpu.py``: a scheduler timer that forbids host syncs
-inside a decode window, K1 and K2 held against their plain versions, and
-the commit-tapped forward with its Scale-Down replay on the card against
-the same on the host."""
+inside a decode window, K1, K2 and K3 held against their plain versions,
+and the commit-tapped forward with its Scale-Down replay on the card
+against the same on the host."""
 from __future__ import annotations
 
 import contextlib
@@ -17,6 +17,8 @@ from repro_torch.kernels.decode_attention import ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models import Runtime, build_model
 from repro_torch.models.layers import embed_apply
 from repro_torch.utils import tree_map
@@ -34,6 +36,8 @@ BF16_NORM_REL = 6e-3
 # the kernel rounds its unnormalised weights to bf16, the plain version
 # its normalised ones.
 FA_BF16_NORM_REL = 6e-3
+# K3 in f32, y and h_last: the tolerance of the reference's test_ssm_scan
+SSM_TOL = 1e-4
 # card against host in f32: the co-emulator's relative error
 # |a - b| / (|b| + 1e-6) of the loss and of each (L,2) checksum
 PARITY_RTOL = 1e-5
@@ -114,13 +118,46 @@ def check_flash_attention(B, S, H, K, hd, dtype, T=None, causal=True,
     return _compare(out, ref, dtype, case, FA_BF16_NORM_REL)
 
 
+def check_ssm_scan(B, S, Din, N, seed=0, strided=False):
+    """K3 on random inputs drawn on the card from ``seed`` (the reference
+    test's distributions: dt = softplus(normal), A = -exp(normal / 2),
+    B_, C_ and x normal), against its plain version on the same inputs, y
+    and h_last at SSM_TOL. ``strided``: B_ and C_ are views into one
+    (B, S, 8 + 2N) tensor, as the model splits them off its projection.
+    Raises AssertionError where they disagree; returns the max abs errors
+    of y and of h_last."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    dt = torch.nn.functional.softplus(rand(B, S, Din))
+    A = -torch.exp(0.5 * rand(Din, N))
+    if strided:
+        _, B_, C_ = torch.split(rand(B, S, 8 + 2 * N), [8, N, N], dim=-1)
+    else:
+        B_, C_ = rand(B, S, N), rand(B, S, N)
+    x = rand(B, S, Din)
+    before = ssm_ops.ssm_scan.launches
+    y, h = ssm_ops.ssm_scan(dt, A, B_, C_, x)
+    assert ssm_ops.ssm_scan.launches == before + 1
+    yr, hr = ssm_scan_ref(dt, A, B_, C_, x)
+    case = f"K3 vs plain, B={B} S={S} Din={Din} N={N} strided={strided}"
+    for name, a, b in (("y", y, yr), ("h_last", h, hr)):
+        assert a.dtype == torch.float32 and a.shape == b.shape, case
+        torch.testing.assert_close(a, b, rtol=SSM_TOL, atol=SSM_TOL,
+                                   msg=lambda m: f"{case} {name}: {m}")
+    return (float((y - yr).abs().max()), float((h - hr).abs().max()))
+
+
 def check_forward_parity(cfg, B=2, S=24, seed=0):
     """The commit-tapped loss and the Scale-Down replay of every layer of
     ``cfg`` (an f32 config), from the same weights drawn on the host, on
-    the card (K1 and cuBLAS) and on the host (plain versions). The loss
+    the card (K1 or K3, and cuBLAS) and on the host (plain versions). The loss
     and the (L,2) checksums must agree within PARITY_RTOL, the nan bits
     exactly, and every replay must be bitwise on both. Returns the errors
-    and the K1 launches on the card."""
+    and the K1 and K3 launches on the card."""
     model = build_model(cfg, Runtime(taps=TAPS))
     host = model.init(seed, device="cpu")
     batch = make_batch_fn(cfg, B, S, seed)(0)
@@ -128,7 +165,8 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
     for dev in ("cuda", "cpu"):
         params = tree_map(lambda t: t.to(dev), host)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        before = fa_ops.flash_attention.launches
+        before = (fa_ops.flash_attention.launches,
+                  ssm_ops.ssm_scan.launches)
         with torch.inference_mode():
             loss, (_, aux) = model.loss(params, b)
             x = embed_apply(params["embed"], b["tokens"])
@@ -140,7 +178,9 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
                      "cks": layer_checksums(aux).cpu().numpy(),
                      "nan": nan_bits(aux).cpu().numpy(),
                      "bitwise": bitwise,
-                     "launches": fa_ops.flash_attention.launches - before})
+                     "launches": (fa_ops.flash_attention.launches
+                                  - before[0],
+                                  ssm_ops.ssm_scan.launches - before[1])})
     a, b = runs
 
     def rel(x, y):
@@ -150,7 +190,8 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
                                                          b["loss"]),
            "checksum_rel_err": rel(a["cks"], b["cks"]),
            "bitwise": [a["bitwise"], b["bitwise"]],
-           "k1_launches": a["launches"]}
+           "k1_launches": a["launches"][0],
+           "k3_launches": a["launches"][1]}
     case = f"forward parity {cfg.name}: {out}"
     assert out["loss_rel_err"] <= PARITY_RTOL, case
     assert out["checksum_rel_err"] <= PARITY_RTOL, case

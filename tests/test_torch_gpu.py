@@ -1,13 +1,14 @@
-"""Card-only tests of the port: the CUDA flash-attention (K1) and
-decode-attention (K2) kernels against their plain versions on the card,
-and the serve slice and the commit-tapped forward with its Scale-Down
-replay on the card against the same on the host. They skip where CUDA is
+"""Card-only tests of the port: the CUDA flash-attention (K1),
+decode-attention (K2) and selective-scan (K3) kernels against their plain
+versions on the card, and the serve slice and the commit-tapped forward
+with its Scale-Down replay on the card against the same on the host. They skip where CUDA is
 absent. On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Kernel tolerances are those of tests/test_kernels.py, f32 2e-5 and bf16
-2e-2, and in bf16 also a normwise relative error of 6e-3; the forward
+2e-2 for K1 and K2, and in bf16 also a normwise relative error of 6e-3;
+K3 at 1e-4 in f32, y and h_last alike; the forward
 holds the loss and checksums within 1e-5 relative (``repro_torch.testing``).
 """
 import dataclasses
@@ -19,12 +20,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  check_decode_attention,
                                  check_flash_attention,
-                                 check_forward_parity)
+                                 check_forward_parity, check_ssm_scan)
 from repro_torch.utils import tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -80,17 +82,24 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                              pos=pos.to("meta"), window=8)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b",
+                                  "falcon-mamba-7b"])
 def test_serve_on_card_matches_host(cuda, arch):
-    """f32 smoke config on the card (kernel) and on the host (plain), from
-    the same weights: identical greedy tokens, no sync inside a window."""
+    """f32 smoke config on the card (kernels) and on the host (plain), from
+    the same weights: identical greedy tokens, no sync inside a window.
+    K2 runs once per attention layer per decode step; K3 once per mamba
+    layer in the prefill."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     host = build_model(cfg).init(0, device="cpu")
-    before = ops.decode_attention.launches
+    before = (ops.decode_attention.launches, ssm_ops.ssm_scan.launches)
     on_card = serve(cfg, 2, 16, 8, sample_interval=3, device=cuda,
                     params=tree_map(lambda t: t.to(cuda), host),
                     timer=NoSyncInWindow())
-    assert ops.decode_attention.launches - before == cfg.num_layers * 7
+    ssm = cfg.family == "ssm"
+    assert ops.decode_attention.launches - before[0] \
+        == (0 if ssm else cfg.num_layers * 7)
+    assert ssm_ops.ssm_scan.launches - before[1] \
+        == (cfg.num_layers if ssm else 0)
     on_host = serve(cfg, 2, 16, 8, sample_interval=3, device="cpu",
                     params=host)
     assert on_card["tokens"] == on_host["tokens"]
@@ -152,14 +161,65 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b",
+                                  "falcon-mamba-7b"])
 def test_forward_on_card_matches_host(cuda, arch):
-    """f32 smoke config: the loss and checksums on the card (K1) and on
-    the host (plain) within 1e-5 relative; every layer's replay bitwise
-    on both."""
+    """f32 smoke config: the loss and checksums on the card (K1 or K3)
+    and on the host (plain) within 1e-5 relative; every layer's replay
+    bitwise on both."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     out = check_forward_parity(cfg)
     # one launch per layer in the loss, and per layer of each
     # verify_extraction: its in-situ capture plus the replay
     L = cfg.num_layers
-    assert out["k1_launches"] == L + L * (L + 1)
+    n = L + L * (L + 1)
+    ssm = cfg.family == "ssm"
+    assert out["k1_launches"] == (0 if ssm else n)
+    assert out["k3_launches"] == (n if ssm else 0)
+
+
+# ------------------------------------------------------------------- K3 ----
+@pytest.mark.parametrize("B,S,Din,N", [(2, 64, 32, 8), (1, 100, 48, 4)])
+def test_ssm_kernel_matches_plain_on_the_reference_grid(cuda, B, S, Din, N):
+    check_ssm_scan(B, S, Din, N)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("B,S,Din,N", [(2, 4000, 8192, 16),
+                                       (3, 9, 130, 16), (1, 1, 5, 8),
+                                       (2, 33, 200, 4)])
+def test_ssm_kernel_ragged_and_strided(cuda, B, S, Din, N, strided):
+    """S not a multiple of the kernel's time chunk, Din not a multiple of
+    its channel block, and B_/C_ as strided views."""
+    check_ssm_scan(B, S, Din, N, strided=strided)
+
+
+@pytest.mark.parametrize("B,S", [(2, 4096), (8, 2048)],
+                         ids=["forward", "prefill"])
+def test_ssm_kernel_at_the_slice_shapes(cuda, B, S):
+    """falcon-mamba-7b's forward (B=2, S=4096) and serve prefill (B=8,
+    S=2048): Din=8192, N=16, B_ and C_ strided as the model passes them."""
+    check_ssm_scan(B, S, 8192, 16, strided=True)
+
+
+def test_ssm_kernel_is_deterministic(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = torch.rand(2, 300, 256, generator=g, device=cuda)
+    A = -torch.rand(256, 16, generator=g, device=cuda)
+    B_, C_, x = (torch.randn(2, 300, n, generator=g, device=cuda)
+                 for n in (16, 16, 256))
+    y0, h0 = ssm_ops.ssm_scan(dt, A, B_, C_, x)
+    y1, h1 = ssm_ops.ssm_scan(dt, A, B_, C_, x)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+
+
+def test_ssm_kernel_refuses_what_it_does_not_take(cuda):
+    z = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ssm_ops.ssm_scan(z, torch.zeros(8, 5, device=cuda),
+                         torch.zeros(1, 4, 5, device=cuda),
+                         torch.zeros(1, 4, 5, device=cuda), z)
+    with pytest.raises(ValueError, match="want B_"):
+        ssm_ops.ssm_scan(z, torch.zeros(8, 4, device=cuda),
+                         torch.zeros(1, 3, 4, device=cuda),
+                         torch.zeros(1, 4, 4, device=cuda), z)

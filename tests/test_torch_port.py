@@ -42,7 +42,9 @@ def test_import_guard_covers_every_module_of_the_port():
     for mod in ("kernels/flash_attention/ops.py",
                 "kernels/flash_attention/ref.py", "models/runtime.py",
                 "core/commit.py", "core/coverage.py", "core/decompose.py",
-                "kernels/decode_attention/ops.py", "testing.py"):
+                "kernels/decode_attention/ops.py", "testing.py",
+                "kernels/ssm_scan/ops.py", "kernels/ssm_scan/ref.py",
+                "models/ssm.py", "configs/falcon_mamba_7b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
 
@@ -94,17 +96,26 @@ def test_forward_raises_without_a_card_unless_given_host_tensors(
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
-    assert tconfigs.ARCH_IDS == ("glm4-9b", "granite-8b")
+    assert tconfigs.ARCH_IDS == ("glm4-9b", "granite-8b", "falcon-mamba-7b")
     full = tconfigs.get_config("glm4-9b")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.vocab_size) == (40, 4096, 32, 2, 128, 151552)
+    ssm = tconfigs.get_config("falcon-mamba-7b")
+    assert (ssm.family, ssm.num_layers, ssm.d_model, ssm.d_inner,
+            ssm.ssm_state, ssm.dt_rank, ssm.conv_width, ssm.vocab_size,
+            ssm.dtype, ssm.tie_embeddings, ssm.layer_pattern) == (
+        "ssm", 64, 4096, 8192, 16, 256, 4, 65024, "bfloat16", False,
+        (("mamba", None),))
+    assert ssm.param_count() == 7_271_616_512
+    with pytest.raises(KeyError, match="later slice"):
+        tconfigs.get_config("recurrentgemma-2b")
     with pytest.raises(KeyError, match="later slice"):
         tconfigs.get_config("mixtral-8x7b")
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_smoke_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b", "falcon-mamba-7b"])
 def test_configs_and_prompts_equal_the_reference(arch):
     pytest.importorskip("jax")
     from repro.configs import get_config, get_smoke_config
@@ -135,6 +146,10 @@ def test_cli_reaches_the_full_config(monkeypatch, capsys):
     assert seen["cfg"].name == "glm4-9b" and seen["cfg"].num_layers == 40
     tserve.main(["--arch", "granite-8b", "--device", "cpu"])
     assert seen["cfg"].name == "granite-smoke"
+    tserve.main(["--arch", "falcon-mamba-7b", "--no-smoke", "--device",
+                 "cpu"])
+    assert seen["cfg"].name == "falcon-mamba-7b" \
+        and seen["cfg"].num_layers == 64
     assert '"ok": true' in capsys.readouterr().out
 
 
@@ -142,8 +157,13 @@ def test_unported_families_raise_naming_the_later_slice():
     from repro_torch.models import build_model
     from repro_torch.models import transformer as ttfm
     cfg = tconfigs.get_smoke_config("glm4-9b")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(dataclasses.replace(cfg, family="moe"))
-    for spec in (("mamba", None), ("rglru", "mlp"), ("attn", "moe")):
+    for family in ("moe", "hybrid", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            build_model(dataclasses.replace(cfg, family=family))
+    for spec in (("rglru", "mlp"), ("attn", "moe")):
         with pytest.raises(NotImplementedError, match="not ported"):
             ttfm.init_block(None, cfg, spec, "meta")
+    ssm = tconfigs.get_smoke_config("falcon-mamba-7b")
+    build_model(ssm)
+    block = ttfm.init_block(None, ssm, ("mamba", None), "meta")
+    assert set(block) == {"norm1", "mamba"}
