@@ -27,10 +27,13 @@
 //     full the loop stops at the last valid slot instead of reading and
 //     masking the empty rest;
 //   * the cache is not padded to the tile: the ragged last tile is masked
-//     here, so the caller copies nothing.
-// The grid is only B*K blocks (16 at glm4-9b on 132 SMs), so one launch
-// sits far from its bound. Splitting the cache across blocks with a
-// combine step is the way to fill the card.
+//     here, so the caller copies nothing;
+//   * the shared tiles are dynamic shared memory, sized by head_dim: at
+//     head_dim 256 (recurrentgemma-2b, G = 10) they come to 84 KB, over
+//     the 48 KB a block may hold statically.
+// The grid is only B*K blocks (16 at glm4-9b, 8 at recurrentgemma-2b, on
+// 132 SMs), so one launch sits far from its bound. Splitting the cache
+// across blocks with a combine step is the way to fill the card.
 //
 // Plain C interface, loaded with ctypes: decode_attention_launch returns
 // cudaGetLastError() after the launch, or -1 for arguments it does not
@@ -110,9 +113,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Shared memory, in floats: q (kMaxG x HD), the k tile (rows padded so
+// that float4 reads by slot hit all banks), the v tile, the weights p
+// (kMaxG x kTile, padded) and the per-head softmax state m, l, alpha.
+template <int HD>
+struct Smem {
+  static constexpr int kRow = HD + 4;
+  static constexpr int kPRow = kTile + 1;
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + kMaxG * HD;
+  static constexpr int v_off = k_off + kTile * kRow;
+  static constexpr int p_off = v_off + kTile * HD;
+  static constexpr int m_off = p_off + kMaxG * kPRow;
+  static constexpr int l_off = m_off + kMaxG;
+  static constexpr int alpha_off = l_off + kMaxG;
+  static constexpr int floats = alpha_off + kMaxG;
+  static constexpr size_t bytes = floats * sizeof(float);
+  static_assert(k_off % 4 == 0 && v_off % 4 == 0 && kRow % 4 == 0,
+                "the q, k and v tiles are read as float4");
+};
+
 // q, out: (B, K, G, HD) == (B, H, HD); k, v: (B, W, K, HD); pos: one int32.
+// One block per SM is all the grid (B*K blocks) can use; declaring it stops
+// ptxas from capping registers for occupancy, which spilled a few bytes
+// in the smaller instances.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int32_t* __restrict__ pos_ptr,
@@ -123,12 +149,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kTileVecs = kTile * kVecsPerSlot;
   constexpr int kLoads = (kTileVecs + kThreads - 1) / kThreads;
   constexpr int kOutVecs = (kMaxG * HD / 4 + kThreads - 1) / kThreads;
-  constexpr int kRow = HD + 4;  // padded: float4 reads by slot hit all banks
-  __shared__ __align__(16) float q_s[kMaxG][HD];
-  __shared__ __align__(16) float k_s[kTile][kRow];
-  __shared__ __align__(16) float v_s[kTile][HD];
-  __shared__ float p_s[kMaxG][kTile + 1];
-  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
+  using L = Smem<HD>;
+  extern __shared__ __align__(16) float smem[];
+  auto q_s = reinterpret_cast<float(*)[HD]>(smem + L::q_off);
+  auto k_s = reinterpret_cast<float(*)[L::kRow]>(smem + L::k_off);
+  auto v_s = reinterpret_cast<float(*)[HD]>(smem + L::v_off);
+  auto p_s = reinterpret_cast<float(*)[L::kPRow]>(smem + L::p_off);
+  float* m_s = smem + L::m_off;
+  float* l_s = smem + L::l_off;
+  float* alpha_s = smem + L::alpha_off;
 
   const int b = blockIdx.x / K, kv = blockIdx.x % K;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -266,38 +295,47 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int HD>
+int launch_hd(const void* q, const void* k, const void* v, const void* pos,
+              void* out, int B, int W, int K, int G, int window, float scale,
+              float softcap, cudaStream_t stream) {
+  constexpr size_t bytes = Smem<HD>::bytes;
+  // more than 48 KB of dynamic shared memory only when opted in
+  const cudaError_t e = cudaFuncSetAttribute(
+      decode_attention_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_attention_kernel<T, HD><<<B * K, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int32_t*>(pos),
+      static_cast<T*>(out), W, K, G, window, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v,
                  const void* pos, void* out, int B, int W, int K, int G,
                  int hd, int window, float scale, float softcap,
                  cudaStream_t stream) {
-  const dim3 grid(B * K);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const int32_t* pp = static_cast<const int32_t*>(pos);
-  T* op = static_cast<T*>(out);
   switch (hd) {
     case 16:
-      decode_attention_kernel<T, 16><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, pp, op, W, K, G, window, scale, softcap);
-      break;
+      return launch_hd<T, 16>(q, k, v, pos, out, B, W, K, G, window, scale,
+                              softcap, stream);
     case 32:
-      decode_attention_kernel<T, 32><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, pp, op, W, K, G, window, scale, softcap);
-      break;
+      return launch_hd<T, 32>(q, k, v, pos, out, B, W, K, G, window, scale,
+                              softcap, stream);
     case 64:
-      decode_attention_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, pp, op, W, K, G, window, scale, softcap);
-      break;
+      return launch_hd<T, 64>(q, k, v, pos, out, B, W, K, G, window, scale,
+                              softcap, stream);
     case 128:
-      decode_attention_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, pp, op, W, K, G, window, scale, softcap);
-      break;
+      return launch_hd<T, 128>(q, k, v, pos, out, B, W, K, G, window, scale,
+                               softcap, stream);
+    case 256:
+      return launch_hd<T, 256>(q, k, v, pos, out, B, W, K, G, window, scale,
+                               softcap, stream);
     default:
       return -1;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

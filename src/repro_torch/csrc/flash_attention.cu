@@ -12,8 +12,9 @@
 //
 // Where the TPU runs the k blocks as a sequential grid dimension with the
 // accumulator in VMEM scratch, here one thread block owns one
-// (batch, query head, 64-row q tile) and loops over the 64-key tiles
-// itself, with m, l and the accumulator in registers.
+// (batch, query head, 64-row q tile) and loops over the key tiles itself
+// (64 keys, or 32 at head_dim 256), with m, l and the accumulator in
+// registers.
 //
 // What bounds it on this card: operations. At glm4-9b's forward shape
 // (B=2, S=T=4096, H=32, K=2, hd=128, causal, bf16) the causal half of
@@ -31,7 +32,14 @@
 //     shared-memory reads, the next tile's 16-byte loads in flight in
 //     registers);
 //   * the q tiles are issued heaviest first (the diagonal is last in q),
-//     so causal blocks do not leave a long tail.
+//     so causal blocks do not leave a long tail;
+//   * at head_dim 256 (recurrentgemma-2b's local attention) a warp's
+//     16-row O accumulator alone takes 128 registers a thread, so the
+//     bf16 instance reads its q fragments from shared memory at every
+//     k-step instead of holding all 16 in registers (64 more), and both
+//     instances take 32-key tiles (the f32 one's prefetch registers and
+//     the bf16 one's S fragments halve). Shared memory: 99 KB bf16, 137
+//     KB f32, under the 227 KB a block may opt in to.
 // wgmma with TMA and warp specialisation is the next step toward the
 // bound for the bf16 instance.
 //
@@ -48,11 +56,16 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;   // query rows per block: 16 row groups of 4
-constexpr int kBK = 64;   // keys per tile: 16 column groups, 4 keys each
 constexpr int kCG = 16;   // column groups; tid = row group * kCG + column group
 constexpr float kNegInf = -1e30f;
-static_assert(kThreads == (kBQ / 4) * kCG, "one thread per 4x4 score block");
-static_assert(kBK == 4 * kCG, "each column group takes 4 keys");
+static_assert(kThreads == (kBQ / 4) * kCG, "one thread per 4-row block");
+
+// keys per tile: 64, or 32 at head_dim 256, where a thread's registers
+// and a block's shared memory would not hold 64
+template <int HD>
+constexpr int keys_per_tile() {
+  return HD >= 256 ? 32 : 64;
+}
 
 // ----------------------------------------------- f32: CUDA-core FMAs ----
 
@@ -79,9 +92,12 @@ __device__ __forceinline__ float group_sum(float x) {
 // Shared-memory layout, in floats. Rows of k are padded so that the
 // float4 reads of 8 neighbouring keys hit distinct banks; q rows are read
 // as broadcasts and v rows contiguously, so they need no padding. p is
-// kept transposed (key-major) so one float4 holds a thread's 4 rows.
+// kept transposed (key-major) so one float4 holds a thread's 4 rows. A
+// thread scores its 4 rows against keys cg + 16 j, j < kKJ.
 template <int HD>
 struct Layout {
+  static constexpr int kBK = keys_per_tile<HD>();
+  static constexpr int kKJ = kBK / kCG;
   static constexpr int kKRow = HD + 4;
   static constexpr int kPRow = kBQ + 4;
   static constexpr int q_off = 0;
@@ -90,6 +106,7 @@ struct Layout {
   static constexpr int p_off = v_off + kBK * HD;
   static constexpr int floats = p_off + kBK * kPRow;
   static constexpr size_t bytes = floats * sizeof(float);
+  static_assert(kBK % kCG == 0, "each column group takes kKJ keys");
 };
 
 // The output dims a thread owns: HD/16 of them, as float4 runs at
@@ -102,9 +119,11 @@ __device__ __forceinline__ int out_dim(int cg, int dd) {
     return cg + kCG * dd;
 }
 
-// q, out: (B, S, H, HD); k, v: (B, T, K, HD).
+// q, out: (B, S, H, HD); k, v: (B, T, K, HD). Both instances declare one
+// block per SM as their minimum: without it ptxas capped the registers of
+// the head_dim 64 instances for occupancy and spilled.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -112,6 +131,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            int K, int causal, int window, float scale,
                            float softcap) {
   using L = Layout<HD>;
+  constexpr int kBK = L::kBK;
+  constexpr int kKJ = L::kKJ;
   constexpr int kDPT = HD / kCG;                 // output dims per thread
   constexpr int kPerVec = 4;                     // floats per 16 bytes
   constexpr int kVecsPerRow = HD / kPerVec;
@@ -195,25 +216,25 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     if (t0 + kBK < k_end) fetch(t0 + kBK);
 
     // scores of rows row0..row0+3 against keys cg + 16 j
-    float s[4][4];
+    float s[4][kKJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kKJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kx[4];
+      float4 qv[4], kx[kKJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         qv[i] = *reinterpret_cast<const float4*>(q_s + (row0 + i) * HD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kKJ; ++j)
         kx[j] = *reinterpret_cast<const float4*>(
             k_s + (cg + kCG * j) * L::kKRow + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(qv[i], kx[j], s[i][j]);
+        for (int j = 0; j < kKJ; ++j) s[i][j] = dot4(qv[i], kx[j], s[i][j]);
     }
 
     // masks and the online softmax, one row at a time
@@ -222,7 +243,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const int r = q_lo + row0 + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kKJ; ++j) {
         const int c = t0 + cg + kCG * j;
         float x = s[i][j] * scale;
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
@@ -236,7 +257,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const float alpha = expf(m_r[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kKJ; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         sum += s[i][j];
       }
@@ -246,7 +267,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       for (int dd = 0; dd < kDPT; ++dd) acc[i][dd] *= alpha;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kKJ; ++j)
       *reinterpret_cast<float4*>(p_s + (cg + kCG * j) * L::kPRow + row0) =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();
@@ -315,6 +336,7 @@ static_assert(kBQ == 16 * kMmaWarps, "one 16-row m-tile per warp");
 
 template <int HD>
 struct MmaLayout {
+  static constexpr int kBK = keys_per_tile<HD>();
   static constexpr int kRow = HD + 8;  // bf16 elements; +16 B: no conflicts
   static constexpr int q_off = 0;
   static constexpr int k_off = q_off + kBQ * kRow;      // two stages
@@ -366,7 +388,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(kMmaThreads, 1)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -375,7 +397,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            float scale, float softcap) {
   using L = MmaLayout<HD>;
   constexpr int kRow = L::kRow;
+  constexpr int kBK = L::kBK;
   constexpr int kKSteps = HD / 16;        // k-steps of QK^T
+  // q fragments held in registers for the whole loop up to head_dim 128;
+  // at 256 they are read from shared memory at each k-step
+  constexpr bool kQInRegs = HD <= 128;
   constexpr int kNTiles = kBK / 8;        // 8-key n-tiles of S
   constexpr int kDTiles = HD / 8;         // 8-dim n-tiles of O
   constexpr int kVecsPerRow = HD / 8;     // 16-byte vectors per row
@@ -433,7 +459,15 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // thread's partial sum over its columns, reduced over the 4 lanes of
   // the row at the end
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  uint32_t qa[kKSteps][4];
+  uint32_t qa[kQInRegs ? kKSteps : 1][4];
+  // the A fragment of this warp's 16 q rows at k-step ks
+  auto load_q = [&](uint32_t(&a)[4], int ks) {
+    const __nv_bfloat16* r0 = q_s + (wrow + g) * kRow + ks * 16 + tig * 2;
+    a[0] = *reinterpret_cast<const uint32_t*>(r0);
+    a[1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow);
+    a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow + 8);
+  };
 
   int stage = 0;
   for (int t0 = k_begin; t0 < k_end; t0 += kBK, stage ^= 1) {
@@ -442,14 +476,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();                 // all but the newest group landed
     __syncthreads();
-    if (t0 == k_begin) {
+    if constexpr (kQInRegs) {
+      if (t0 == k_begin) {
 #pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const __nv_bfloat16* r0 = q_s + (wrow + g) * kRow + ks * 16 + tig * 2;
-        qa[ks][0] = *reinterpret_cast<const uint32_t*>(r0);
-        qa[ks][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow);
-        qa[ks][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        qa[ks][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow + 8);
+        for (int ks = 0; ks < kKSteps; ++ks) load_q(qa[ks], ks);
       }
     }
     const __nv_bfloat16* ks_ = k_s + stage * kBK * kRow;
@@ -462,13 +492,16 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks)
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      if constexpr (!kQInRegs) load_q(qa[0], ks);
+      const uint32_t(&a)[4] = qa[kQInRegs ? ks : 0];
 #pragma unroll
       for (int nt = 0; nt < kNTiles; ++nt) {
         const __nv_bfloat16* kr = ks_ + (nt * 8 + g) * kRow + ks * 16 + tig * 2;
-        mma_bf16(sc[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+        mma_bf16(sc[nt], a, *reinterpret_cast<const uint32_t*>(kr),
                  *reinterpret_cast<const uint32_t*>(kr + 8));
       }
+    }
 
     // masks and the online softmax; element e of n-tile nt is row
     // wrow + g + 8 (e / 2), key t0 + nt * 8 + tig * 2 + e % 2
@@ -613,6 +646,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                            scale, softcap, dtype, s);
     case 128:
       return launch_hd<128>(q, k, v, out, B, S, T, H, K, causal, window,
+                            scale, softcap, dtype, s);
+    case 256:
+      return launch_hd<256>(q, k, v, out, B, S, T, H, K, causal, window,
                             scale, softcap, dtype, s);
     default:
       return -1;

@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 16                     # query heads per kv head
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,4 +1,5 @@
-"""Shared primitive layers: dense, norms, GLU MLP, embeddings, RoPE.
+"""Shared primitive layers: dense, norms, GLU MLP, embeddings, RoPE, and
+the depthwise causal conv of the Mamba-1 and RG-LRU mixers.
 
 Functional style over plain tensor dicts, in the JAX package's layouts:
 ``init_*`` returns a param dict, ``*_apply`` is the forward. Dense weights
@@ -72,6 +73,25 @@ def norm_apply(cfg, p, x):
     if "bias" in p:
         return layernorm_apply(p, x, cfg.norm_eps)
     return rmsnorm_apply(p, x, cfg.norm_eps)
+
+
+# ----------------------------------------------------------- causal conv ----
+def causal_conv(p, x):
+    """Depthwise causal conv of width ``conv_w.shape[0]`` in the working
+    dtype, summed tap by tap in the reference's order. x: (B, S, C)."""
+    W = p["conv_w"].shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    y = sum(xp[:, i:i + S] * p["conv_w"][i] for i in range(W))
+    return y + p["conv_b"]
+
+
+def causal_conv_step(p, conv_buf):
+    """The conv at one position. conv_buf: (B, W, C), the last W inputs
+    -> (B, C)."""
+    W = p["conv_w"].shape[0]
+    return sum(conv_buf[:, i] * p["conv_w"][i] for i in range(W)) \
+        + p["conv_b"]
 
 
 # ------------------------------------------------------------------- MLP ----

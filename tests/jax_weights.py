@@ -15,7 +15,10 @@ Rules, by leaf:
   * one dim or fewer: kept (norm scales, biases);
   * mamba's ``A_log`` (log 1..N) and ``D_skip`` (ones) keep their constant
     init whatever their rank; ``dt_bias`` is redrawn from the reference's
-    distribution, softplus^-1 of a log-uniform dt in [1e-3, 1e-1], f32.
+    distribution, softplus^-1 of a log-uniform dt in [1e-3, 1e-1], f32;
+  * the RG-LRU's ``Lambda`` is redrawn, whatever its rank, from the
+    reference's distribution, softplus^-1(-log(u) / 8) for u uniform in
+    [0.9, 0.999], f32.
 """
 from __future__ import annotations
 
@@ -38,6 +41,12 @@ def dt_bias_draw(rng, shape):
     return (dt + np.log(-np.expm1(-dt))).astype(np.float32)
 
 
+def lambda_draw(rng, shape):
+    """softplus^-1(-log(u) / 8), u ~ U(0.9, 0.999), as ``init_rglru``."""
+    u = rng.uniform(0.9, 0.999, size=shape)
+    return np.log(np.expm1(-np.log(u) / 8.0)).astype(np.float32)
+
+
 def seeded(tree, seed=0):
     """``tree`` with its drawn leaves redrawn from ``seed`` (rules above),
     each in its own dtype."""
@@ -50,6 +59,8 @@ def seeded(tree, seed=0):
             return jnp.asarray(a)
         if name == "dt_bias":
             return jnp.asarray(dt_bias_draw(rng, a.shape))
+        if name == "Lambda":
+            return jnp.asarray(lambda_draw(rng, a.shape))
         if a.ndim < 2:
             return jnp.asarray(a)
         std = 0.02 if "embed" in jax.tree_util.keystr(path) \

@@ -1,14 +1,16 @@
 """Card-only tests of the port: the CUDA flash-attention (K1),
-decode-attention (K2) and selective-scan (K3) kernels against their plain
-versions on the card, and the serve slice and the commit-tapped forward
-with its Scale-Down replay on the card against the same on the host. They skip where CUDA is
-absent. On a machine with an NVIDIA card:
+decode-attention (K2), selective-scan (K3) and RG-LRU scan (K4) kernels
+against their plain versions on the card, and the serve slice and the
+commit-tapped forward with its Scale-Down replay on the card against the
+same on the host. They skip where CUDA is absent. On a machine with an
+NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Kernel tolerances are those of tests/test_kernels.py, f32 2e-5 and bf16
 2e-2 for K1 and K2, and in bf16 also a normwise relative error of 6e-3;
-K3 at 1e-4 in f32, y and h_last alike; the forward
+K3 at 1e-4 and K4 at 1e-5 in f32 (test_ssm_scan's and
+test_rglru_scan's), every output alike; the forward
 holds the loss and checksums within 1e-5 relative (``repro_torch.testing``).
 """
 import dataclasses
@@ -20,16 +22,21 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
+from repro_torch.testing import (HYBRID_PARITY_SEED,  # noqa: E402
+                                 NoSyncInWindow,
                                  check_decode_attention,
                                  check_flash_attention,
-                                 check_forward_parity, check_ssm_scan)
+                                 check_forward_parity, check_rglru_scan,
+                                 check_ssm_scan, layer_kernels)
 from repro_torch.utils import tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+ARCHS = ["glm4-9b", "granite-8b", "falcon-mamba-7b", "recurrentgemma-2b"]
 
 
 @pytest.fixture
@@ -82,24 +89,24 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                              pos=pos.to("meta"), window=8)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b",
-                                  "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_on_card_matches_host(cuda, arch):
     """f32 smoke config on the card (kernels) and on the host (plain), from
     the same weights: identical greedy tokens, no sync inside a window.
-    K2 runs once per attention layer per decode step; K3 once per mamba
-    layer in the prefill."""
+    K2 runs once per attention layer per decode step; K3 and K4 once per
+    mamba or RG-LRU layer in the prefill; K1 never (the prefill's
+    attention is plain, as in the reference)."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     host = build_model(cfg).init(0, device="cpu")
-    before = (ops.decode_attention.launches, ssm_ops.ssm_scan.launches)
+    kernels = (ops.decode_attention, ssm_ops.ssm_scan, lru_ops.rglru_scan,
+               fa_ops.flash_attention)
+    before = [k.launches for k in kernels]
     on_card = serve(cfg, 2, 16, 8, sample_interval=3, device=cuda,
                     params=tree_map(lambda t: t.to(cuda), host),
                     timer=NoSyncInWindow())
-    ssm = cfg.family == "ssm"
-    assert ops.decode_attention.launches - before[0] \
-        == (0 if ssm else cfg.num_layers * 7)
-    assert ssm_ops.ssm_scan.launches - before[1] \
-        == (cfg.num_layers if ssm else 0)
+    n = layer_kernels(cfg)
+    assert [k.launches - b for k, b in zip(kernels, before)] \
+        == [n.count("k1") * 7, n.count("k3"), n.count("k4"), 0]
     on_host = serve(cfg, 2, 16, 8, sample_interval=3, device="cpu",
                     params=host)
     assert on_card["tokens"] == on_host["tokens"]
@@ -161,21 +168,20 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b",
-                                  "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_on_card_matches_host(cuda, arch):
-    """f32 smoke config: the loss and checksums on the card (K1 or K3)
-    and on the host (plain) within 1e-5 relative; every layer's replay
-    bitwise on both."""
+    """f32 smoke config: the loss and checksums on the card (K1, K3 or
+    K4) and on the host (plain) within 1e-5 relative; every layer's
+    replay bitwise on both."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-    out = check_forward_parity(cfg)
-    # one launch per layer in the loss, and per layer of each
-    # verify_extraction: its in-situ capture plus the replay
-    L = cfg.num_layers
-    n = L + L * (L + 1)
-    ssm = cfg.family == "ssm"
-    assert out["k1_launches"] == (0 if ssm else n)
-    assert out["k3_launches"] == (n if ssm else 0)
+    out = check_forward_parity(
+        cfg, seed=HYBRID_PARITY_SEED if cfg.family == "hybrid" else 0)
+    # one launch per layer of its kind in the loss, and in each
+    # verify_extraction (its in-situ capture of every layer) one per layer
+    # of its kind, plus the replay: per kind, count * (L + 2) in all
+    n = layer_kernels(cfg)
+    assert [out[f"{k}_launches"] for k in ("k1", "k3", "k4")] \
+        == [n.count(k) * (cfg.num_layers + 2) for k in ("k1", "k3", "k4")]
 
 
 # ------------------------------------------------------------------- K3 ----
@@ -223,3 +229,77 @@ def test_ssm_kernel_refuses_what_it_does_not_take(cuda):
         ssm_ops.ssm_scan(z, torch.zeros(8, 4, device=cuda),
                          torch.zeros(1, 3, 4, device=cuda),
                          torch.zeros(1, 4, 4, device=cuda), z)
+
+
+# ---------------------------------------------------------- K1, K2 at 256 --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(4096, 2048), (4000, 100), (77, 0)])
+def test_flash_kernel_at_head_dim_256(cuda, S, window, dtype):
+    """recurrentgemma-2b's local attention: B=2, H=10, K=1, hd=256,
+    causal with its 2048-key window at the forward shape; a ragged S with
+    a narrow window; and a short one without."""
+    _check_fa(2, S, 10, 1, 256, dtype, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [1000, 2047, 2048, 2110])
+def test_decode_kernel_at_head_dim_256_around_the_ring_wrap(cuda, pos,
+                                                            dtype):
+    """recurrentgemma-2b's serve decode: B=8, H=10, K=1, hd=256, a
+    2048-slot ring, filling (1000), just full (2047) and overwritten
+    (2048 and 2110, the serve run's first and last steps)."""
+    _check(8, 10, 1, 2048, 256, pos, dtype)
+
+
+# ------------------------------------------------------------------- K4 ----
+@pytest.mark.parametrize("B,S,W", [(2, 64, 32), (1, 96, 64)])
+def test_rglru_kernel_matches_plain_on_the_reference_grid(cuda, B, S, W):
+    check_rglru_scan(B, S, W)
+
+
+@pytest.mark.parametrize("B,S,W,split", [(1, 40, 16, 17), (2, 300, 96, 64),
+                                         (2, 4096, 2560, 1000)])
+def test_rglru_kernel_chaining_property(cuda, B, S, W, split):
+    """Two launches, the second from the first's h_last, equal one."""
+    check_rglru_scan(B, S, W, split=split)
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 4000, 2600), (3, 9, 33), (1, 1, 5),
+                                   (2, 65, 40)])
+def test_rglru_kernel_ragged(cuda, B, S, W):
+    """S not a multiple of the kernel's 64 steps in flight, W not a
+    multiple of its 32 channels a block."""
+    check_rglru_scan(B, S, W)
+
+
+@pytest.mark.parametrize("B,S", [(2, 4096), (8, 2048)],
+                         ids=["forward", "prefill"])
+def test_rglru_kernel_at_the_slice_shapes(cuda, B, S):
+    """recurrentgemma-2b's forward (B=2, S=4096) and serve prefill (B=8,
+    S=2048), W=2560."""
+    check_rglru_scan(B, S, 2560)
+
+
+def test_rglru_kernel_is_deterministic_and_rounds_as_the_plain_version(
+        cuda):
+    """Each step is a rounded product and then a rounded sum, as the plain
+    version computes it: the kernel agrees with it to the bit, and with
+    itself from run to run."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.rand(2, 300, 256, generator=g, device=cuda)
+    b = torch.randn(2, 300, 256, generator=g, device=cuda)
+    h0 = torch.randn(2, 256, generator=g, device=cuda)
+    h, last = lru_ops.rglru_scan(a, b, h0)
+    h1, last1 = lru_ops.rglru_scan(a, b, h0)
+    hr, last_r = rglru_scan_ref(a, b, h0)
+    assert torch.equal(h, h1) and torch.equal(last, last1)
+    assert torch.equal(h, hr) and torch.equal(last, last_r)
+
+
+def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="want h0"):
+        lru_ops.rglru_scan(a, a, torch.zeros(1, 4, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        lru_ops.rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2),
+                           a, torch.zeros(1, 8, device=cuda))

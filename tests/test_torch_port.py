@@ -44,7 +44,9 @@ def test_import_guard_covers_every_module_of_the_port():
                 "core/commit.py", "core/coverage.py", "core/decompose.py",
                 "kernels/decode_attention/ops.py", "testing.py",
                 "kernels/ssm_scan/ops.py", "kernels/ssm_scan/ref.py",
-                "models/ssm.py", "configs/falcon_mamba_7b.py"):
+                "models/ssm.py", "configs/falcon_mamba_7b.py",
+                "kernels/rglru_scan/ops.py", "kernels/rglru_scan/ref.py",
+                "models/recurrent.py", "configs/recurrentgemma_2b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
 
@@ -96,7 +98,8 @@ def test_forward_raises_without_a_card_unless_given_host_tensors(
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
-    assert tconfigs.ARCH_IDS == ("glm4-9b", "granite-8b", "falcon-mamba-7b")
+    assert tconfigs.ARCH_IDS == ("glm4-9b", "granite-8b", "falcon-mamba-7b",
+                                 "recurrentgemma-2b")
     full = tconfigs.get_config("glm4-9b")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.vocab_size) == (40, 4096, 32, 2, 128, 151552)
@@ -107,15 +110,25 @@ def test_registry_ports_two_archs_and_names_the_rest():
         "ssm", 64, 4096, 8192, 16, 256, 4, 65024, "bfloat16", False,
         (("mamba", None),))
     assert ssm.param_count() == 7_271_616_512
+    hyb = tconfigs.get_config("recurrentgemma-2b")
+    assert (hyb.family, hyb.num_layers, hyb.d_model, hyb.lru_width,
+            hyb.num_heads, hyb.num_kv_heads, hyb.head_dim, hyb.d_ff,
+            hyb.vocab_size, hyb.window, hyb.dtype, hyb.tie_embeddings,
+            hyb.layer_pattern) == (
+        "hybrid", 26, 2560, 2560, 10, 1, 256, 7680, 256000, 2048,
+        "bfloat16", True,
+        (("rglru", "mlp"), ("rglru", "mlp"), ("local", "mlp")))
+    assert hyb.param_count() == 2_894_528_000
     with pytest.raises(KeyError, match="later slice"):
-        tconfigs.get_config("recurrentgemma-2b")
+        tconfigs.get_config("internvl2-1b")
     with pytest.raises(KeyError, match="later slice"):
         tconfigs.get_config("mixtral-8x7b")
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_smoke_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
 def test_configs_and_prompts_equal_the_reference(arch):
     pytest.importorskip("jax")
     from repro.configs import get_config, get_smoke_config
@@ -150,6 +163,10 @@ def test_cli_reaches_the_full_config(monkeypatch, capsys):
                  "cpu"])
     assert seen["cfg"].name == "falcon-mamba-7b" \
         and seen["cfg"].num_layers == 64
+    tserve.main(["--arch", "recurrentgemma-2b", "--no-smoke", "--device",
+                 "cpu"])
+    assert seen["cfg"].name == "recurrentgemma-2b" \
+        and seen["cfg"].num_layers == 26
     assert '"ok": true' in capsys.readouterr().out
 
 
@@ -157,13 +174,18 @@ def test_unported_families_raise_naming_the_later_slice():
     from repro_torch.models import build_model
     from repro_torch.models import transformer as ttfm
     cfg = tconfigs.get_smoke_config("glm4-9b")
-    for family in ("moe", "hybrid", "encdec", "vlm"):
+    for family in ("moe", "encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model(dataclasses.replace(cfg, family=family))
-    for spec in (("rglru", "mlp"), ("attn", "moe")):
+    for spec in (("attn", "moe"), ("rglru", "moe")):
         with pytest.raises(NotImplementedError, match="not ported"):
             ttfm.init_block(None, cfg, spec, "meta")
     ssm = tconfigs.get_smoke_config("falcon-mamba-7b")
     build_model(ssm)
     block = ttfm.init_block(None, ssm, ("mamba", None), "meta")
     assert set(block) == {"norm1", "mamba"}
+    hyb = tconfigs.get_smoke_config("recurrentgemma-2b")
+    build_model(hyb)
+    block = ttfm.init_block(None, hyb, ("rglru", "mlp"), "meta")
+    assert set(block) == {"norm1", "rglru", "norm2", "mlp"}
+    assert block["rglru"]["Lambda"].dtype == torch.float32

@@ -58,30 +58,34 @@ IMPLS = ("pallas_interpret", "xla")
 _MOVED = ("ClosedJaxpr", "Jaxpr", "Literal", "ShapedArray", "Var")
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """The reference's commit stream, decomposition, scheduler, P-Shell
-    and serve engine. ``repro.core`` imports ``repro.analysis``, which
-    reads four names that newer jax releases moved from ``jax.core`` to
-    ``jax.extend.core``: they are aliased for this one import and the
-    aliases removed again."""
+def import_reference(*names):
+    """The named modules of the JAX package. ``repro.core`` imports
+    ``repro.analysis``, which reads four names that newer jax releases
+    moved from ``jax.core`` to ``jax.extend.core``: they are aliased for
+    these imports and the aliases removed again."""
     import jax.core
     import jax.extend.core
     added = [n for n in _MOVED if not hasattr(jax.core, n)]
     for n in added:
         setattr(jax.core, n, getattr(jax.extend.core, n))
     try:
-        core = importlib.import_module("repro.core")
-        mods = {m: importlib.import_module(f"repro.core.{m}")
-                for m in ("commit", "decompose", "pshell")}
-        launch = importlib.import_module("repro.launch.serve")
+        return [importlib.import_module(n) for n in names]
     finally:
         for n in added:
             delattr(jax.core, n)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's commit stream, decomposition, scheduler, P-Shell
+    and serve engine."""
+    core, commit, decompose, pshell, launch = import_reference(
+        "repro.core", "repro.core.commit", "repro.core.decompose",
+        "repro.core.pshell", "repro.launch.serve")
     return types.SimpleNamespace(
-        commit=mods["commit"], decompose=mods["decompose"],
-        WindowScheduler=core.WindowScheduler, drain=mods["pshell"].drain,
-        shell_init=mods["pshell"].shell_init,
+        commit=commit, decompose=decompose,
+        WindowScheduler=core.WindowScheduler, drain=pshell.drain,
+        shell_init=pshell.shell_init,
         decode_shell_config=launch.decode_shell_config,
         make_decode_engine=launch.make_decode_engine)
 
