@@ -8,7 +8,7 @@ a forward, a Scale-Down check) every kernel's launch count is set to 0,
 and after it each count must read what that path launches. Phases:
 
   1. device  — the card's name, count and SMs, nvidia-smi's name, power
-               limit and maximum SM clock, and the nvcc builds of the four
+               limit and maximum SM clock, and the nvcc builds of the five
                kernels (one process per source, started together) with
                their time and each instance's registers and spills;
   2. kernel  — K2 (decode attention) against its plain version on the
@@ -51,10 +51,12 @@ and after it each count must read what that path launches. Phases:
   8. scale-down — verify_extraction at layers 0, 20 and 39 of the same
                model on the same batch's activations (bitwise, 41 K1
                launches each), and scanned_vs_unrolled (0.0, 80 launches);
-  9. forward parity — the glm4-9b and granite-8b smoke configs in f32,
-               loss and (L,2) checksums on the card (K1) and on the host
-               (plain) from the same weights within 1e-5 relative, and
-               every layer's replay bitwise on both;
+  9. forward parity — the glm4-9b and granite-8b smoke configs in f32
+               from seed 0, the loss and each checksum's mean |x| on the
+               card (K1) and on the host (plain) from the same weights
+               within 1e-5 relative, each checksum's mean within 1e-5 of
+               its layer's mean |x| (``testing.check_forward_parity``),
+               and every layer's replay bitwise on both;
  10. k1 time — K1 timed at the glm4-9b forward shape over 40 distinct
                q/k/v sets (~2.9 GB, beyond the 50 MB L2), beside its
                bound, its plain version and F.scaled_dot_product_attention
@@ -82,8 +84,8 @@ the falcon-mamba-7b phases report their own peak:
                dropped, a finite loss; wall time and peak memory;
  15. ssm scale-down — verify_extraction at layers 0, 32 and 63 (bitwise,
                65 K3 launches each) and scanned_vs_unrolled (0.0, 128);
- 16. ssm forward parity — the falcon-mamba smoke config in f32, loss and
-               checksums card against host within 1e-5, replays bitwise;
+ 16. ssm forward parity — the falcon-mamba smoke config in f32 from seed
+               0, the check of phase 9;
  17. k3 time — K3 timed with CUDA events at the forward and the prefill
                shapes, beside its bound and its plain version (no PyTorch
                call computes the selective scan, so no library time).
@@ -120,9 +122,7 @@ window 2048, vocab 256000):
                (local) and 25 (the tail's rglru), bitwise, each with its
                exact launches, and scanned_vs_unrolled (0.0);
  24. hybrid forward parity — the recurrentgemma smoke config in f32 from
-               seed HYBRID_PARITY_SEED (``repro_torch.testing`` says why),
-               loss and checksums card against host within 1e-5, replays
-               bitwise;
+               seed 0, the check of phase 9;
  25. k4 time — K4 timed with CUDA events at the forward and the prefill
                shapes, beside its bound and its plain version (no PyTorch
                call computes the linear recurrence, so no library time);
@@ -134,9 +134,45 @@ window 2048, vocab 256000):
                the ring wrapped) over 8 distinct cache sets, beside its
                bound, its plain version and F.scaled_dot_product_attention.
 
-K2, K1, K3 and K4 go into one JSON line; K1 and K2 carry their head_dim
-256 numbers under "hd256". The last line is {"ok": true, "device":
-{...}}. The full record is also written to chiprun_out/chip_smoke.json.
+recurrentgemma-2b's weights are freed and the peak-memory counter reset
+for the qwen3-moe-30b-a3b phases (48 layers of (attn, moe); d_model 2048,
+32 heads on 4 kv heads of head_dim 128 with qk-norm, 128 experts top-8
+of moe_d_ff 768, vocab 151936, untied; 61.06 GB of bf16 weights):
+
+ 28. k5      — K5 (the grouped expert GEMM) against its plain version on
+               the card: the reference's grid in f32 at 2e-5 and bf16 at
+               2e-2 (the tolerances of tests/test_kernels.py), bf16 also at
+               a normwise relative error of 2e-3; qwen3's gate/up
+               (128,C,2048)@(128,2048,768) and down (128,C,768)@
+               (128,768,2048) products in bf16 at C = 640 (forward), 1280
+               (serve prefill) and 8 (decode); moe_ffn against moe_ffn_ref
+               in f32 at 1e-4 and in bf16 at qwen3's decode shape;
+ 29. moe serve — serve() on the full qwen3-moe-30b-a3b config (random
+               weights from a seed drawn on the card, one period at a time,
+               kept for 31 and 32), the serve cell of phase 3 under
+               sync-debug mode "error": exactly 144 K5 launches and nothing
+               else in the prefill, 48 x 63 K2 and 144 x 64 K5 over the run,
+               63 FIFO rows; the decode traced from window 3 on;
+ 30. moe parity — the qwen3-moe and mixtral smoke configs in f32 through
+               serve() on the card and on the host: the same greedy tokens;
+ 31. moe forward — Model.loss with the commit, coverage and router taps
+               at full width and depth, B=2, S=4096: exactly 48 K1 and 144
+               K5 launches, 48 commit rows, none dropped, the (48, 128)
+               expert-toggle CSR drained, a finite loss; wall time and peak
+               memory;
+ 32. moe scale-down — verify_extraction at layers 0, 24 and 47, bitwise,
+               each with its exact launches, and scanned_vs_unrolled (0.0);
+ 33. moe forward parity — the qwen3-moe and mixtral smoke configs in f32
+               from seed 0, the check of phase 9, and each layer's expert
+               load and dropped fraction equal on the card and the host;
+ 34. k5 time — K5 at qwen3's three shapes, gate/up and down, with CUDA
+               events, beside its bound, its plain version and torch.bmm
+               (timed only; the port never calls it).
+
+K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
+head_dim 256 numbers under "hd256". The last line is {"ok": true,
+"device": {...}}. The full record is also written to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -176,23 +212,24 @@ SSM_SCALE_DOWN_LAYERS = (0, 32, 63)
 # attention layer of the fifth, 25 the tail's second RG-LRU layer
 HYB_ARCH = "recurrentgemma-2b"
 HYB_SCALE_DOWN_LAYERS = (0, 14, 25)
+# qwen3-moe-30b-a3b: the same serve cell and forward shape, full width and
+# depth; the expert capacity C of its forward (T = 8192 tokens), serve
+# prefill (16384) and decode (8) dispatch
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_SCALE_DOWN_LAYERS = (0, 24, 47)
+MOE_CAPACITIES = {"forward": 640, "prefill": 1280, "decode": 8}
 
 
 def kernel_ops():
     """The kernels' wrappers, each carrying its launch count."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
     return {"k1": fa_ops.flash_attention, "k2": da_ops.decode_attention,
-            "k3": ssm_ops.ssm_scan, "k4": lru_ops.rglru_scan}
-
-
-def tally(names, times=1):
-    out: dict = {}
-    for n in names:
-        out[n] = out.get(n, 0) + times
-    return out
+            "k3": ssm_ops.ssm_scan, "k4": lru_ops.rglru_scan,
+            "k5": gg_ops.grouped_gemm}
 
 
 def reset_counts():
@@ -287,20 +324,21 @@ def time_ms(torch, fn, n_args, reps):
 
 
 def forward_phase(cfg, params, B=FWD_BATCH, S=FWD_SEQ):
-    """Model.loss with the commit and coverage taps on one make_batch_fn
-    batch on the card, its taps ingested into the P-Shell and drained.
-    Checks the launch counts (each layer's kernel once, nothing else), the
-    commit rows and the loss; returns the record, the model and the
-    batch."""
+    """Model.loss with the commit and coverage taps (and the router tap
+    for a MoE config) on one make_batch_fn batch on the card, its taps
+    ingested into the P-Shell and drained. Checks the launch counts (each
+    layer's kernels, nothing else), the commit rows, the expert-toggle
+    CSR and the loss; returns the record, the model and the batch."""
     import torch
 
     from repro_torch.core import (default_shell_config, drain, make_ingest,
                                   shell_init)
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.models import Runtime, build_model
-    from repro_torch.testing import TAPS, layer_kernels
+    from repro_torch.testing import TAPS, layer_kernels, tally
 
-    model = build_model(cfg, Runtime(taps=TAPS))
+    taps = TAPS | {"router"} if cfg.num_experts else TAPS
+    model = build_model(cfg, Runtime(taps=taps))
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in
              make_batch_fn(cfg, B, S, seed=0)(0).items()}
     torch.cuda.synchronize()
@@ -336,6 +374,17 @@ def forward_phase(cfg, params, B=FWD_BATCH, S=FWD_SEQ):
            "dropped": commits["dropped"],
            "checksums_first_last": [commits["data"][0, 1:].tolist(),
                                     commits["data"][-1, 1:].tolist()]}
+    if cfg.num_experts:
+        toggles = records["csrs"]["expert_toggles"]
+        n_moe = sum(1 for _, f in cfg.layer_specs if f == "moe")
+        assert toggles.shape == (n_moe, cfg.num_experts), toggles.shape
+        assert toggles.any(axis=1).all()
+        assert records["fifos"]["router"]["count"] == 0
+        rec.update(moe_aux=float(metrics["moe_aux"]),
+                   ce=float(metrics["ce"]),
+                   expert_toggle_rows=int(toggles.shape[0]),
+                   experts_toggled=int(toggles.sum()),
+                   experts_toggled_per_layer_min=int(toggles.sum(1).min()))
     return rec, model, batch
 
 
@@ -348,7 +397,7 @@ def scale_down_phase(cfg, params, model, batch, layers):
     from repro_torch.core.decompose import (scanned_vs_unrolled,
                                             verify_extraction)
     from repro_torch.models.layers import embed_apply
-    from repro_torch.testing import layer_kernels
+    from repro_torch.testing import layer_kernels, tally
 
     B, S = batch["tokens"].shape
     kinds = layer_kernels(cfg)
@@ -383,13 +432,15 @@ def serve_phase(cfg, params):
     window under sync-debug mode "error" and the decode traced from window
     TRACED on. All launch counts are set to 0 just before. When the first
     window starts, the prefill must have launched K3 or K4 once per mamba
-    or RG-LRU layer and nothing else (its attention is plain, as in the
-    reference); at the end K2 must have run once per attention layer per
-    decode step besides. Returns the serve record and the trace."""
+    or RG-LRU layer and K5 three times per MoE layer, and nothing else
+    (its attention is plain, as in the reference); at the end K2 must have
+    run once per attention layer and K5 three times per MoE layer per
+    decode step besides (``testing.serve_kernels``). Returns the serve
+    record and the trace."""
     import torch
 
     from repro_torch.launch.serve import serve
-    from repro_torch.testing import layer_kernels
+    from repro_torch.testing import serve_kernels
 
     timer = tracing_timer(TRACED)
     torch.cuda.reset_peak_memory_stats()
@@ -406,10 +457,7 @@ def serve_phase(cfg, params):
     steps = GEN - 1
     n_windows = -(-steps // INTERVAL)
     toks = out["tokens"]
-    kinds = layer_kernels(cfg)
-    prefill_counts = tally(k for k in kinds if k != "k1")
-    total_counts = {**prefill_counts, **tally(
-        ("k2" for k in kinds if k == "k1"), steps)}
+    prefill_counts, total_counts = serve_kernels(cfg, steps)
     expect_counts(timer.counts_at_decode, prefill_counts, "serve prefill")
     expect_counts(got, total_counts, "serve")
     assert out["decode_fifo_rows"] == steps, out["decode_fifo_rows"]
@@ -718,19 +766,118 @@ def k4_time(cfg, B, S):
             "shape": {"B": B, "S": S, "W": W, "dtype": "float32"}}
 
 
+def forward_parity_phase(archs):
+    """Each arch's smoke config in f32 from seed 0 through
+    ``check_forward_parity`` (card against host, replays bitwise), with
+    each kernel's launches on the card: per layer of its kind, one in the
+    loss, one in every layer's verify_extraction capture and one in its
+    own replay."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.testing import check_forward_parity, layer_kernels, tally
+
+    out = {}
+    for arch in archs:
+        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        got = check_forward_parity(scfg)
+        want = tally(layer_kernels(scfg), scfg.num_layers + 2)
+        assert {k: got[f"{k}_launches"] for k in ("k1", "k3", "k4", "k5")} \
+            == {k: want.get(k, 0) for k in ("k1", "k3", "k4", "k5")}, got
+        out[arch] = got
+    return out
+
+
+def k5_check_phase(cfg):
+    """K5 against its plain version on the card (``check_grouped_gemm``):
+    the reference's grid in f32 and bf16, a ragged tile in bf16 with the
+    16-byte copies, and the model's gate/up and down products at each
+    capacity of MOE_CAPACITIES in bf16; ``moe_ffn`` (three launches)
+    against ``moe_ffn_ref``. Returns, per case group, the max abs error
+    and the normwise relative error."""
+    import torch
+
+    from repro_torch.testing import check_grouped_gemm, check_moe_ffn
+
+    errs: dict = {}
+
+    def case(key, check, *a):
+        got = check(*a)
+        errs[key] = [max(x, y) for x, y in zip(errs.get(key, got), got)]
+
+    bf16 = torch.bfloat16
+    for dtype in (torch.float32, bf16):
+        dname = str(dtype).replace("torch.", "")
+        for shape in ((4, 128, 64, 128), (3, 50, 33, 17), (1, 8, 8, 8),
+                      (8, 256, 128, 64)):
+            case(f"grid_{dname}", check_grouped_gemm, *shape, dtype)
+    case("ragged_bfloat16", check_grouped_gemm, 5, 77, 136, 200, bf16)
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    for name, C in MOE_CAPACITIES.items():
+        case(f"{name}_gate_up", check_grouped_gemm, E, C, D, F, bf16)
+        case(f"{name}_down", check_grouped_gemm, E, C, F, D, bf16)
+    case("moe_ffn_float32", check_moe_ffn, 4, 64, 32, 48, torch.float32)
+    case("moe_ffn_bfloat16", check_moe_ffn, E, MOE_CAPACITIES["decode"], D,
+         F, bf16)
+    return errs
+
+
+def k5_time(E, M, K, N, seed):
+    """K5, its plain version and torch.bmm (timed only; the port never
+    calls it) with CUDA events over two distinct bf16 x/w sets (w alone is
+    0.4 GB a set at qwen3's shapes, beyond the 50 MB L2), beside the
+    bound: the larger of the bytes over the memory rate (x and w read and
+    the output written, each once) and the products over the bf16
+    tensor-core rate."""
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf16 = torch.bfloat16
+    sets = [(torch.randn(E, M, K, generator=g, device="cuda").to(bf16),
+             (torch.randn(E, K, N, generator=g, device="cuda")
+              * K ** -0.5).to(bf16)) for _ in range(2)]
+
+    def kernel(i):
+        return gg_ops.grouped_gemm(*sets[i])
+
+    def plain(i):
+        return grouped_gemm_ref(*sets[i])
+
+    def library(i):
+        return torch.bmm(*sets[i])
+
+    lib_err = float((library(0).float() - kernel(0).float()).abs().max())
+    ms = time_ms(torch, kernel, 2, reps=10)
+    plain_ms = time_ms(torch, plain, 2, reps=1)
+    library_ms = time_ms(torch, library, 2, reps=10)
+    ms_2 = time_ms(torch, kernel, 2, reps=10)
+    flops = 2 * E * M * K * N
+    nbytes = 2 * (E * M * K + E * K * N + E * M * N)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    return {"ms": ms, "ms_repeat": ms_2, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_share": bound_ms / ms, "bytes": nbytes,
+            "bytes_ms": bytes_ms, "flops": flops, "flop_ms": ops_ms,
+            "shape": {"E": E, "M": M, "K": K, "N": N, "dtype": "bfloat16"},
+            "library_max_abs_err": lib_err, "library_call": "torch.bmm"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import build_model
-    from repro_torch.testing import (HYBRID_PARITY_SEED,
-                                     check_decode_attention,
-                                     check_flash_attention,
-                                     check_forward_parity, layer_kernels)
+    from repro_torch.testing import (check_decode_attention,
+                                     check_flash_attention, layer_kernels,
+                                     tally)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -759,7 +906,7 @@ def main() -> int:
                         "torch": torch.__version__,
                         "cuda": torch.version.cuda}
     sources = ("decode_attention", "flash_attention", "ssm_scan",
-               "rglru_scan")
+               "rglru_scan", "grouped_gemm")
     t = time.perf_counter()
     build_logs = _build.build(*sources)
     build_s = time.perf_counter() - t
@@ -870,10 +1017,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- 9. forward parity --
-    fwd_parity = {}
-    for arch in ("glm4-9b", "granite-8b"):
-        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-        fwd_parity[arch] = check_forward_parity(scfg)
+    fwd_parity = forward_parity_phase(("glm4-9b", "granite-8b"))
     log(phase="forward_parity", **fwd_parity)
     record["forward_parity"] = fwd_parity
 
@@ -928,12 +1072,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------- 16. ssm forward parity --
-    ssm_fwd_parity = check_forward_parity(
-        dataclasses.replace(get_smoke_config(SSM_ARCH), dtype="float32"))
-    SSL = get_smoke_config(SSM_ARCH).num_layers
-    assert ssm_fwd_parity["k1_launches"] == 0
-    assert ssm_fwd_parity["k4_launches"] == 0
-    assert ssm_fwd_parity["k3_launches"] == SSL + SSL * (SSL + 1)
+    ssm_fwd_parity = forward_parity_phase((SSM_ARCH,))[SSM_ARCH]
     log(phase="ssm_forward_parity", **ssm_fwd_parity)
     record["ssm_forward_parity"] = ssm_fwd_parity
 
@@ -1014,15 +1153,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 24. hybrid forward parity --
-    hsmoke = dataclasses.replace(get_smoke_config(HYB_ARCH), dtype="float32")
-    hyb_fwd_parity = check_forward_parity(hsmoke, seed=HYBRID_PARITY_SEED)
-    # per layer of its kind: one in the loss, one in each layer's
-    # verify_extraction capture, one in its own replay
-    want = tally(layer_kernels(hsmoke), hsmoke.num_layers + 2)
-    assert {k: hyb_fwd_parity[f"{k}_launches"] for k in ("k1", "k3", "k4")} \
-        == {k: want.get(k, 0) for k in ("k1", "k3", "k4")}, hyb_fwd_parity
-    log(phase="hybrid_forward_parity", seed=HYBRID_PARITY_SEED,
-        **hyb_fwd_parity)
+    hyb_fwd_parity = forward_parity_phase((HYB_ARCH,))[HYB_ARCH]
+    log(phase="hybrid_forward_parity", **hyb_fwd_parity)
     record["hybrid_forward_parity"] = hyb_fwd_parity
 
     # ---------------------------------------------------------- 25. k4 time --
@@ -1048,7 +1180,7 @@ def main() -> int:
 
     # ------------------------------------------------ 26. k1 time at 256 --
     # one q/k/v set per local layer (~0.7 GB together)
-    n_local = layer_kernels(hcfg).count("k1")
+    n_local = tally(layer_kernels(hcfg))["k1"]
     k1["hd256"] = {
         "launches": hyb_fwd["k1_launches"],
         "max_abs_err": hd256_errs["k1_bfloat16"][0],
@@ -1064,7 +1196,73 @@ def main() -> int:
         **k2_time(BATCH, HH, HK, HW, Hhd, 2100, n_local, seed=5)}
     log(phase="k2_time_hd256", **k2["hd256"])
 
-    kernels = [k2, k1, k3, k4]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -------------------------------------------------------------- 28. k5 --
+    mcfg = get_config(MOE_ARCH)
+    k5_errs = k5_check_phase(mcfg)
+    log(phase="k5", max_abs_err_and_normwise_err=k5_errs)
+    record["k5_errors"] = k5_errs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 29. moe serve --
+    # 61.06 GB of bf16 weights, drawn one period at a time; kept for 31, 32
+    mparams = build_model(mcfg).init(0, device="cuda")
+    moe_serve, moe_trace = serve_phase(mcfg, mparams)
+    log(phase="moe_serve", **moe_serve)
+    record["moe_serve"] = moe_serve
+    log(phase="moe_trace", **moe_trace)
+    record["moe_trace"] = moe_trace
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 30. moe parity --
+    moe_parity = serve_parity((MOE_ARCH, "mixtral-8x7b"))
+    log(phase="moe_parity", tokens_equal=True, tokens=moe_parity)
+    record["moe_parity"] = moe_parity
+
+    # ----------------------------------------------------- 31. moe forward --
+    moe_fwd, mmodel, mbatch = forward_phase(mcfg, mparams)
+    log(phase="moe_forward", **moe_fwd)
+    record["moe_forward"] = moe_fwd
+
+    # -------------------------------------------------- 32. moe scale-down --
+    moe_sd = scale_down_phase(mcfg, mparams, mmodel, mbatch,
+                              MOE_SCALE_DOWN_LAYERS)
+    log(phase="moe_scale_down", **moe_sd)
+    record["moe_scale_down"] = moe_sd
+    del mparams, mmodel, mbatch
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------- 33. moe forward parity --
+    moe_fwd_parity = forward_parity_phase((MOE_ARCH, "mixtral-8x7b"))
+    log(phase="moe_forward_parity", **moe_fwd_parity)
+    record["moe_forward_parity"] = moe_fwd_parity
+
+    # ---------------------------------------------------------- 34. k5 time --
+    E, D, F = mcfg.num_experts, mcfg.d_model, mcfg.moe_d_ff
+    k5_t = {f"{name}_{prod}": k5_time(E, C, *dims, seed=6)
+            for name, C in MOE_CAPACITIES.items()
+            for prod, dims in (("gate_up", (D, F)), ("down", (F, D)))}
+    log(phase="k5_time", **k5_t)
+    fwd_t = k5_t["forward_gate_up"]
+    k5 = {
+        "name": "grouped_gemm", "route": "cuda",
+        "source": "src/repro_torch/csrc/grouped_gemm.cu",
+        "replaces": "src/repro/kernels/grouped_gemm/grouped_gemm.py:37",
+        "launches": moe_fwd["k5_launches"],
+        "max_abs_err": k5_errs["forward_gate_up"][0],
+        "ms": fwd_t["ms"], "plain_ms": fwd_t["plain_ms"],
+        "bound_ms": fwd_t["bound_ms"], "bound_by": fwd_t["bound_by"],
+        "library_ms": fwd_t["library_ms"],
+        "launches_per_forward": moe_fwd["k5_launches"],
+        "launches_serve": moe_serve["launches"]["k5"],
+        "launches_serve_prefill": moe_serve["launches_in_prefill"]["k5"],
+        "shapes": k5_t,
+        "library_call": "torch.bmm",
+    }
+
+    kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

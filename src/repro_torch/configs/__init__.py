@@ -1,7 +1,7 @@
-"""Architecture registry of the port: the dense decoders, the Mamba-1 SSM
-and the RG-LRU hybrid whose paths are ported so far. The other
-architectures of the JAX package wait for the slices that port their
-mixers (MoE, enc-dec, VLM).
+"""Architecture registry of the port: the dense decoders, the Mamba-1 SSM,
+the RG-LRU hybrid and the MoE decoders whose paths are ported so far. The
+other architectures of the JAX package wait for the slices that port
+their families (enc-dec, VLM) or their configs.
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_smoke_config(arch_id)`` the reduced same-family config of the tests.
@@ -22,11 +22,12 @@ _ARCH_MODULES = {
     "granite-8b": "granite_8b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 # architectures of the JAX package that a later slice of the port brings in
-_LATER = ("qwen3-moe-30b-a3b", "mixtral-8x7b", "internlm2-20b",
-          "command-r-35b", "whisper-small", "internvl2-1b")
+_LATER = ("internlm2-20b", "command-r-35b", "whisper-small", "internvl2-1b")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 

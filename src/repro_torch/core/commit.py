@@ -46,8 +46,10 @@ def layer_checksums(aux) -> torch.Tensor:
 
 
 def moe_toggles(aux):
-    """(n_moe_layers, E) router toggles, or None (always for the dense
-    and SSM families, whose blocks emit no "moe" tap)."""
+    """(n_moe_layers, E) router toggles, or None (always for the families
+    without MoE blocks, which emit no "moe" tap). The scanned pattern
+    positions come first, each with its periods in order, then the
+    tail, as in the reference."""
     rows = []
     for pos in aux.get("scanned", ()):
         if "moe" in pos and "expert_toggles" in pos["moe"]:
@@ -75,8 +77,11 @@ def default_shell_config(cfg, sample_interval: int = 1,
     L commit rows, so the commits FIFO must hold >= sample_interval * L
     entries for lossless capture (interval=1 == cycle-accurate). Undersize
     it (``commit_depth``) and overflow is dropped deterministically with
-    exact credit accounting, never blocking the device. The MoE router
-    FIFO and expert-toggle CSR arrive with the slice that ports MoE."""
+    exact credit accounting, never blocking the device. A config with
+    experts also gets the (n_moe, E) ``expert_toggles`` CSR and the
+    ``router`` FIFO ([layer, aux_loss, dropped_frac] rows). As in the
+    reference, nothing pushes the router FIFO yet: it is declared and
+    drains empty."""
     L = cfg.num_layers + cfg.encoder_layers
     depth = commit_depth or max(4, sample_interval) * max(L, 1)
     csrs = {
@@ -88,6 +93,12 @@ def default_shell_config(cfg, sample_interval: int = 1,
         # payload: [layer_id, mean, abs_mean]
         "commits": FifoSpec(depth=depth, shape=(3,), dtype=torch.float32),
     }
+    if cfg.num_experts:
+        n_moe = sum(1 for _, f in cfg.layer_specs if f == "moe")
+        csrs["expert_toggles"] = ((n_moe, cfg.num_experts), torch.int32)
+        fifos["router"] = FifoSpec(
+            depth=max(4, sample_interval) * max(n_moe, 1), shape=(3,),
+            dtype=torch.float32)  # [layer, aux_loss, dropped_frac]
     return ShellConfig(csrs=csrs, fifos=fifos,
                        sample_interval=sample_interval)
 
@@ -107,6 +118,10 @@ def make_ingest(cfg):
             pad = shell["csr"]["nan_bits"].shape[0] - nb.shape[0]
             shell = csr_accum(shell, "nan_bits",
                               F.pad(nb.to(torch.int32), (0, pad)), op="or")
+        tg = moe_toggles(aux)
+        if tg is not None and "expert_toggles" in shell["csr"]:
+            shell = csr_accum(shell, "expert_toggles", tg.to(torch.int32),
+                              op="or")
         if "loss" in metrics:
             shell = csr_write(shell, "loss_last", metrics["loss"].float())
         return csr_accum(shell, "steps", 1, op="add")

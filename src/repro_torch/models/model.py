@@ -1,5 +1,5 @@
-"""Model facade of the port: the dense decoder, Mamba-1 SSM and RG-LRU
-hybrid families.
+"""Model facade of the port: the dense decoder, Mamba-1 SSM, RG-LRU hybrid
+and MoE decoder families.
 
 ``build_model(cfg, rt)`` returns a Model with:
   init(seed, device) -> params
@@ -9,9 +9,10 @@ hybrid families.
   prefill(params, batch, max_len) -> (cache, last_logits)
   decode_step(params, cache, tokens1) -> (cache, logits)   [serve_step]
 
-``aux`` carries the P-Shell taps that ``rt.taps`` asks for. Gradients,
-the optimizer and the train step come with the training slice; the other
-families (moe, encdec, vlm) with later slices of the port.
+``aux`` carries the P-Shell taps that ``rt.taps`` asks for, and each MoE
+layer's load-balance loss. Gradients, the optimizer and the train step
+come with the training slice; the other families (encdec, vlm) with later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -31,6 +32,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - ll).mean()
 
 
+def _collect_moe_aux(aux, device) -> torch.Tensor:
+    """The mean over MoE blocks (each pattern position's stacked losses
+    averaged first) of their load-balance losses; a 0-d f32 zero where
+    there is none."""
+    vals = [blk["moe_aux_loss"].mean()
+            for part in ("scanned", "tail") for blk in aux.get(part, ())
+            if "moe_aux_loss" in blk]
+    if not vals:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.stack(vals).mean()
+
+
 def _on_device(batch, params):
     """The batch as tensors on the params' device. Tensors stay where they
     are; host arrays go to the card (``resolve_device``, which raises
@@ -48,11 +61,11 @@ def _on_device(batch, params):
 
 class Model:
     def __init__(self, cfg: ModelConfig, rt: Runtime = Runtime()):
-        if cfg.family not in ("dense", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (a later slice "
-                "of the port); the dense, ssm and hybrid families are "
-                "ported")
+                "of the port); the dense, ssm, hybrid and moe families "
+                "are ported")
         self.cfg = cfg
         self.rt = rt
 
@@ -73,14 +86,16 @@ class Model:
         return tfm.lm_logits(params, self.cfg, batch["tokens"], self.rt)
 
     def loss(self, params, batch):
-        """Mean next-token cross-entropy. The ported families have no MoE
-        aux loss, so ``loss`` is ``ce`` and ``moe_aux`` a 0-d f32 zero."""
+        """Mean next-token cross-entropy plus ``rt.aux_loss_coef`` times
+        the MoE load-balance loss (``moe_aux``, a 0-d f32 zero for the
+        families without MoE layers)."""
         batch = _on_device(batch, params)
         logits, aux = self.logits(params, batch)
         ce = cross_entropy(logits, batch["labels"])
-        moe_aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        metrics = {"loss": ce, "ce": ce, "moe_aux": moe_aux}
-        return ce, (metrics, aux)
+        moe_aux = _collect_moe_aux(aux, ce.device)
+        loss = ce + self.rt.aux_loss_coef * moe_aux
+        metrics = {"loss": loss, "ce": ce, "moe_aux": moe_aux}
+        return loss, (metrics, aux)
 
     # ------------------------------------------------------------ serve ---
     def cache_spec(self, batch: int, max_len: int):
@@ -95,7 +110,7 @@ class Model:
         x = embed_apply(params["embed"], tokens,
                         positions if cfg.learned_pos else None)
         x, cache = tfm.stack_prefill(params["stack"], cfg, x, positions,
-                                     max_len)
+                                     max_len, self.rt)
         x = norm_apply(cfg, params["final_norm"], x)
         return cache, logits_apply(params, cfg, x[:, -1:])
 

@@ -14,9 +14,11 @@ The forward (``block_apply``, ``stack_apply``, ``lm_hidden``,
 leaves are stacked over periods on axis 0, "tail": tuple of dicts}``.
 ``core/commit.py`` reads that layout in period-major layer order.
 
-The attention mixers (attn / swa / local) and the RG-LRU mixer with the
-GLU MLP, and the Mamba-1 mixer with no FFN, are ported. The MoE FFN
-arrives with the slice that ports that family.
+The attention mixers (attn / swa / local), the RG-LRU mixer and the
+Mamba-1 mixer are ported, with the GLU MLP, the MoE FFN or no FFN. A MoE
+block also emits its load-balance loss as ``aux["moe_aux_loss"]``, and
+its router stats under ``aux["moe"]``: all of them under the "router"
+tap, only the expert toggles under "coverage".
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed_apply, init_dense, init_embed,
@@ -34,7 +37,6 @@ from repro_torch.models.runtime import Runtime
 from repro_torch.utils import checksum, dtype_of, has_nan_bit, tree_map
 
 _ATTN_KINDS = ("attn", "swa", "local")
-_LATER = "is not ported yet (a later slice of the port)"
 
 
 # ------------------------------------------------------------------ block ---
@@ -42,9 +44,7 @@ def _check_spec(spec):
     mixer, ffn = spec
     if mixer not in _ATTN_KINDS + ("mamba", "rglru"):
         raise ValueError(f"unknown mixer {mixer!r}")
-    if ffn == "moe":
-        raise NotImplementedError(f"ffn 'moe' {_LATER}")
-    if ffn not in (None, "mlp"):
+    if ffn not in (None, "mlp", "moe"):
         raise ValueError(f"unknown ffn {ffn!r}")
 
 
@@ -60,7 +60,10 @@ def init_block(g, cfg, spec, device):
         p["attn"] = attn.init_attention(g, cfg, device)
     if ffn is not None:
         p["norm2"] = init_norm(cfg, cfg.d_model, device)
-        p["mlp"] = init_mlp(g, cfg, cfg.d_ff, device)
+        if ffn == "mlp":
+            p["mlp"] = init_mlp(g, cfg, cfg.d_ff, device)
+        else:
+            p["moe"] = moe_mod.init_moe(g, cfg, device)
     return p
 
 
@@ -68,10 +71,20 @@ def _mixer_window(cfg, mixer):
     return cfg.window if mixer in ("swa", "local") else 0
 
 
+def _ffn_apply(p, cfg, ffn, x, moe_impl: str):
+    """The block's FFN on its residual stream x: (x, MoE stats or None)."""
+    h2 = norm_apply(cfg, p["norm2"], x)
+    if ffn == "mlp":
+        return x + mlp_apply(p["mlp"], h2), None
+    y2, stats = moe_mod.moe_apply(p["moe"], cfg, h2, impl=moe_impl)
+    return x + y2, stats
+
+
 def block_apply(p, cfg, spec, x, positions, rt: Runtime):
     """Full-sequence forward of one block. Returns (x, aux) with the taps
     of ``rt.taps``: "checksum" (commits) and "nan_bit" (coverage) of the
-    block's output."""
+    block's output; for a MoE FFN the router stats ("router": all of
+    them; "coverage": the expert toggles) and, always, its aux loss."""
     mixer, ffn = spec
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x)
@@ -82,9 +95,15 @@ def block_apply(p, cfg, spec, x, positions, rt: Runtime):
     else:
         x = x + attn.attention_apply(p["attn"], cfg, h, positions,
                                      window=_mixer_window(cfg, mixer))
-    if ffn is not None:
-        x = x + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x))
     aux: Dict[str, Any] = {}
+    if ffn is not None:
+        x, stats = _ffn_apply(p, cfg, ffn, x, rt.moe_impl)
+        if stats is not None:
+            if "router" in rt.taps:
+                aux["moe"] = stats
+            elif "coverage" in rt.taps:
+                aux["moe"] = {"expert_toggles": stats["expert_toggles"]}
+            aux["moe_aux_loss"] = stats["aux_loss"]
     if "commits" in rt.taps:
         aux["checksum"] = checksum(x)
     if "coverage" in rt.taps:
@@ -102,7 +121,8 @@ def block_cache_spec(cfg, spec, batch: int, max_len: int):
 
 
 def block_decode(p, cfg, spec, x1, cache, pos):
-    """One-token block step; ``cache`` is updated in place."""
+    """One-token block step; ``cache`` is updated in place. A MoE FFN
+    always takes the sort dispatch here, over the batch's B tokens."""
     mixer, ffn = spec
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x1)
@@ -115,12 +135,14 @@ def block_decode(p, cfg, spec, x1, cache, pos):
             p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer))
     x1 = x1 + y
     if ffn is not None:
-        x1 = x1 + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x1))
+        x1, _ = _ffn_apply(p, cfg, ffn, x1, "sort")
     return x1, cache
 
 
-def block_prefill(p, cfg, spec, x, positions, max_len: int):
-    """Full-seq forward that also emits this block's decode cache."""
+def block_prefill(p, cfg, spec, x, positions, max_len: int,
+                  rt: Runtime = Runtime()):
+    """Full-seq forward that also emits this block's decode cache; a MoE
+    FFN takes ``rt.moe_impl``."""
     mixer, ffn = spec
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x)
@@ -133,7 +155,7 @@ def block_prefill(p, cfg, spec, x, positions, max_len: int):
                                       max_len)
     x = x + y
     if ffn is not None:
-        x = x + mlp_apply(p["mlp"], norm_apply(cfg, p["norm2"], x))
+        x, _ = _ffn_apply(p, cfg, ffn, x, rt.moe_impl)
     return x, cache
 
 
@@ -256,14 +278,15 @@ def stack_decode(stack, cfg, x1, cache):
     return x1, {**cache, "pos": pos + 1}
 
 
-def stack_prefill(stack, cfg, x, positions, max_len: int):
+def stack_prefill(stack, cfg, x, positions, max_len: int,
+                  rt: Runtime = Runtime()):
     P_len, n_periods, _ = _partition(cfg)
     pattern = cfg.layer_pattern
     per_pos = [[] for _ in range(P_len)]
     for i in range(n_periods):
         for j in range(P_len):
             x, c = block_prefill(_period(stack["blocks"][j], i), cfg,
-                                 pattern[j], x, positions, max_len)
+                                 pattern[j], x, positions, max_len, rt)
             per_pos[j].append(c)
     cache: Dict[str, Any] = {"scanned": tuple(
         tree_map(lambda *cs: torch.stack(cs), *cs) for cs in per_pos)
@@ -271,7 +294,7 @@ def stack_prefill(stack, cfg, x, positions, max_len: int):
     tail_c = []
     for i, p in enumerate(stack["tail"]):
         x, c = block_prefill(p, cfg, pattern[i % P_len], x, positions,
-                             max_len)
+                             max_len, rt)
         tail_c.append(c)
     cache["tail"] = tuple(tail_c)
     cache["pos"] = torch.full((), x.shape[1], dtype=torch.int32,

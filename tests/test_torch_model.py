@@ -8,6 +8,7 @@ a few different points and a whole model carries those differences into
 single logits near zero. Decode feeds both sides the same tokens, so the
 comparison holds step by step without depending on argmax ties.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -44,8 +45,10 @@ def _close(a, b, dtype):
         assert err <= TOL[dtype], err
 
 
-def _run_both(jcfg, tcfg, *, jimpl, B=2, S=20, steps=4, seed=0):
-    """The port's one decode path against the reference's ``jimpl``."""
+def _run_both(jcfg, tcfg, *, jimpl, B=2, S=20, steps=4, seed=0, jit=True):
+    """The port's one decode path against the reference's ``jimpl``,
+    jitted, or op by op under ``jax.disable_jit()`` where ``jit`` is
+    False."""
     jm = jax_build(jcfg, JaxRuntime(attention_impl=jimpl))
     tm = build_model(tcfg)
     jp = seeded_params(jcfg)
@@ -55,14 +58,17 @@ def _run_both(jcfg, tcfg, *, jimpl, B=2, S=20, steps=4, seed=0):
     step_toks = rng.integers(0, jcfg.vocab_size,
                              size=(steps, B, 1)).astype(np.int32)
     max_len = S + steps + 4
-    jprefill = jax.jit(jm.prefill, static_argnums=2)
-    jdecode = jax.jit(jm.decode_step)
-    jc, jl = jprefill(jp, {"tokens": jnp.asarray(toks)}, max_len)
+    jprefill = jax.jit(jm.prefill, static_argnums=2) if jit else jm.prefill
+    jdecode = jax.jit(jm.decode_step) if jit else jm.decode_step
+    eager = contextlib.nullcontext if jit else jax.disable_jit
+    with eager():
+        jc, jl = jprefill(jp, {"tokens": jnp.asarray(toks)}, max_len)
     with torch.inference_mode():
         tc, tl = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, max_len)
     yield "prefill", jc, jl, tc, tl
     for i in range(steps):
-        jc, jl = jdecode(jp, jc, jnp.asarray(step_toks[i]))
+        with eager():
+            jc, jl = jdecode(jp, jc, jnp.asarray(step_toks[i]))
         with torch.inference_mode():
             tc, tl = tm.decode_step(tp, tc, torch.from_numpy(step_toks[i]))
         yield f"step{i}", jc, jl, tc, tl

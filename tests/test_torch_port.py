@@ -46,7 +46,10 @@ def test_import_guard_covers_every_module_of_the_port():
                 "kernels/ssm_scan/ops.py", "kernels/ssm_scan/ref.py",
                 "models/ssm.py", "configs/falcon_mamba_7b.py",
                 "kernels/rglru_scan/ops.py", "kernels/rglru_scan/ref.py",
-                "models/recurrent.py", "configs/recurrentgemma_2b.py"):
+                "models/recurrent.py", "configs/recurrentgemma_2b.py",
+                "kernels/grouped_gemm/ops.py", "kernels/grouped_gemm/ref.py",
+                "models/moe.py", "configs/qwen3_moe_30b_a3b.py",
+                "configs/mixtral_8x7b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
 
@@ -99,7 +102,8 @@ def test_forward_raises_without_a_card_unless_given_host_tensors(
 
 def test_registry_ports_two_archs_and_names_the_rest():
     assert tconfigs.ARCH_IDS == ("glm4-9b", "granite-8b", "falcon-mamba-7b",
-                                 "recurrentgemma-2b")
+                                 "recurrentgemma-2b", "qwen3-moe-30b-a3b",
+                                 "mixtral-8x7b")
     full = tconfigs.get_config("glm4-9b")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.vocab_size) == (40, 4096, 32, 2, 128, 151552)
@@ -119,16 +123,30 @@ def test_registry_ports_two_archs_and_names_the_rest():
         "bfloat16", True,
         (("rglru", "mlp"), ("rglru", "mlp"), ("local", "mlp")))
     assert hyb.param_count() == 2_894_528_000
+    moe = tconfigs.get_config("qwen3-moe-30b-a3b")
+    assert (moe.family, moe.num_layers, moe.d_model, moe.num_heads,
+            moe.num_kv_heads, moe.head_dim, moe.use_qk_norm, moe.num_experts,
+            moe.num_experts_per_tok, moe.moe_d_ff, moe.vocab_size,
+            moe.tie_embeddings, moe.layer_pattern) == (
+        "moe", 48, 2048, 32, 4, 128, True, 128, 8, 768, 151936, False,
+        (("attn", "moe"),))
+    assert moe.param_count() == 30_532_110_336
+    mix = tconfigs.get_config("mixtral-8x7b")
+    assert (mix.num_layers, mix.num_experts, mix.num_experts_per_tok,
+            mix.moe_d_ff, mix.window, mix.layer_pattern) == (
+        32, 8, 2, 14336, 4096, (("swa", "moe"),))
+    assert mix.param_count() == 46_702_792_704
     with pytest.raises(KeyError, match="later slice"):
         tconfigs.get_config("internvl2-1b")
     with pytest.raises(KeyError, match="later slice"):
-        tconfigs.get_config("mixtral-8x7b")
+        tconfigs.get_config("internlm2-20b")
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_smoke_config("gpt-2")
 
 
 @pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b", "falcon-mamba-7b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "qwen3-moe-30b-a3b",
+                                  "mixtral-8x7b"])
 def test_configs_and_prompts_equal_the_reference(arch):
     pytest.importorskip("jax")
     from repro.configs import get_config, get_smoke_config
@@ -167,6 +185,12 @@ def test_cli_reaches_the_full_config(monkeypatch, capsys):
                  "cpu"])
     assert seen["cfg"].name == "recurrentgemma-2b" \
         and seen["cfg"].num_layers == 26
+    tserve.main(["--arch", "qwen3-moe-30b-a3b", "--no-smoke", "--device",
+                 "cpu"])
+    assert seen["cfg"].name == "qwen3-moe-30b-a3b" \
+        and seen["cfg"].num_layers == 48
+    tserve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
+    assert seen["cfg"].name == "mixtral-smoke"
     assert '"ok": true' in capsys.readouterr().out
 
 
@@ -174,12 +198,17 @@ def test_unported_families_raise_naming_the_later_slice():
     from repro_torch.models import build_model
     from repro_torch.models import transformer as ttfm
     cfg = tconfigs.get_smoke_config("glm4-9b")
-    for family in ("moe", "encdec", "vlm"):
+    for family in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model(dataclasses.replace(cfg, family=family))
-    for spec in (("attn", "moe"), ("rglru", "moe")):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for spec in (("attn", "ffn2"), ("cross", "mlp")):
+        with pytest.raises(ValueError, match="unknown"):
             ttfm.init_block(None, cfg, spec, "meta")
+    moe = tconfigs.get_smoke_config("qwen3-moe-30b-a3b")
+    build_model(moe)
+    block = ttfm.init_block(None, moe, ("attn", "moe"), "meta")
+    assert set(block) == {"norm1", "attn", "norm2", "moe"}
+    assert block["moe"]["router"]["w"].dtype == torch.float32
     ssm = tconfigs.get_smoke_config("falcon-mamba-7b")
     build_model(ssm)
     block = ttfm.init_block(None, ssm, ("mamba", None), "meta")
