@@ -10,12 +10,16 @@ and after it each count must read what that path launches. Phases:
   1. device  — the card's name, count and SMs, nvidia-smi's name, power
                limit and maximum SM clock, and the nvcc builds of the five
                kernels (one process per source, started together) with
-               their time and each instance's registers and spills;
+               their time and each instance's registers and spills, and,
+               where the toolkit has cuobjdump, the HGMMA (wgmma) and
+               UTMALDG (TMA) instructions in K1's library;
   2. kernel  — K2 (decode attention) against its plain version on the
-               card: the reference's test grid, glm4-9b's and granite-8b's
-               decode shapes, softcap 0 and 30, f32 at 2e-5 and bf16 at
-               2e-2 (the tolerances of tests/test_kernels.py), and bf16
-               also at a normwise relative error of 6e-3;
+               card: the reference's test grid, glm4-9b's, granite-8b's and
+               qwen3-moe-30b-a3b's decode shapes (pos on the edges of the
+               split chunks too), softcap 0 and 30, f32 at 2e-5 and bf16
+               at 2e-2 (the tolerances of tests/test_kernels.py), and bf16
+               also at a normwise relative error of 6e-3; and K2 bitwise
+               over two launches and over a CUDA-graph replay;
   3. serve   — the port's serve() on the full glm4-9b config (40 layers,
                bf16, random weights from a seed drawn on the card, kept
                for phases 7 and 8): batch 8, prompt 2048, 64 generated
@@ -30,17 +34,23 @@ and after it each count must read what that path launches. Phases:
   4. parity  — the glm4-9b and granite-8b smoke configs in f32 through
                serve() on the card (kernel) and on the host (plain), from
                the same weights: the greedy tokens must be equal;
-  5. kernels — K2 timed at the serve shapes with CUDA events over launches
-               that cycle through 40 distinct layer caches (so the 50 MB L2
-               does not hold the ~17 MB working set), beside its bound,
-               its plain version and F.scaled_dot_product_attention (timed
-               only; the port never calls it);
+  5. kernels — K2 timed at the serve shape over launches that cycle
+               through 40 distinct layer caches (so the 50 MB L2 does not
+               hold the ~17 MB working set), in device time: the 40
+               launches captured in one CUDA graph, replayed between CUDA
+               events (and, beside it, the eager loop paced by the host);
+               with its split plan, its bound, its plain version and
+               F.scaled_dot_product_attention timed the same way (timed
+               only; the port never calls it), and the same kernel timed
+               the same way at the plans of 4 to 16 splits (the split
+               sweep, uncounted launches);
   6. k1      — K1 (flash attention) against its plain version on the
-               card: the reference's grid and masks, glm4-9b's and
-               granite-8b's forward shapes (B=2, S=4096, H=32, K=2 or 8,
-               hd=128, causal) and a ragged S=4000 with window 33 and
-               softcap 30, f32 at 2e-5 and bf16 at 2e-2, and bf16 also at
-               a normwise relative error of 6e-3;
+               card: the reference's grid and masks, glm4-9b's,
+               granite-8b's and qwen3-moe-30b-a3b's forward shapes (B=2,
+               S=4096, H=32, K=2, 8 or 4, hd=128, causal) and a ragged
+               S=4000 with window 33 and softcap 30, f32 at 2e-5 and bf16
+               at 2e-2, and bf16 also at a normwise relative error of
+               6e-3;
   7. forward — Model.loss with the commit and coverage taps on the full
                glm4-9b config and phase 3's weights, B=2, S=4096, under
                inference mode: the K1 launch count is set to 0 just before
@@ -131,8 +141,8 @@ window 2048, vocab 256000):
                and F.scaled_dot_product_attention with the window as an
                explicit mask (timed only);
  27. k2 time at hd 256 — K2 at recurrentgemma-2b's serve shape (pos 2100,
-               the ring wrapped) over 8 distinct cache sets, beside its
-               bound, its plain version and F.scaled_dot_product_attention.
+               the ring wrapped) over 8 distinct cache sets, timed as in
+               phase 5.
 
 recurrentgemma-2b's weights are freed and the peak-memory counter reset
 for the qwen3-moe-30b-a3b phases (48 layers of (attn, moe); d_model 2048,
@@ -167,10 +177,14 @@ of moe_d_ff 768, vocab 151936, untied; 61.06 GB of bf16 weights):
                load and dropped fraction equal on the card and the host;
  34. k5 time — K5 at qwen3's three shapes, gate/up and down, with CUDA
                events, beside its bound, its plain version and torch.bmm
-               (timed only; the port never calls it).
+               (timed only; the port never calls it);
+ 35. k2 time at qwen3 — K2 at qwen3's serve shape (B=8, H=32, K=4,
+               hd=128, W=2120, pos 2100) over 48 cache sets, timed as in
+               phase 5.
 
 K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
-head_dim 256 numbers under "hd256". The last line is {"ok": true,
+head_dim 256 numbers under "hd256", K2 its qwen3 numbers under "qwen3".
+The last line is {"ok": true,
 "device": {...}}. The full record is also written to
 chiprun_out/chip_smoke.json.
 """
@@ -320,6 +334,31 @@ def time_ms(torch, fn, n_args, reps):
             fn(i)
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / (reps * n_args)
+
+
+def graph_ms(torch, fn, n_args, reps):
+    """ms per call of fn(i) in device time: the n_args calls captured once
+    in one CUDA graph (after an eager warm-up pass), the graph replayed
+    ``reps`` times between two CUDA events. The host issues one replay
+    for n_args launches, so the time is the kernels', not the Python
+    wrapper's."""
+    from repro_torch.testing import capture_graph
+
+    for i in range(n_args):
+        fn(i)
+    torch.cuda.synchronize()
+    graph, _ = capture_graph(lambda: [fn(i) for i in range(n_args)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / (reps * n_args)
 
 
@@ -578,10 +617,15 @@ def k3_time(cfg, B, S, exp_per_s):
 
 def k2_time(B, H, K, W, hd, pos_val, n_sets, seed):
     """K2, its plain version and F.scaled_dot_product_attention (timed
-    only; the port never calls it) with CUDA events over ``n_sets``
-    distinct bf16 q/cache sets, beside the bound: the larger of the bytes
-    over the memory rate (q and out, and the valid cache slots, each once)
-    and the products over the bf16 tensor-core rate."""
+    only; the port never calls it) over ``n_sets`` distinct bf16 q/cache
+    sets, beside the bound: the larger of the bytes over the memory rate
+    (q and out, and the valid cache slots, each once) and the products
+    over the bf16 tensor-core rate. K2 and the library call are timed in
+    device time through a CUDA-graph replay of the n_sets launches
+    (``ms``, ``library_ms``) and also as eager calls paced by the host
+    (``host_paced_ms``); the plain version eagerly. The split plan
+    (chunk, n_split, blocks) goes with them, and the kernel's device time
+    at each plan of 4 to 16 splits (``split_sweep_ms``, by n_split)."""
     import torch
     import torch.nn.functional as F
 
@@ -614,10 +658,21 @@ def k2_time(B, H, K, W, hd, pos_val, n_sets, seed):
 
     lib_err = float((library(0)[:, :, 0].float()
                      - kernel(0).float()).abs().max())
-    kernel_ms = time_ms(torch, kernel, n_sets, reps=10)
+    kernel_ms = graph_ms(torch, kernel, n_sets, reps=20)
+    host_paced_ms = time_ms(torch, kernel, n_sets, reps=10)
     plain_ms = time_ms(torch, plain, n_sets, reps=2)
-    library_ms = time_ms(torch, library, n_sets, reps=10)
-    kernel_ms_2 = time_ms(torch, kernel, n_sets, reps=10)
+    library_ms = graph_ms(torch, library, n_sets, reps=20)
+    library_host_paced_ms = time_ms(torch, library, n_sets, reps=10)
+    kernel_ms_2 = graph_ms(torch, kernel, n_sets, reps=20)
+    chunk, n_split = ops.split_plan(B * K, W, ops.sm_count(dev))
+    # the plans of 4 to 16 splits, each timed the same way (uncounted
+    # launches of the same kernel), beside the wrapper's own plan
+    sweep = {}
+    for n in range(4, ops.MAX_SPLIT + 1):
+        plan = ops.splits(W, n)
+        if plan[1] not in sweep:
+            sweep[plan[1]] = graph_ms(torch, lambda i, plan=plan: ops.launch(
+                qs[i], ks[i], vs[i], pos, W, 0.0, *plan), n_sets, reps=20)
     n_slots = W if pos_val + 1 >= W else min(W, pos_val + 1)
     elt = 2                                             # bf16
     nbytes = (2 * B * H * hd * elt                      # q in, out
@@ -630,6 +685,13 @@ def k2_time(B, H, K, W, hd, pos_val, n_sets, seed):
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "ms_repeat": kernel_ms_2,
+            "host_paced_ms": host_paced_ms,
+            "library_host_paced_ms": library_host_paced_ms,
+            "timed": "CUDA-graph replay of the n_sets launches",
+            "plan": {"chunk": chunk, "n_split": n_split,
+                     "blocks": B * K * n_split},
+            "split_sweep_ms": sweep,
+            "split_sweep_fastest": min(sweep, key=sweep.get),
             "bound_share": bound_ms / kernel_ms, "bytes": nbytes,
             "flops": flops,
             "shape": {"B": B, "H": H, "K": K, "hd": hd, "W": W,
@@ -874,8 +936,10 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.models import build_model
     from repro_torch.testing import (check_decode_attention,
+                                     check_decode_determinism,
                                      check_flash_attention, layer_kernels,
                                      tally)
 
@@ -916,8 +980,21 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line or "spill" in line or "error" in line:
                 print("  " + line.strip(), flush=True)
-    log(phase="build", seconds=build_s, built=list(sources))
+    # whether K1's library holds Hopper's warpgroup products (HGMMA) and
+    # TMA loads (UTMALDG), where the toolkit has cuobjdump
+    sass_counts = None
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass",
+             str(_build.library_path("flash_attention"))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        sass_counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        print(f"cuobjdump flash_attention: {sass_counts}", flush=True)
+    log(phase="build", seconds=build_s, built=list(sources),
+        k1_sass=sass_counts)
     record["build_s"] = build_s
+    record["k1_sass"] = sass_counts
     record["build_logs"] = build_logs
 
     # ---------------------------------------------------------- 2. kernel --
@@ -942,7 +1019,18 @@ def main() -> int:
         for softcap in (0.0, 30.0):
             case(f"granite_{dname}", B=BATCH, H=32, K=8, W=PROMPT + GEN + 8,
                  hd=128, pos=2100, dtype=dtype, softcap=softcap)
-    log(phase="kernel", max_abs_err_and_normwise_err=errs)
+        # qwen3-moe-30b-a3b's decode; pos on either side of the first
+        # split chunk's end
+        chunk = da_ops.split_plan(BATCH * 4, PROMPT + GEN + 8, sms)[0]
+        for pos in (chunk - 1, chunk, 2100):
+            case(f"qwen3_{dname}", B=BATCH, H=32, K=4, W=PROMPT + GEN + 8,
+                 hd=128, pos=pos, dtype=dtype)
+    check_decode_determinism(BATCH, 32, 2, PROMPT + GEN + 8, 128,
+                             (700, 2100), seed=11)
+    k2_bitwise = {"two_launches": True, "graph_replay": True,
+                  "pos": [700, 2100]}
+    log(phase="kernel", max_abs_err_and_normwise_err=errs,
+        bitwise=k2_bitwise)
     record["kernel_errors"] = errs
 
     # ----------------------------------------------------------- 3. serve --
@@ -980,6 +1068,7 @@ def main() -> int:
 
     # -------------------------------------------------------------- 6. k1 --
     fa_errs: dict = {}      # case group -> [max abs err, normwise err]
+    qwen3 = get_config("qwen3-moe-30b-a3b")   # its forward's K1 shape, G=8
 
     def fa_case(key, *a, **kw):
         got = check_flash_attention(*a, **kw)
@@ -997,6 +1086,8 @@ def main() -> int:
                     causal=causal, softcap=softcap)
         fa_case(f"glm4_{dname}", FWD_BATCH, FWD_SEQ, 32, 2, 128, dtype)
         fa_case(f"granite_{dname}", FWD_BATCH, FWD_SEQ, 32, 8, 128, dtype)
+        fa_case(f"qwen3_{dname}", FWD_BATCH, FWD_SEQ, qwen3.num_heads,
+                qwen3.num_kv_heads, qwen3.head_dim, dtype)
         fa_case(f"ragged_{dname}", FWD_BATCH, 4000, 32, 8, 128, dtype,
                 window=33, softcap=30.0)
     log(phase="k1", max_abs_err_and_normwise_err=fa_errs)
@@ -1261,6 +1352,17 @@ def main() -> int:
         "shapes": k5_t,
         "library_call": "torch.bmm",
     }
+
+    # ------------------------------------------- 35. k2 time at qwen3 --
+    # qwen3's serve decode: pos 2100, one 17.4 MB cache set for each of
+    # its 48 layers (0.83 GB together)
+    k2["qwen3"] = {
+        "launches": moe_serve["launches"]["k2"],
+        "max_abs_err": errs["qwen3_bfloat16"][0],
+        **k2_time(BATCH, mcfg.num_heads, mcfg.num_kv_heads,
+                  PROMPT + GEN + 8, mcfg.head_dim, 2100, mcfg.num_layers,
+                  seed=7)}
+    log(phase="k2_time_qwen3", **k2["qwen3"])
 
     kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels

@@ -12,42 +12,51 @@
 //
 // Where the TPU runs the k blocks as a sequential grid dimension with the
 // accumulator in VMEM scratch, here one thread block owns one
-// (batch, query head, 64-row q tile) and loops over the key tiles itself
-// (64 keys, or 32 at head_dim 256), with m, l and the accumulator in
-// registers.
+// (batch, query head, q tile) and loops over the key tiles itself, with m,
+// l and the accumulator in registers.
 //
 // What bounds it on this card: operations. At glm4-9b's forward shape
 // (B=2, S=T=4096, H=32, K=2, hd=128, causal, bf16) the causal half of
 // QK^T and PV is 2.75e11 FLOP, 0.28 ms at the 989 TFLOP/s bf16
 // tensor-core peak, against ~143 MB of q, k, v and output, 0.043 ms at
-// 3.35 TB/s. What the design does about it:
+// 3.35 TB/s. Only wgmma reaches that rate. What the design does about it:
 //   * tiles that cannot contribute are never loaded or computed: above
 //     the causal diagonal, before the window and past T. At causal
-//     S=4096 that halves the work, as on the TPU;
-//   * the bf16 instance (the model's) does its products on the tensor
-//     cores with mma.sync, keeps S and P in registers, and copies the
-//     next k/v tile into shared memory (cp.async) while it computes this
-//     one; the f32 instance stays on the CUDA cores' f32 FMAs, which
-//     keeps it exact to 2e-5 (a 4x4 block of scores per thread, float4
+//     S=4096 that halves the work, as on the TPU; the q tiles are issued
+//     heaviest first (the diagonal is last in q), so causal blocks do not
+//     leave a long tail;
+//   * bf16 at head_dim 128 and 256 (the model's): 128-row q tiles, two
+//     consumer warpgroups on wgmma (S = Q K^T from shared memory, P fed
+//     from registers for O += P V) and one producer thread that keeps
+//     two-stage rings of k and v tiles in flight with TMA and mbarriers;
+//     the producer hands its registers to the consumers (setmaxnreg),
+//     whose O accumulator is 64 (hd 128) or 128 (hd 256) f32 registers a
+//     thread. A warpgroup issues tile i's QK^T and tile i-1's PV together
+//     and runs tile i's softmax while the PV is on the tensor cores, and
+//     the two warpgroups take turns issuing (ping-pong), so one's softmax
+//     runs under the other's products; to keep their turns paired both
+//     walk every tile of the block, masking what one of them cannot see.
+//     Tiles are 128 keys at hd 128 (160 KB of shared memory) and 64 at hd
+//     256 (192 KB). The TMA maps are encoded on the host at each call,
+//     through the runtime's driver entry point (no -lcuda);
+//   * bf16 at head_dim 16 to 64 (the reference's test grid and the smoke
+//     configs) stays on mma.sync.m16n8k16 with 64-row tiles, S and P in
+//     registers, and the next k/v tile copied with cp.async under this
+//     one's products;
+//   * the f32 instance stays on the CUDA cores' f32 FMAs, which keeps it
+//     exact to 2e-5 (a 4x4 block of scores per thread, float4
 //     shared-memory reads, the next tile's 16-byte loads in flight in
-//     registers);
-//   * the q tiles are issued heaviest first (the diagonal is last in q),
-//     so causal blocks do not leave a long tail;
-//   * at head_dim 256 (recurrentgemma-2b's local attention) a warp's
-//     16-row O accumulator alone takes 128 registers a thread, so the
-//     bf16 instance reads its q fragments from shared memory at every
-//     k-step instead of holding all 16 in registers (64 more), and both
-//     instances take 32-key tiles (the f32 one's prefetch registers and
-//     the bf16 one's S fragments halve). Shared memory: 99 KB bf16, 137
-//     KB f32, under the 227 KB a block may opt in to.
-// wgmma with TMA and warp specialisation is the next step toward the
-// bound for the bf16 instance.
+//     registers; 32-key tiles at head_dim 256).
+// Every instance rounds at the same points: f32 scores, f32 online
+// softmax, p rounded to v's dtype before PV, f32 accumulation. A block
+// owns one q tile (no persistent loop over tiles).
 //
 // Plain C interface, loaded with ctypes: flash_attention_launch returns
-// cudaGetLastError() after the launch, or -1 for arguments it does not
-// take (the Python wrapper checks them first, including the 16-byte
-// alignment of q, k and v).
+// cudaGetLastError() after the launch, -2 where a TMA map cannot be
+// encoded, or -1 for arguments it does not take (the Python wrapper
+// checks them first, including the 16-byte alignment of q, k and v).
 
+#include <cuda.h>   // CUtensorMap and its enums; no driver library linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -316,9 +325,10 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// ------------------------------------------------ bf16: tensor cores ----
+// ------------------------------- bf16 at head_dim 16 to 64: mma.sync ----
 //
-// The bf16 instance runs QK^T and PV on the tensor cores with
+// The bf16 instance below head_dim 128 runs QK^T and PV on the tensor
+// cores with
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate). Four warps share one
 // 64-row q tile, 16 rows each. Each warp keeps its q rows as A fragments
 // in registers for the whole loop; k and v tiles are copied into shared
@@ -399,9 +409,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kRow = L::kRow;
   constexpr int kBK = L::kBK;
   constexpr int kKSteps = HD / 16;        // k-steps of QK^T
-  // q fragments held in registers for the whole loop up to head_dim 128;
-  // at 256 they are read from shared memory at each k-step
-  constexpr bool kQInRegs = HD <= 128;
+  static_assert(HD <= 64, "head_dim 128 and 256 take the wgmma kernel");
   constexpr int kNTiles = kBK / 8;        // 8-key n-tiles of S
   constexpr int kDTiles = HD / 8;         // 8-dim n-tiles of O
   constexpr int kVecsPerRow = HD / 8;     // 16-byte vectors per row
@@ -459,7 +467,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // thread's partial sum over its columns, reduced over the 4 lanes of
   // the row at the end
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  uint32_t qa[kQInRegs ? kKSteps : 1][4];
+  uint32_t qa[kKSteps][4];
   // the A fragment of this warp's 16 q rows at k-step ks
   auto load_q = [&](uint32_t(&a)[4], int ks) {
     const __nv_bfloat16* r0 = q_s + (wrow + g) * kRow + ks * 16 + tig * 2;
@@ -476,11 +484,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();                 // all but the newest group landed
     __syncthreads();
-    if constexpr (kQInRegs) {
-      if (t0 == k_begin) {
+    if (t0 == k_begin) {
 #pragma unroll
-        for (int ks = 0; ks < kKSteps; ++ks) load_q(qa[ks], ks);
-      }
+      for (int ks = 0; ks < kKSteps; ++ks) load_q(qa[ks], ks);
     }
     const __nv_bfloat16* ks_ = k_s + stage * kBK * kRow;
     const __nv_bfloat16* vs_ = v_s + stage * kBK * kRow;
@@ -493,8 +499,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
-      if constexpr (!kQInRegs) load_q(qa[0], ks);
-      const uint32_t(&a)[4] = qa[kQInRegs ? ks : 0];
+      const uint32_t(&a)[4] = qa[ks];
 #pragma unroll
       for (int nt = 0; nt < kNTiles; ++nt) {
         const __nv_bfloat16* kr = ks_ + (nt * 8 + g) * kRow + ks * 16 + tig * 2;
@@ -589,23 +594,655 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------------- bf16 at head_dim 128 and 256: wgmma --
+//
+// One block owns a 128-row q tile of one (batch, head): two consumer
+// warpgroups of 64 rows each and a producer warpgroup of which one thread
+// works. The producer copies q once, then k and v tiles (128 keys at
+// head_dim 128, 64 at 256) into two-stage rings with TMA, each stage of
+// each ring behind a full/empty mbarrier pair; setmaxnreg moves its
+// registers to the consumers. A consumer warpgroup computes S = Q K^T with
+// wgmma from shared memory (both operands K-major), masks and soft-caps
+// S, runs the online softmax in f32 on its registers, rounds P to bf16 in
+// registers and feeds it as wgmma's A operand for O += P V, with V read
+// transposed (MN-major) from shared memory. Tile i's QK^T and tile i-1's
+// PV are issued together; the softmax of tile i waits only for its QK^T,
+// and frees the k stage at once, so it runs while the PV does. The two
+// warpgroups issue their products in turn. The TMA maps are 4-D over the
+// tensors as they lie, (hd, heads, seq, batch), with the 128-byte
+// swizzle; a box is 64 elements (128 bytes) wide, so a row of q, k or v
+// arrives as hd / 64 column slabs, and the wgmma descriptors step across
+// the slabs along K. Rows past S or T arrive zero-filled; keys past T are
+// masked, and output rows past S are not stored.
+
+constexpr int kWgBQ = 128;              // q rows per block
+constexpr int kWgConsumers = 2;         // consumer warpgroups of 64 rows
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct WgLayout {
+  static constexpr int kBK = HD == 128 ? 128 : 64;   // keys per tile
+  static constexpr int kSlabs = HD / 64;              // 128-byte columns
+  static constexpr int q_bytes = kWgBQ * HD * 2;
+  static constexpr int kv_bytes = kBK * HD * 2;       // one of k, v
+  // k and v ring stages (a third at head_dim 128 measured no faster)
+  static constexpr int kStages = 2;
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + q_bytes;       // kStages k tiles
+  static constexpr int v_off = k_off + kStages * kv_bytes;
+  static constexpr int bar_off = v_off + kStages * kv_bytes;
+  // q_full, then k_full, k_empty, v_full, v_empty per stage; then 1 KB to
+  // align the base
+  static constexpr int bytes = bar_off + 8 * (1 + 4 * kStages) + 1024;
+  static_assert(bytes <= 232448, "over the 227 KB a block may hold");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor for a 128-byte-swizzled operand:
+// the start address, the leading and stride byte offsets (in 16-byte
+// units) and the swizzle mode (1 = 128 bytes) in bits 62-63
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the registers an asynchronous wgmma reads or writes where they
+// are, and keeps the compiler from moving their uses across the wait
+template <int N>
+__device__ __forceinline__ void wg_pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D (64 x 64, f32) = scale_d * D + A (64 x 16) B (64 x 16), both from
+// shared memory, K-major, 128-byte swizzled
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 128, f32) = scale_d * D + A (64 x 16) B (128 x 16), both from
+// shared memory, K-major, 128-byte swizzled
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 128, f32) = scale_d * D + A (64 x 16, registers) B (16 x 128,
+// shared memory, MN-major: transposed, 128-byte swizzled)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 256, f32) = scale_d * D + A (64 x 16, registers) B (16 x 256,
+// shared memory, MN-major: transposed, 128-byte swizzled)
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             __nv_bfloat16* __restrict__ out, int S,
+                             int T_len, int H, int K, int causal, int window,
+                             float scale, float softcap) {
+  using L = WgLayout<HD>;
+  constexpr int kBK = L::kBK;
+  constexpr int kSlabs = L::kSlabs;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_u32(wg_smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base + L::q_off;
+  const uint32_t q_full = base + L::bar_off;
+  // k_full, k_empty, v_full, v_empty of stage st
+  auto bar = [&](int which, int st) {
+    return q_full + 8 * (1 + which * L::kStages + st);
+  };
+  auto k_tile = [&](int st) { return base + L::k_off + st * L::kv_bytes; };
+  auto v_tile = [&](int st) { return base + L::v_off + st * L::kv_bytes; };
+
+  const int qt = gridDim.x - 1 - blockIdx.x;     // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int q_lo = qt * kWgBQ;
+  int k_begin = 0;
+  if (window > 0 && q_lo - window + 1 > 0)
+    k_begin = (q_lo - window + 1) / kBK * kBK;
+  const int k_end = causal ? min(T_len, q_lo + kWgBQ) : T_len;
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(bar(0, s), 1);
+      mbar_init(bar(1, s), 4 * kWgConsumers);   // one arrival per warp
+      mbar_init(bar(2, s), 1);
+      mbar_init(bar(3, s), 4 * kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kWgConsumers) {
+    // ------------------------------------------------------ producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * kWgConsumers) {
+      mbar_expect_tx(q_full, L::q_bytes);
+      for (int j = 0; j < kSlabs; ++j)
+        tma_load_4d(q_s + j * kWgBQ * 128, &q_map, q_full, j * 64, h, q_lo,
+                    b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % L::kStages, ph = (i / L::kStages) & 1;
+        const int t0 = k_begin + i * kBK;
+        mbar_wait(bar(1, st), ph ^ 1);
+        mbar_expect_tx(bar(0, st), L::kv_bytes);
+        for (int j = 0; j < kSlabs; ++j)
+          tma_load_4d(k_tile(st) + j * kBK * 128, &k_map, bar(0, st), j * 64,
+                      kvh, t0, b);
+        mbar_wait(bar(3, st), ph ^ 1);
+        mbar_expect_tx(bar(2, st), L::kv_bytes);
+        for (int j = 0; j < kSlabs; ++j)
+          tma_load_4d(v_tile(st) + j * kBK * 128, &v_map, bar(2, st), j * 64,
+                      kvh, t0, b);
+      }
+    }
+  } else {
+    // ----------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int g = lane / 4, tig = lane % 4;
+    const int r_lo = q_lo + wg * 64;              // this warpgroup's rows
+    const int row0 = r_lo + warp * 16 + g;        // this thread's two rows:
+    const int row1 = row0 + 8;                    // row0 and row0 + 8
+    const uint32_t q_wg = q_s + wg * 64 * 128;
+
+    // tile i's k and v: wait until loaded, release when read
+    auto wait_k = [&](int i) {
+      mbar_wait(bar(0, i % L::kStages), (i / L::kStages) & 1);
+    };
+    auto wait_v = [&](int i) {
+      mbar_wait(bar(2, i % L::kStages), (i / L::kStages) & 1);
+    };
+    auto free_k = [&](int i) {
+      if (lane == 0) mbar_arrive(bar(1, i % L::kStages));
+    };
+    auto free_v = [&](int i) {
+      if (lane == 0) mbar_arrive(bar(3, i % L::kStages));
+    };
+    // the two warpgroups take turns issuing their tensor-core work
+    // (ping-pong): warpgroup w waits at barrier 1 + w and passes the turn
+    // through barrier 2 - w, so one's softmax runs under the other's
+    // products. Both walk every tile of the block, a tile that no row of
+    // the warpgroup sees coming out as zero weights, so their turns pair.
+    auto turn_wait = [&]() {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+    };
+    auto turn_pass = [&]() {
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+    };
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    float s[kBK / 2];             // S of one tile, then its weights
+    uint32_t pa[kBK / 16][4];     // P in bf16: wgmma's A fragments
+
+    // S = Q K^T of tile i, issued and committed (not waited for): HD / 16
+    // k-steps, four to a 64-wide slab
+    auto issue_s = [&](int i) {
+      const uint32_t ks = k_tile(i % L::kStages);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        const uint64_t da =
+            wg_desc(q_wg + (kk / 4) * kWgBQ * 128 + off, 16, 1024);
+        const uint64_t db = wg_desc(ks + (kk / 4) * kBK * 128 + off, 16, 1024);
+        if constexpr (kBK == 128)
+          wgmma_ss_n128(s, da, db, kk > 0);
+        else
+          wgmma_ss_n64(s, da, db, kk > 0);
+      }
+      wg_commit();
+    };
+    // O += P V of tile i, issued and committed: k-step j covers keys
+    // 16 j .. 16 j + 15, two 8-row groups 1024 bytes apart; the hd / 64
+    // slabs lie kBK * 128 bytes apart
+    auto issue_pv = [&](int i) {
+      const uint32_t vs = v_tile(i % L::kStages);
+#pragma unroll
+      for (int j = 0; j < kBK / 16; ++j) {
+        const uint64_t dv = wg_desc(vs + j * 16 * 128, kBK * 128, 1024);
+        if constexpr (HD == 128)
+          wgmma_rs_n128(o, pa[j], dv, 1);
+        else
+          wgmma_rs_n256(o, pa[j], dv, 1);
+      }
+      wg_commit();
+    };
+    // masks, soft cap and the online softmax of tile i's S, in place: s
+    // becomes the weights, l_r takes them in, and alpha (the rescale of
+    // O) comes back. Element e: n8 tile e / 4, row row0 (+8 for
+    // e % 4 >= 2), key t0 + 8 (e / 4) + 2 tig + e % 2
+    auto softmax = [&](int i, float(&alpha)[2]) {
+      const int t0 = k_begin + i * kBK;
+      const bool edge = t0 + kBK > T_len ||
+                        (causal && t0 + kBK - 1 > r_lo) ||
+                        (window > 0 && t0 <= r_lo + 63 - window);
+      // one branch a tile, not one an element
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int e = 0; e < kBK / 2; ++e)
+          s[e] = tanhf(s[e] * scale / softcap) * softcap;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kBK / 2; ++e) s[e] *= scale;
+      }
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < kBK / 2; ++e) {
+          const int r = (e % 4) >= 2 ? row1 : row0;
+          const int c = t0 + 8 * (e / 4) + 2 * tig + e % 2;
+          bool ok = c < T_len;
+          if (causal) ok = ok && c <= r;
+          if (window > 0) ok = ok && c > r - window;
+          s[e] = ok ? s[e] : kNegInf;
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e)
+        mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], s[e]);
+      float mb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        alpha[r] = fast_exp2((m_r[r] - m_new) * kLog2e);
+        m_r[r] = m_new;
+        // a row that sees no key yet keeps m = -1e30: exponents of 0
+        // there, as (x - m) gives, where an FMA of the two rounded
+        // products would leave a residue of ~1e23
+        mb[r] = m_new == kNegInf ? 0.f : m_new * kLog2e;
+        l_r[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) {
+        const int r = (e % 4) / 2;
+        s[e] = fast_exp2(fmaf(s[e], kLog2e, -mb[r]));
+        l_r[r] += s[e];
+      }
+    };
+    // the weights rounded to bf16 before PV: P's A fragment of k-step j
+    // is S's n8 tiles 2 j and 2 j + 1
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int e = 0; e < kBK / 2; e += 2)
+        pa[e / 8][(e % 8) / 2] = pack_bf16(s[e], s[e + 1]);
+    };
+
+    float alpha[2];
+    mbar_wait(q_full, 0);
+    if (wg == 1) turn_pass();   // warpgroup 0 issues first
+    wait_k(0);
+    turn_wait();
+    wg_fence();
+    issue_s(0);
+    turn_pass();
+    wg_wait<0>();
+    wg_pin(s);
+    free_k(0);
+    softmax(0, alpha);
+    pack_p();
+    // tile i's S and tile i - 1's PV run on the tensor cores while the
+    // softmax of tile i waits only for its S
+    for (int i = 1; i < n_tiles; ++i) {
+      wait_k(i);
+      wait_v(i - 1);
+      wg_pin(o);
+      wg_pin(pa);
+      turn_wait();
+      wg_fence();
+      issue_s(i);
+      issue_pv(i - 1);
+      turn_pass();
+      wg_wait<1>();
+      wg_pin(s);
+      free_k(i);
+      softmax(i, alpha);
+      wg_wait<0>();
+      wg_pin(o);
+      wg_pin(pa);
+      free_v(i - 1);
+#pragma unroll
+      for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e % 4) / 2];
+      pack_p();
+    }
+    wait_v(n_tiles - 1);
+    wg_pin(o);
+    wg_pin(pa);
+    turn_wait();
+    wg_fence();
+    issue_pv(n_tiles - 1);
+    turn_pass();
+    wg_wait<0>();
+    wg_pin(o);
+    free_v(n_tiles - 1);
+    if (wg == 0) turn_wait();   // warpgroup 1's last pass
+
+    // O / l, rows past S not stored
+    __nv_bfloat16* ob = out + ((size_t)b * S * H + h) * HD;
+    const size_t q_row = (size_t)H * HD;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float l = l_r[i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l = fmaxf(l, 1e-30f);
+      const int r = i ? row1 : row0;
+      if (r < S) {
+        __nv_bfloat16* orow = ob + (size_t)r * q_row + tig * 2;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+              __floats2bfloat162_rn(o[4 * j + 2 * i] / l,
+                                    o[4 * j + 2 * i + 1] / l);
+      }
+    }
+  }
+}
+
+// The TMA driver call, reached through the runtime's driver entry point
+// (no -lcuda at build time)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 (batch, seq, heads, HD) tensor as a 4-D map (HD, heads, seq,
+// batch), boxes of 64 x 1 x rows x 1, 128-byte swizzle, zeros out of bounds
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+                int heads, int hd, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)seq * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int S, int T_len, int H, int K, int causal,
+                 int window, float scale, float softcap,
+                 cudaStream_t stream) {
+  using L = WgLayout<HD>;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(&q_map, q, B, S, H, HD, kWgBQ) ||
+      !encode_map(&k_map, k, B, T_len, K, HD, L::kBK) ||
+      !encode_map(&v_map, v, B, T_len, K, HD, L::kBK))
+    return -2;
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_wgmma_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = true;
+  }
+  const dim3 grid((S + kWgBQ - 1) / kWgBQ, H, B);
+  flash_attention_wgmma_kernel<HD><<<grid, kWgThreads, L::bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), S, T_len, H, K,
+      causal, window, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
               int B, int S, int T_len, int H, int K, int causal, int window,
               float scale, float softcap, int dtype, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   if (dtype == 1) {
-    using bf16 = __nv_bfloat16;
-    constexpr size_t bytes = MmaLayout<HD>::bytes;
-    // more than 48 KB of dynamic shared memory only when opted in
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_mma_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    flash_attention_mma_kernel<HD><<<grid, kMmaThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), S, T_len, H,
-        K, causal, window, scale, softcap);
+    // bf16: wgmma and TMA at the model head dims, mma.sync below them
+    if constexpr (HD == 128 || HD == 256) {
+      return launch_wgmma<HD>(q, k, v, out, B, S, T_len, H, K, causal,
+                              window, scale, softcap, stream);
+    } else {
+      using bf16 = __nv_bfloat16;
+      constexpr size_t bytes = MmaLayout<HD>::bytes;
+      // more than 48 KB of dynamic shared memory only when opted in
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_attention_mma_kernel<HD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      flash_attention_mma_kernel<HD><<<grid, kMmaThreads, bytes, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(out), S, T_len,
+          H, K, causal, window, scale, softcap);
+    }
   } else {
     constexpr size_t bytes = Layout<HD>::bytes;
     const cudaError_t e = cudaFuncSetAttribute(

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -80,6 +80,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -89,6 +90,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         H, K, hd, int(bool(causal)), int(window), hd ** -0.5,
         float(softcap), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
+    if rc == -2:
+        raise RuntimeError("flash_attention: the TMA maps of q, k and v "
+                           "could not be encoded")
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention.launches += 1

@@ -14,7 +14,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +60,7 @@ def grouped_gemm(x, w):
     if x.device.type != "cuda":
         raise ValueError(f"grouped_gemm runs on cuda or cpu tensors, not "
                          f"{x.device}")
+    refuse_grad("grouped_gemm", x, w)
     _check(x, w)
     E, M, K = x.shape
     N = w.shape[2]

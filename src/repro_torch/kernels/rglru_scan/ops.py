@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 
@@ -53,6 +53,7 @@ def rglru_scan(a, b, h0):
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, not "
                          f"{a.device}")
+    refuse_grad("rglru_scan", a, b, h0)
     _check(a, b, h0)
     Bsz, S, W = a.shape
     h = torch.empty_like(a)

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16)
@@ -70,6 +70,7 @@ def ssm_scan(dt, A, B_, C_, x):
     if dt.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu tensors, not "
                          f"{dt.device}")
+    refuse_grad("ssm_scan", dt, A, B_, C_, x)
     _check(dt, A, B_, C_, x)
     Bsz, S, Din = dt.shape
     N = A.shape[1]

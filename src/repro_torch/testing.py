@@ -140,6 +140,49 @@ def check_decode_attention(B, H, K, W, hd, pos, dtype, softcap=0.0, seed=0):
     return _compare(out, ref, dtype, case, BF16_NORM_REL)
 
 
+def capture_graph(fn):
+    """fn() recorded once in a CUDA graph on a side stream; returns the
+    graph and fn's result, whose storage each replay writes anew."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    return graph, out
+
+
+def check_decode_determinism(B, H, K, W, hd, positions, seed=0):
+    """K2 in bf16 on random inputs drawn on the card from ``seed``, at
+    each of ``positions`` in turn (``pos`` rewritten on the card): two
+    launches, one counted launch each, equal to the bit, and three replays
+    of one CUDA graph, captured at the first position, equal to them (the
+    splits merge in a fixed order, and a replay reads ``pos`` on the
+    card). Raises AssertionError otherwise."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, W, K, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, W, K, hd, generator=g, device=dev).bfloat16()
+    p = torch.tensor(positions[0], dtype=torch.int32, device=dev)
+
+    def call():
+        return ops.decode_attention(q, k, v, pos=p, window=W)
+
+    graph = None
+    for pos in positions:
+        p.fill_(pos)
+        before = ops.decode_attention.launches
+        a, b = call(), call()
+        assert ops.decode_attention.launches == before + 2, pos
+        assert torch.equal(a, b), f"two launches differ at pos {pos}"
+        if graph is None:
+            graph, c = capture_graph(call)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(a, c), f"a graph replay differs at pos {pos}"
+
+
 def _compare(out, ref, dtype, case, norm_limit, tol=None):
     """Elementwise at ``tol`` (default TOL), and in bf16 also normwise
     under ``norm_limit``; returns (max abs error, normwise relative

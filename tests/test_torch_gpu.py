@@ -31,6 +31,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  check_decode_attention,
+                                 check_decode_determinism,
                                  check_flash_attention,
                                  check_forward_parity, check_grouped_gemm,
                                  check_moe_ffn, check_rglru_scan,
@@ -149,11 +150,13 @@ def test_flash_kernel_masks_and_softcap(cuda, window, causal, softcap,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,K,window,softcap", [(4096, 2, 0, 0.0),
                                                 (4096, 8, 0, 0.0),
-                                                (4000, 8, 33, 30.0)])
+                                                (4000, 8, 33, 30.0),
+                                                (4096, 4, 0, 0.0)])
 def test_flash_kernel_matches_plain_at_the_slice_shapes(cuda, S, K, window,
                                                         softcap, dtype):
-    """glm4-9b (K=2) and granite-8b (K=8) forward: B=2, H=32, hd=128,
-    causal; and a ragged S=4000 with a window and a softcap."""
+    """glm4-9b (K=2), granite-8b (K=8) and qwen3-moe-30b-a3b (K=4)
+    forward: B=2, H=32, hd=128, causal; and a ragged S=4000 with a window
+    and a softcap."""
     _check_fa(2, S, 32, K, 128, dtype, window=window, softcap=softcap)
 
 
@@ -202,6 +205,112 @@ def test_forward_parity_holds_over_seeds_0_to_9(cuda, arch):
         except AssertionError as e:
             failed[seed] = str(e)
     assert not failed, failed
+
+
+# ------------------------------------------- K2 split, K1 on wgmma ----
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 2, 2120, 128), (8, 10, 1, 2048, 256),
+                                   (8, 32, 4, 2120, 128)],
+                         ids=["glm4-9b", "recurrentgemma-2b",
+                              "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("edge", ["first", "chunk_end", "next_chunk",
+                                  "second_end", "full", "wrapped"])
+def test_decode_split_at_chunk_edges_of_the_serve_shapes(cuda, shape, edge,
+                                                         dtype):
+    """The serve shapes with ``pos`` in the first chunk, on the last slot
+    of a chunk, on the first slot of the next, at the end of the second,
+    with the ring just full and wrapped: the live splits change exactly
+    there."""
+    B, H, K, W, hd = shape
+    chunk, _ = ops.split_plan(B * K, W, ops.sm_count(cuda))
+    pos = {"first": 3, "chunk_end": chunk - 1, "next_chunk": chunk,
+           "second_end": 2 * chunk - 1, "full": W - 1,
+           "wrapped": W + 70}[edge]
+    _check(B, H, K, W, hd, pos, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 8, 10, 16])
+def test_decode_split_at_every_group_and_head_dim(cuda, G, hd, dtype):
+    """G query heads per kv head (1, 8, 10, 16) at every head_dim, two
+    kv heads, a 1000-slot ring at pos 517 and wrapped at 1400."""
+    for pos in (517, 1400):
+        _check(2, 2 * G, 2, 1000, hd, pos, dtype)
+
+
+@pytest.mark.parametrize("pos", [700, 2100])
+def test_decode_split_is_bitwise_over_launches_and_a_graph_replay(cuda, pos):
+    """The combine merges the splits in a fixed order: two launches agree
+    to the bit, and so does a CUDA-graph replay of the same launch, also
+    after ``pos`` moves on the card (one launch a call: the launch count
+    moves by one per eager call)."""
+    check_decode_determinism(8, 32, 2, 2120, 128, (pos, pos + 1), seed=pos)
+
+
+@pytest.mark.parametrize("hd,H,K", [(128, 8, 8), (128, 16, 4), (128, 32, 4),
+                                    (256, 10, 1), (128, 20, 2), (256, 8, 2)],
+                         ids=["hd128-G1", "hd128-G4", "hd128-G8",
+                              "hd256-G10", "hd128-G10", "hd256-G4"])
+@pytest.mark.parametrize("S,T,causal,window,softcap", [
+    (333, 333, True, 0, 0.0), (333, 333, True, 33, 0.0),
+    (300, 461, False, 0, 0.0), (2100, 2100, True, 2048, 0.0),
+    (200, 200, True, 0, 30.0), (4000, 4000, True, 33, 30.0)],
+    ids=["ragged-causal", "window33", "S<T", "window2048", "softcap30",
+         "long-window33-softcap30"])
+def test_flash_wgmma_matches_plain(cuda, hd, H, K, S, T, causal, window,
+                                   softcap):
+    """K1's bf16 wgmma path (head_dim 128 and 256) against its plain
+    version: S and T not multiples of the 128-row q tile or the key tile,
+    windows of 33 and 2048, a softcap of 30, G = 1, 4, 8 and 10."""
+    _check_fa(2, S, H, K, hd, torch.bfloat16, T=T, causal=causal,
+              window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("hd,H,K,window", [(128, 32, 2, 0),
+                                           (256, 10, 1, 2048)])
+def test_flash_wgmma_is_bitwise_over_launches(cuda, hd, H, K, window):
+    """Scale-Down's bitwise replay needs K1 to give the same bits from
+    launch to launch."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn(2, 1000, H, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(2, 1000, K, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(2, 1000, K, hd, generator=g, device="cuda").bfloat16()
+    a = fa_ops.flash_attention(q, k, v, window=window)
+    assert torch.equal(a, fa_ops.flash_attention(q, k, v, window=window))
+
+
+def _grad_inputs(name):
+    def t(*shape):
+        return torch.randn(*shape, device="cuda").requires_grad_()
+    if name == "k1":
+        return lambda: fa_ops.flash_attention(t(1, 8, 4, 64), t(1, 8, 2, 64),
+                                              t(1, 8, 2, 64))
+    if name == "k2":
+        pos = torch.tensor(3, dtype=torch.int32, device="cuda")
+        return lambda: ops.decode_attention(t(1, 4, 64), t(1, 8, 2, 64),
+                                            t(1, 8, 2, 64), pos=pos, window=8)
+    if name == "k3":
+        return lambda: ssm_ops.ssm_scan(t(1, 5, 8), t(8, 4), t(1, 5, 4),
+                                        t(1, 5, 4), t(1, 5, 8))
+    if name == "k4":
+        return lambda: lru_ops.rglru_scan(t(1, 5, 8), t(1, 5, 8), t(1, 8))
+    return lambda: gg_ops.grouped_gemm(t(2, 8, 8), t(2, 8, 8))
+
+
+@pytest.mark.parametrize("name", ["k1", "k2", "k3", "k4", "k5"])
+def test_wrappers_refuse_grad_on_the_card(cuda, name):
+    """A kernel's result carries no autograd history, so each wrapper's
+    CUDA branch raises under grad mode with an input that requires grad,
+    and launches nothing; under inference mode it runs."""
+    call = _grad_inputs(name)
+    before = KERNELS[name].launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert KERNELS[name].launches == before
+    with torch.inference_mode():
+        call()
+    assert KERNELS[name].launches == before + 1
 
 
 # ------------------------------------------------------------------- K3 ----
