@@ -11,8 +11,9 @@ and after it each count must read what that path launches. Phases:
                limit and maximum SM clock, and the nvcc builds of the five
                kernels (one process per source, started together) with
                their time and each instance's registers and spills, and,
-               where the toolkit has cuobjdump, the HGMMA (wgmma) and
-               UTMALDG (TMA) instructions in K1's library;
+               where the toolkit has cuobjdump, the HGMMA (wgmma), UTMALDG
+               (TMA load) and UTMASTG (TMA store) instructions in K1's and
+               K5's libraries;
   2. kernel  — K2 (decode attention) against its plain version on the
                card: the reference's test grid, glm4-9b's, granite-8b's and
                qwen3-moe-30b-a3b's decode shapes (pos on the edges of the
@@ -78,8 +79,12 @@ the falcon-mamba-7b phases report their own peak:
  11. k3      — K3 (selective scan) against its plain version on the card,
                f32, y and h_last at 1e-4 (the tolerance of the reference's
                test_ssm_scan): the reference's grid, a ragged S=4000 with
-               Din=8192, B_ and C_ as strided views, and the forward
-               (B=2, S=4096) and serve-prefill (B=8, S=2048) shapes;
+               Din=8192, B_ and C_ as strided views, the forward (B=2,
+               S=4096) and serve-prefill (B=8, S=2048) shapes, the lane
+               groups' edges (N = 4, 8, 16; S = 1, 15, 17, 33; Din = 100)
+               and every lane group forced (S = 33, Din = 300); and
+               bitwise over two launches and a CUDA-graph replay at both
+               slice shapes;
  12. ssm serve — serve() on the full falcon-mamba-7b config (64 layers,
                bf16, random weights from a seed drawn on the card, kept
                for 14 and 15): batch 8, prompt 2048, 64 generated tokens,
@@ -98,7 +103,9 @@ the falcon-mamba-7b phases report their own peak:
                0, the check of phase 9;
  17. k3 time — K3 timed with CUDA events at the forward and the prefill
                shapes, beside its bound and its plain version (no PyTorch
-               call computes the selective scan, so no library time).
+               call computes the selective scan, so no library time), with
+               its plan (design, lane group, warps) and its registers and
+               spills.
 
 falcon-mamba-7b's weights are freed and the peak-memory counter reset
 again for the recurrentgemma-2b phases (26 layers: (rglru, rglru, local)
@@ -155,8 +162,12 @@ of moe_d_ff 768, vocab 151936, untied; 61.06 GB of bf16 weights):
                a normwise relative error of 2e-3; qwen3's gate/up
                (128,C,2048)@(128,2048,768) and down (128,C,768)@
                (128,768,2048) products in bf16 at C = 640 (forward), 1280
-               (serve prefill) and 8 (decode); moe_ffn against moe_ffn_ref
-               in f32 at 1e-4 and in bf16 at qwen3's decode shape;
+               (serve prefill) and 8 (decode); each bf16 kernel ("wgmma",
+               "mma") at M = 1 to 1280 rows and at qwen3's widths; shapes
+               TMA cannot map (K or N off 8, a misaligned base), which
+               fall to "mma"; moe_ffn against moe_ffn_ref in
+               f32 at 1e-4 and in bf16 at qwen3's decode shape; each path
+               bitwise over two launches and a CUDA-graph replay;
  29. moe serve — serve() on the full qwen3-moe-30b-a3b config (random
                weights from a seed drawn on the card, one period at a time,
                kept for 31 and 32), the serve cell of phase 3 under
@@ -177,7 +188,10 @@ of moe_d_ff 768, vocab 151936, untied; 61.06 GB of bf16 weights):
                load and dropped fraction equal on the card and the host;
  34. k5 time — K5 at qwen3's three shapes, gate/up and down, with CUDA
                events, beside its bound, its plain version and torch.bmm
-               (timed only; the port never calls it);
+               (timed only; the port never calls it), the path each took,
+               every bf16 path at the decode shape, the wrapper's host
+               time a call, and the registers and spills of the new
+               kernels;
  35. k2 time at qwen3 — K2 at qwen3's serve shape (B=8, H=32, K=4,
                hd=128, W=2120, pos 2100) over 48 cache sets, timed as in
                phase 5.
@@ -232,6 +246,48 @@ HYB_SCALE_DOWN_LAYERS = (0, 14, 25)
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_SCALE_DOWN_LAYERS = (0, 24, 47)
 MOE_CAPACITIES = {"forward": 640, "prefill": 1280, "decode": 8}
+
+
+def ptxas_info(text):
+    """Registers and spill bytes of each kernel instance in nvcc's
+    ``-Xptxas=-v`` log, by kernel name and template arguments."""
+    import re
+    out: dict = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            # _ZN <len><id> ... <len><name> [I<template args>E]: the last
+            # id of the nested name (after the anonymous namespace)
+            i, ids = 3, []
+            while i < len(mangled) and mangled[i].isdigit():
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                ids.append(mangled[j:j + int(mangled[i:j])])
+                i = j + int(mangled[i:j])
+            # template arguments: ints, bools, float and bf16
+            targs = re.match(r"I(.*?E)E", mangled[i:])
+            args = ""
+            if targs:
+                args = re.sub(r"\d+__nv_bfloat16", "bf16,", targs.group(1))
+                args = re.sub(r"L[ib](\d+)E", r"\1,", args)
+                args = "<" + re.sub(r"^f", "float,", args).rstrip(",") + ">"
+            name = (ids[-1] if ids else mangled) + args
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def kernel_ops():
@@ -544,9 +600,11 @@ def serve_parity(archs):
 
 def k3_check_phase(cfg):
     """K3 against its plain version on the card (``check_ssm_scan``, f32,
-    y and h_last at 1e-4). Returns, per case group, the max abs errors of
-    y and of h_last."""
-    from repro_torch.testing import check_ssm_scan
+    y and h_last at 1e-4), and bitwise over launches and a CUDA-graph
+    replay. Returns, per case group, the max abs errors of y and of
+    h_last."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.testing import check_ssm_scan, check_ssm_scan_bitwise
 
     Din, N = cfg.d_inner, cfg.ssm_state
     errs: dict = {}
@@ -563,10 +621,25 @@ def k3_check_phase(cfg):
         case("strided", *shape, strided=True)
     case("forward", FWD_BATCH, FWD_SEQ, Din, N, strided=True)
     case("prefill", BATCH, PROMPT, Din, N, strided=True)
+    # the lane groups' edges: the wrapper's group at N = 4, 8, 16 (1, 2
+    # and 4 lanes at B = 2, Din = 100) and every group forced, one step
+    # and either side of the 16-step chunk, Din off the channel block
+    for n_state in (4, 8, 16):
+        for S in (1, 15, 17, 33):
+            case("lane_groups", 2, S, 100, n_state, strided=True)
+        for group in ssm_ops.lane_groups(n_state):
+            case(f"group_{group}", 2, 33, 300, n_state, strided=True,
+                 group=group)
+    # bitwise over two launches and a CUDA-graph replay, at the forward's
+    # and the prefill's groups
+    check_ssm_scan_bitwise(FWD_BATCH, FWD_SEQ, Din, N)
+    check_ssm_scan_bitwise(BATCH, PROMPT, Din, N)
+    check_ssm_scan_bitwise(2, 33, 100, 8)
+    errs["bitwise_over_launches_and_graph_replay"] = True
     return errs
 
 
-def k3_time(cfg, B, S, exp_per_s):
+def k3_time(cfg, B, S, exp_per_s, ptxas=None):
     """K3 and its plain version timed with CUDA events on inputs shaped as
     the model passes them (B_ and C_ strided views of one projection),
     cycling through two input sets of ~0.5 GB each or more, beside the
@@ -575,6 +648,7 @@ def k3_time(cfg, B, S, exp_per_s):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import sm_count
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -590,6 +664,7 @@ def k3_time(cfg, B, S, exp_per_s):
         sets.append((F.softplus(rand(B, S, Din)),
                      -torch.exp(0.5 * rand(Din, N)), B_, C_,
                      rand(B, S, Din)))
+    plan = ssm_ops.plan(B, Din, N, sm_count(torch.device("cuda")))
     ms = time_ms(torch, lambda i: ssm_ops.ssm_scan(*sets[i]), 2, reps=5)
     plain_ms = time_ms(torch, lambda i: ssm_scan_ref(*sets[i]), 1, reps=1)
     ms_2 = time_ms(torch, lambda i: ssm_ops.ssm_scan(*sets[i]), 2, reps=5)
@@ -610,7 +685,9 @@ def k3_time(cfg, B, S, exp_per_s):
             else "operations",
             "bound_share": bound_ms / ms, "bytes": nbytes, "bytes_ms": bytes_ms,
             "exps": exps, "exp_ms": exp_ms, "flops": flops,
-            "flop_ms": flop_ms,
+            "flop_ms": flop_ms, "plan": plan,
+            "ptxas": (ptxas or {}).get(
+                f"ssm_scan_kernel<{N},{plan['group']}>"),
             "shape": {"B": B, "S": S, "Din": Din, "N": N,
                       "dtype": "float32", "B_C": "strided views"}}
 
@@ -852,17 +929,22 @@ def k5_check_phase(cfg):
     """K5 against its plain version on the card (``check_grouped_gemm``):
     the reference's grid in f32 and bf16, a ragged tile in bf16 with the
     16-byte copies, and the model's gate/up and down products at each
-    capacity of MOE_CAPACITIES in bf16; ``moe_ffn`` (three launches)
-    against ``moe_ffn_ref``. Returns, per case group, the max abs error
-    and the normwise relative error."""
+    capacity of MOE_CAPACITIES in bf16; each bf16 kernel ("wgmma",
+    "mma") at 1 to 1280 rows, on either side of its tiles, and at qwen3's
+    widths; the shapes TMA cannot map (they fall to "mma");
+    ``moe_ffn`` (three launches) against ``moe_ffn_ref``; and each path
+    bitwise over launches and a CUDA-graph replay. Returns, per case
+    group, the max abs error and the normwise relative error."""
     import torch
 
-    from repro_torch.testing import check_grouped_gemm, check_moe_ffn
+    from repro_torch.testing import (check_grouped_gemm,
+                                     check_grouped_gemm_bitwise,
+                                     check_moe_ffn)
 
     errs: dict = {}
 
-    def case(key, check, *a):
-        got = check(*a)
+    def case(key, check, *a, **kw):
+        got = check(*a, **kw)
         errs[key] = [max(x, y) for x, y in zip(errs.get(key, got), got)]
 
     bf16 = torch.bfloat16
@@ -876,19 +958,40 @@ def k5_check_phase(cfg):
     for name, C in MOE_CAPACITIES.items():
         case(f"{name}_gate_up", check_grouped_gemm, E, C, D, F, bf16)
         case(f"{name}_down", check_grouped_gemm, E, C, F, D, bf16)
+    # every bf16 path from the decode's rows to the prefill's, on either
+    # side of the wgmma kernel's 128-row tiles (K and N off the slices and
+    # tiles), and at qwen3's widths at the decode's 8 rows
+    for path in ("wgmma", "mma"):
+        for M in (1, 7, 8, 9, 63, 64, 65, 127, 129, 640, 1280):
+            case(f"path_{path}", check_grouped_gemm, 3, M, 200, 136, bf16,
+                 path=path)
+        case(f"path_{path}_qwen3", check_grouped_gemm, E, 8, D, F, bf16,
+             path=path)
+        case(f"path_{path}_qwen3", check_grouped_gemm, E, 8, F, D, bf16,
+             path=path)
+    # TMA cannot map these: K or N off 8, x's base off 16 bytes
+    case("mma_fallback", check_grouped_gemm, 3, 640, D - 1, F, bf16)
+    case("mma_fallback", check_grouped_gemm, 3, 8, D, F - 1, bf16)
+    case("mma_fallback", check_grouped_gemm, 3, 8, D, F, bf16, offset=True)
     case("moe_ffn_float32", check_moe_ffn, 4, 64, 32, 48, torch.float32)
     case("moe_ffn_bfloat16", check_moe_ffn, E, MOE_CAPACITIES["decode"], D,
          F, bf16)
+    for path, M in (("wgmma", MOE_CAPACITIES["forward"]),
+                    ("wgmma", MOE_CAPACITIES["decode"]), ("mma", 100)):
+        check_grouped_gemm_bitwise(E, M, D, F, bf16, path=path)
+    check_grouped_gemm_bitwise(16, 50, 512, 768, torch.float32, path="fma")
+    errs["bitwise_over_launches_and_graph_replay"] = True
     return errs
 
 
-def k5_time(E, M, K, N, seed):
+def k5_time(E, M, K, N, seed, paths=()):
     """K5, its plain version and torch.bmm (timed only; the port never
     calls it) with CUDA events over two distinct bf16 x/w sets (w alone is
     0.4 GB a set at qwen3's shapes, beyond the 50 MB L2), beside the
     bound: the larger of the bytes over the memory rate (x and w read and
     the output written, each once) and the products over the bf16
-    tensor-core rate."""
+    tensor-core rate. ``paths``: each named kernel also timed on the same
+    sets."""
     import torch
 
     from repro_torch.kernels.grouped_gemm import ops as gg_ops
@@ -900,8 +1003,10 @@ def k5_time(E, M, K, N, seed):
              (torch.randn(E, K, N, generator=g, device="cuda")
               * K ** -0.5).to(bf16)) for _ in range(2)]
 
-    def kernel(i):
-        return gg_ops.grouped_gemm(*sets[i])
+    def kernel(i, path=None):
+        if path is None:
+            return gg_ops.grouped_gemm(*sets[i])
+        return gg_ops._launch(*sets[i], path)
 
     def plain(i):
         return grouped_gemm_ref(*sets[i])
@@ -914,18 +1019,52 @@ def k5_time(E, M, K, N, seed):
     plain_ms = time_ms(torch, plain, 2, reps=1)
     library_ms = time_ms(torch, library, 2, reps=10)
     ms_2 = time_ms(torch, kernel, 2, reps=10)
+    path_ms = {p: time_ms(torch, lambda i, p=p: kernel(i, p), 2, reps=10)
+               for p in paths}
     flops = 2 * E * M * K * N
     nbytes = 2 * (E * M * K + E * K * N + E * M * N)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    x, w = sets[0]
     return {"ms": ms, "ms_repeat": ms_2, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_share": bound_ms / ms, "bytes": nbytes,
             "bytes_ms": bytes_ms, "flops": flops, "flop_ms": ops_ms,
+            "path": gg_ops.choose_path(bf16, M, K, N, x.data_ptr(),
+                                       w.data_ptr()),
+            "path_ms": path_ms,
             "shape": {"E": E, "M": M, "K": K, "N": N, "dtype": "bfloat16"},
             "library_max_abs_err": lib_err, "library_call": "torch.bmm"}
+
+
+def k5_host_us(E, M, K, N, calls=200, repeats=5):
+    """The K5 wrapper's host time a call (its checks, the path choice,
+    the output's allocation and the launch): ``calls`` calls enqueued
+    between two synchronises, host clock, after a warm-up; the card's
+    work per call is longer than the host's, so the queue never fills.
+    Returns the least and the median of ``repeats`` such passes (the host
+    clock of a shared machine is noisy)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+
+    x = torch.randn(E, M, K, device="cuda").to(torch.bfloat16)
+    w = torch.randn(E, K, N, device="cuda").to(torch.bfloat16)
+    for _ in range(20):
+        gg_ops.grouped_gemm(x, w)
+    passes = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            gg_ops.grouped_gemm(x, w)
+        passes.append((time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {"min": min(passes), "median": statistics.median(passes)}
 
 
 def main() -> int:
@@ -978,23 +1117,29 @@ def main() -> int:
         # registers, shared memory and spills of each instance
         print(f"nvcc {kname}:", flush=True)
         for line in text.splitlines():
-            if "Used" in line or "spill" in line or "error" in line:
+            if "Used" in line or "spill" in line or "error" in line \
+                    or "wgmma" in line:
                 print("  " + line.strip(), flush=True)
-    # whether K1's library holds Hopper's warpgroup products (HGMMA) and
-    # TMA loads (UTMALDG), where the toolkit has cuobjdump
-    sass_counts = None
+    ptxas = {kname: ptxas_info(text) for kname, text in build_logs.items()}
+    # whether K1's and K5's libraries hold Hopper's warpgroup products
+    # (HGMMA), TMA loads (UTMALDG) and TMA stores (UTMASTG), where the
+    # toolkit has cuobjdump
+    sass_counts = {}
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     if cuobjdump.exists():
-        sass = subprocess.run(
-            [str(cuobjdump), "-sass",
-             str(_build.library_path("flash_attention"))],
-            capture_output=True, text=True, check=True, timeout=300).stdout
-        sass_counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-        print(f"cuobjdump flash_attention: {sass_counts}", flush=True)
+        for kname in ("flash_attention", "grouped_gemm"):
+            sass = subprocess.run(
+                [str(cuobjdump), "-sass", str(_build.library_path(kname))],
+                capture_output=True, text=True, check=True,
+                timeout=300).stdout
+            sass_counts[kname] = {op: sass.count(op) for op in
+                                  ("HGMMA", "UTMALDG", "UTMASTG")}
+            print(f"cuobjdump {kname}: {sass_counts[kname]}", flush=True)
     log(phase="build", seconds=build_s, built=list(sources),
-        k1_sass=sass_counts)
+        sass=sass_counts)
     record["build_s"] = build_s
-    record["k1_sass"] = sass_counts
+    record["sass"] = sass_counts
+    record["ptxas"] = ptxas
     record["build_logs"] = build_logs
 
     # ---------------------------------------------------------- 2. kernel --
@@ -1168,8 +1313,9 @@ def main() -> int:
     record["ssm_forward_parity"] = ssm_fwd_parity
 
     # ---------------------------------------------------------- 17. k3 time --
-    k3_fwd = k3_time(scfg, FWD_BATCH, FWD_SEQ, exp_per_s)
-    k3_pre = k3_time(scfg, BATCH, PROMPT, exp_per_s)
+    k3_fwd = k3_time(scfg, FWD_BATCH, FWD_SEQ, exp_per_s,
+                     ptxas["ssm_scan"])
+    k3_pre = k3_time(scfg, BATCH, PROMPT, exp_per_s, ptxas["ssm_scan"])
     k3 = {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
@@ -1332,10 +1478,14 @@ def main() -> int:
 
     # ---------------------------------------------------------- 34. k5 time --
     E, D, F = mcfg.num_experts, mcfg.d_model, mcfg.moe_d_ff
-    k5_t = {f"{name}_{prod}": k5_time(E, C, *dims, seed=6)
-            for name, C in MOE_CAPACITIES.items()
-            for prod, dims in (("gate_up", (D, F)), ("down", (F, D)))}
+    k5_t = {f"{name}_{prod}": k5_time(
+        E, C, *dims, seed=6,
+        paths=("wgmma", "mma") if name == "decode" else ())
+        for name, C in MOE_CAPACITIES.items()
+        for prod, dims in (("gate_up", (D, F)), ("down", (F, D)))}
     log(phase="k5_time", **k5_t)
+    host_us = k5_host_us(E, MOE_CAPACITIES["decode"], D, F)
+    log(phase="k5_host", us_per_call_decode_shape=host_us)
     fwd_t = k5_t["forward_gate_up"]
     k5 = {
         "name": "grouped_gemm", "route": "cuda",
@@ -1350,6 +1500,9 @@ def main() -> int:
         "launches_serve": moe_serve["launches"]["k5"],
         "launches_serve_prefill": moe_serve["launches_in_prefill"]["k5"],
         "shapes": k5_t,
+        "host_us_per_call": host_us,
+        "ptxas": {k: v for k, v in ptxas["grouped_gemm"].items()
+                  if "wgmma" in k},
         "library_call": "torch.bmm",
     }
 

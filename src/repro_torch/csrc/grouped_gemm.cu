@@ -8,91 +8,78 @@
 // (E,C,D)@(E,D,F) and the down product (E,C,F)@(E,F,D).
 //
 // Where the TPU walks K as the innermost sequential grid axis into a VMEM
-// scratch tile, and its wrapper pads M, N and K to the blocks, here one
-// thread block owns one (expert, 128 x 128 output tile) and loops over K
-// itself with the accumulator in registers. Ragged M, N and K are masked
-// by zero-filling the shared-memory tiles; nothing is padded in memory.
-// There is no split-K and no atomic: every output element is summed by one
-// thread in one fixed order, so a launch is deterministic, as the bitwise
-// Scale-Down replay needs.
+// scratch tile, and its wrapper pads M, N and K to the blocks, here each
+// output tile is summed over the whole of K by one block with the
+// accumulator in registers. There is no split-K and no atomic: every
+// output element is summed by one thread in one fixed order, so a launch
+// is bitwise-deterministic, as the Scale-Down replay needs. Nothing is
+// padded in memory. One launch a call; the output is the only allocation
+// and nothing syncs with the host, so a call can be captured in a CUDA
+// graph.
 //
-// What bounds it on this card. qwen3-moe-30b-a3b's gate product at the
-// forward shape (E=128, C=640, D=2048, F=768, bf16) is 2.58e11 FLOP, 0.26
-// ms at the 989 TFLOP/s bf16 tensor-core peak, against 0.86 GB moved,
-// 0.26 ms at 3.35 TB/s: both. At the decode shape (C=8) it is the 0.40 GB
-// of expert weights: bytes. What the design does about it:
-//   * the bf16 instance (the model's) runs on the tensor cores with
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate): eight warps, each a
-//     64 x 32 piece of the tile; x fragments come through ldmatrix, w's
-//     through ldmatrix.trans (w is (K, N) with N contiguous, the case of
-//     V in the flash-attention kernel);
-//   * 32-deep K slices of x and w are staged through shared memory by
-//     cp.async three stages deep, so two slices are in flight while one
-//     is multiplied;
-//   * the f32 instance (the f32 smoke configs and the co-emulator's 1e-5
-//     parity) stays on the CUDA cores' f32 FMAs, not TF32: a 64 x 64 tile,
-//     4 x 4 outputs a thread.
-// wgmma with TMA, and a variant for the decode's few rows an expert, are
-// the next steps toward the bound.
+// What bounds it on this card, at qwen3-moe-30b-a3b's shapes (E=128,
+// D=2048, F=768, bf16):
+//   * C = 640 (the forward) and 1280 (the serve prefill): a product is
+//     2.58e11 / 5.15e11 FLOP, 0.26 / 0.52 ms at the 989 TFLOP/s bf16
+//     tensor-core peak, against 0.86 / 1.4 GB moved, 0.26 / 0.42 ms at
+//     3.35 TB/s: operations, with the bytes close behind;
+//   * C = 8 (the decode, which computes every expert as the reference
+//     does): the 0.40 GB of expert weights, 0.12 ms: bytes.
+// One instance per case; the Python wrapper picks it from host ints
+// (ops.choose_path), never by catching a failure:
+//   * "wgmma" (bf16 wherever TMA maps the operands, at any M): a
+//     persistent kernel, one block an SM, walks the (e, m-tile, n-tile)
+//     tiles of 128 x 256 in a fixed order (tile t = blockIdx.x + i *
+//     gridDim.x; e outermost, then the n-tile, the m-tile fastest, so
+//     neighbouring tiles share w's slab). The tile counts and the grid
+//     come from the host (ops.wgmma_plan); the walk is stated here only.
+//     A producer warp keeps a three-stage ring of 64-deep K slices
+//     in flight with TMA (x through a 3-D map over (K, M, E), w through
+//     one over (N, K, E); rows past M, columns past N and K past its end
+//     arrive zero-filled, so ragged shapes need no mask in the main loop)
+//     and hands its registers to two consumer warpgroups (setmaxnreg).
+//     Each consumer owns 64 rows of the tile and runs wgmma m64n256k16 from
+//     shared memory, x K-major and w MN-major (w's N is contiguous: the
+//     case of V in flash_attention.cu); a stage is freed as soon as the
+//     next slice's products are issued, and the ring runs on across tiles,
+//     so the next tile's loads land under this tile's products and store.
+//     The output leaves through a swizzled staging tile and a TMA store
+//     that drains while the next tile runs (stores from registers straight
+//     to device memory held the tensor cores idle through each tile's
+//     end, which the down product's short tiles of 12 slices felt most).
+//     The maps are encoded on the host once per (pointer, shape) and
+//     cached; a launch passes them by value (__grid_constant__). At the
+//     decode's 8 rows an expert each tile is one m-tile whose rows past M
+//     TMA fills with zeros on chip, so w is read once, with up to three
+//     32 KB stages of it in flight an SM: the weight bytes bind. A kernel with
+//     the roles swapped (w as wgmma's A operand, the rows as its n) was no
+//     faster there (PERF.md) and is not kept;
+//   * "mma" (bf16 where TMA cannot map the operands: K or N not a
+//     multiple of 8, or a base not 16-byte aligned): the first port's
+//     kernel, mma.sync.m16n8k16 over ldmatrix with 32-deep cp.async
+//     slices three stages deep, one 128 x 128 tile a block, ragged edges
+//     zero-filled in shared memory;
+//   * "fma" (f32: the f32 smoke configs and the co-emulator's 1e-5
+//     parity): CUDA-core f32 FMAs, not TF32, a 64 x 64 tile a block.
+// Measured shares of the bound are in PERF.md (chip_smoke.py phase 34).
 //
 // Plain C interface, loaded with ctypes: grouped_gemm_launch returns
-// cudaGetLastError() after the launch, or -1 for arguments it does not
-// take. `vec` = 1 says every row of x and w starts on a 16-byte boundary
-// (K and N multiples of 16 bytes, aligned bases): the tiles are then
-// copied 16 bytes at a time, else element by element.
+// cudaGetLastError() after the launch, -2 where a tensor map cannot be
+// encoded, or -1 for arguments it does not take. `vec` = 1 (the "mma" and
+// "fma" paths) says every row of x and w starts on a 16-byte boundary:
+// their tiles are then copied 16 bytes at a time, else element by
+// element.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <mutex>
+#include <unordered_map>
+
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// ------------------------------------------------ bf16: tensor cores ----
+// ------------------------------- "mma": bf16 where TMA cannot map ----
 
 constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
 constexpr int kWarpsM = 2, kWarpsN = 4;
@@ -257,7 +244,7 @@ grouped_gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
 }
 
-// ----------------------------------------------- f32: CUDA-core FMAs ----
+// ------------------------------------------ "fma": f32 on CUDA cores ----
 
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
 constexpr int kFThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
@@ -351,9 +338,238 @@ grouped_gemm_f32_kernel(const float* __restrict__ x,
   }
 }
 
+// --------------------------------- "wgmma": bf16 where the products bind ----
+
+constexpr int kWgBM = 128;                  // rows of x a tile
+constexpr int kWgBN = 256;                  // columns of w a tile
+constexpr int kWgBK = 64;                   // K a stage: one 128-byte row
+constexpr int kWgStages = 3;
+constexpr int kWgConsumers = 2;             // warpgroups of 64 rows
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);
+constexpr int kWgABytes = kWgBM * kWgBK * 2;               // 16 KB of x
+constexpr int kWgSlab = kWgBK * 128;                       // 64 columns of w
+constexpr int kWgBBytes = (kWgBN / 64) * kWgSlab;          // 32 KB of w
+constexpr int kWgStageBytes = kWgABytes + kWgBBytes;
+constexpr int kWgBarOff = kWgStages * kWgStageBytes;
+// after the stages: the full and empty barriers of each stage in 1 KB (so
+// what follows keeps the 1024-byte period of the 128-byte swizzle), each
+// consumer's 64 x 256 piece of the output tile staged for the TMA store
+// as four swizzled 64-column slabs, and 1 KB to align the base
+constexpr int kWgOutOff = kWgBarOff + 1024;
+constexpr int kWgOutBytes = kWgConsumers * 4 * 64 * 128;
+constexpr int kWgSmem = kWgOutOff + kWgOutBytes + 1024;
+static_assert(kWgSmem <= 232448, "over the 227 KB a block may hold");
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap w_map,
+                          const __grid_constant__ CUtensorMap o_map, int K,
+                          int tiles_m, int tiles_n, int n_tiles) {
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  const uint32_t base = (smem_u32(wg_smem_raw) + 1023u) & ~1023u;
+  auto a_tile = [&](int st) { return base + st * kWgStageBytes; };
+  auto b_tile = [&](int st) { return a_tile(st) + kWgABytes; };
+  auto full = [&](int st) { return base + kWgBarOff + 8 * st; };
+  auto empty = [&](int st) {
+    return base + kWgBarOff + 8 * (kWgStages + st);
+  };
+  // tile t: expert, then n-tile, then m-tile fastest
+  const int per_e = tiles_m * tiles_n;
+  auto tile = [&](int t, int& e, int& m0, int& n0) {
+    e = t / per_e;
+    const int r = t - e * per_e;
+    const int nt = r / tiles_m;
+    m0 = (r - nt * tiles_m) * kWgBM;
+    n0 = nt * kWgBN;
+  };
+  const int nk = (K + kWgBK - 1) / kWgBK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4 * kWgConsumers);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kWgConsumers) {
+    // ------------------------------------------------------ producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * kWgConsumers) {
+      int it = 0;   // slices issued, across this block's tiles
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        int e, m0, n0;
+        tile(t, e, m0, n0);
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int st = it % kWgStages, ph = (it / kWgStages) & 1;
+          mbar_wait(empty(st), ph ^ 1);
+          mbar_expect_tx(full(st), kWgStageBytes);
+          tma_load_3d(a_tile(st), &x_map, full(st), kb * kWgBK, m0, e);
+#pragma unroll
+          for (int j = 0; j < kWgBN / 64; ++j)
+            tma_load_3d(b_tile(st) + j * kWgSlab, &w_map, full(st),
+                        n0 + 64 * j, kb * kWgBK, e);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int g = lane / 4, tig = lane % 4;
+    float acc[kWgBN / 2];
+    int it = 0;
+    auto release = [&](int i) {
+      if (lane == 0) mbar_arrive(empty(i % kWgStages));
+    };
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int e, m0, n0;
+      tile(t, e, m0, n0);
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int st = it % kWgStages;
+        mbar_wait(full(st), (it / kWgStages) & 1);
+        wg_fence();
+        // four k16 steps: 32 bytes along x's swizzled 128-byte rows, 16
+        // rows down w's slabs (kWgSlab apart along N)
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk)
+          wgmma_ss_n256_bt(
+              acc, wg_desc(a_tile(st) + wg * 64 * 128 + kk * 32, 16, 1024),
+              wg_desc(b_tile(st) + kk * 16 * 128, kWgSlab, 1024),
+              kb > 0 || kk > 0);
+        wg_commit();
+        wg_wait<1>();   // the previous slice's products are done
+        wg_pin(acc);
+        if (kb > 0) release(it - 1);
+      }
+      wg_wait<0>();
+      wg_pin(acc);
+      release(it - 1);
+      // the store: element 4 j + 2 i + c is row warp * 16 + g + 8 i,
+      // column 8 j + 2 tig + c of this warpgroup's 64 x 256 piece. It goes
+      // in bf16 into the warpgroup's staging tile (four 64-column slabs,
+      // 128-byte swizzled, so the 32 lanes of a store hit 32 banks), and
+      // one thread sends it out with TMA, which writes no row past M and
+      // no column past N; the warpgroup goes on to its next tile while the
+      // store drains, and waits for it only before it stages again
+      const uint32_t stage_out = base + kWgOutOff + wg * 4 * 64 * 128;
+      auto wg_bar = [&]() {
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      };
+      if (wt == 0) bulk_wait_read<0>();   // the last tile's store has read it
+      wg_bar();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp * 16 + g + 8 * i;
+#pragma unroll
+        for (int j = 0; j < kWgBN / 8; ++j) {
+          const uint32_t a = stage_out + (j / 8) * 64 * 128 + r * 128 +
+                             (((j % 8) ^ (r & 7)) << 4) + tig * 4;
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a),
+                       "r"(pack_bf16(acc[4 * j + 2 * i],
+                                     acc[4 * j + 2 * i + 1]))
+                       : "memory");
+        }
+      }
+      fence_proxy_async();
+      wg_bar();
+      if (wt == 0) {
+#pragma unroll
+        for (int j = 0; j < kWgBN / 64; ++j)
+          tma_store_3d(&o_map, stage_out + j * 64 * 128, n0 + 64 * j,
+                       m0 + wg * 64, e);
+        bulk_commit();
+      }
+    }
+    if (wt == 0) bulk_wait();   // the last store has completed
+  }
+}
+
+// ------------------------------------------------------------- host ----
+
+// A bf16 (d2, d1, d0) tensor as a 3-D map (d0, d1, d2), boxes of
+// 64 x box1 x 1 with the 128-byte swizzle, zeros out of bounds. Maps are
+// encoded once per (pointer, shape, box) and kept: the same key always
+// encodes the same map, so a cached one is never stale.
+struct MapKey {
+  const void* ptr;
+  long long d0, d1, d2;
+  int box1;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 &&
+           box1 == o.box1;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (long long v : {k.d0, k.d1, k.d2, (long long)k.box1})
+      h = h * 1000003u ^ std::hash<long long>()(v);
+    return h;
+  }
+};
+
+bool cached_map(CUtensorMap* map, const void* ptr, long long d0,
+                long long d1, long long d2, int box1) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{ptr, d0, d1, d2, box1};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *map = hit->second;
+    return true;
+  }
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2,
+                                 (cuuint64_t)(d0 * d1) * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (cache.size() >= 4096) cache.clear();   // bounded; re-encoded on use
+  cache.emplace(key, *map);
+  return true;
+}
+
+int launch_wgmma(const void* x, const void* w, void* out, int E, int M,
+                 int K, int N, int tiles_m, int tiles_n, int grid,
+                 cudaStream_t stream) {
+  CUtensorMap x_map, w_map, o_map;
+  if (!cached_map(&x_map, x, K, M, E, kWgBM) ||
+      !cached_map(&w_map, w, N, K, E, kWgBK) ||
+      !cached_map(&o_map, out, N, M, E, 64))
+    return -2;
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grouped_gemm_wgmma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  // the host's tiling must cover the output, its grid at most one block
+  // a tile
+  const long long n_tiles = (long long)E * tiles_m * tiles_n;
+  if ((long long)tiles_m * kWgBM < M || (long long)tiles_n * kWgBN < N ||
+      n_tiles > 0x7fffffff || grid < 1 || grid > n_tiles)
+    return -1;
+  grouped_gemm_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
+      x_map, w_map, o_map, K, tiles_m, tiles_n, (int)n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kVec>
-int launch(const void* x, const void* w, void* out, int E, int M, int K,
-           int N, int dtype, cudaStream_t stream) {
+int launch_simple(const void* x, const void* w, void* out, int E, int M,
+                  int K, int N, int dtype, cudaStream_t stream) {
   if (dtype == 1) {
     // more than 48 KB of dynamic shared memory only when opted in
     const cudaError_t err = cudaFuncSetAttribute(
@@ -375,14 +591,26 @@ int launch(const void* x, const void* w, void* out, int E, int M, int K,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 on a good launch.
+// dtype: 0 = float32, 1 = bfloat16. path: 0 = the tile kernels ("fma" for
+// f32, "mma" for bf16, with `vec`), 1 = "wgmma" (bf16 only, with K and N
+// multiples of 8 and 16-byte aligned bases; `tiles_m`, `tiles_n` and
+// `grid` from ops.wgmma_plan, unused by the tile kernels).
+// Returns 0 on a good launch.
 extern "C" int grouped_gemm_launch(const void* x, const void* w, void* out,
                                    int E, int M, int K, int N, int dtype,
-                                   int vec, void* stream) {
-  if (E < 1 || M < 1 || K < 1 || N < 1 || E > 65535 ||
-      (M + kFBM - 1) / kFBM > 65535 || (dtype != 0 && dtype != 1))
+                                   int path, int vec, int tiles_m,
+                                   int tiles_n, int grid, void* stream) {
+  if (E < 1 || M < 1 || K < 1 || N < 1 || (dtype != 0 && dtype != 1))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch<true>(x, w, out, E, M, K, N, dtype, s)
-             : launch<false>(x, w, out, E, M, K, N, dtype, s);
+  if (path == 1) {
+    const bool mapped = dtype == 1 && K % 8 == 0 && N % 8 == 0 &&
+                        reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    if (!mapped) return -1;
+    return launch_wgmma(x, w, out, E, M, K, N, tiles_m, tiles_n, grid, s);
+  }
+  if (path != 0 || E > 65535 || (M + kFBM - 1) / kFBM > 65535) return -1;
+  return vec ? launch_simple<true>(x, w, out, E, M, K, N, dtype, s)
+             : launch_simple<false>(x, w, out, E, M, K, N, dtype, s);
 }

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+_SMS: dict = {}                    # device index -> streaming multiprocessors
+
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raise where a CUDA kernel would silently cut a gradient.
@@ -20,3 +22,16 @@ def refuse_grad(name: str, *tensors) -> None:
             "would carry no gradient; run it under torch.no_grad() or "
             "torch.inference_mode(), or on host tensors (the plain version "
             "differentiates)")
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the card ``device`` names, read
+    once per device (a host int: a grid sized from it stays fixed
+    for a card, so a CUDA graph can hold the launch)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]

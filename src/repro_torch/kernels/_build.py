@@ -1,13 +1,15 @@
 """Builder and loader of the port's CUDA kernels.
 
 Each kernel ``name`` is one source, ``repro_torch/csrc/<name>.cu``, with a
-plain C interface. It is compiled with nvcc for Hopper (``sm_90a``) into a
-shared library under the checkout's ``build/kernels/`` at first use (one
-nvcc process per source; ``build`` starts several together) and loaded
-with ``ctypes``. The library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import: the CPU tests import every
-module on a host without nvcc.
+plain C interface; the sources share PTX building blocks through the
+headers of ``csrc/`` (``sm90.cuh``). It is compiled with nvcc for Hopper
+(``sm_90a``) into a shared library under the checkout's
+``build/kernels/`` at first use (one nvcc process per source; ``build``
+starts several together) and loaded with ``ctypes``. The library's file
+name carries a hash of its source, the shared headers and the flags, so
+an edited source or header is rebuilt and a stale library is never
+loaded. Nothing here runs at import: the CPU tests import every module on
+a host without nvcc.
 """
 from __future__ import annotations
 
@@ -38,10 +40,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD / f"lib{name}-{digest}.so"
+    """The library's path; its name hashes the source, every shared
+    header of ``csrc/`` (``*.cuh``) and the flags."""
+    h = hashlib.sha1((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> Dict[str, str]:

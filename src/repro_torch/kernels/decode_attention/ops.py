@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, refuse_grad, sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -27,19 +27,6 @@ MAX_GROUP = 16                     # query heads per kv head
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 32                          # cache slots a block stages at a time
 MAX_SPLIT = 16                     # blocks per (batch row, kv head): a cluster
-_SMS: dict = {}                    # device index -> streaming multiprocessors
-
-
-def sm_count(device) -> int:
-    """The streaming multiprocessors of the card ``device`` names, read
-    once per device (a host int: the grid stays fixed for a cache)."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SMS[index]
 
 
 def splits(W: int, n: int) -> tuple:

@@ -220,14 +220,10 @@ def check_flash_attention(B, S, H, K, hd, dtype, T=None, causal=True,
     return _compare(out, ref, dtype, case, FA_BF16_NORM_REL)
 
 
-def check_ssm_scan(B, S, Din, N, seed=0, strided=False):
-    """K3 on random inputs drawn on the card from ``seed`` (the reference
-    test's distributions: dt = softplus(normal), A = -exp(normal / 2),
-    B_, C_ and x normal), against its plain version on the same inputs, y
-    and h_last at SSM_TOL. ``strided``: B_ and C_ are views into one
-    (B, S, 8 + 2N) tensor, as the model splits them off its projection.
-    Raises AssertionError where they disagree; returns the max abs errors
-    of y and of h_last."""
+def _ssm_scan_inputs(B, S, Din, N, seed, strided):
+    """The reference test's distributions, drawn on the card from
+    ``seed``: dt = softplus(normal), A = -exp(normal / 2), B_, C_ and x
+    normal; ``strided``: B_ and C_ views into one (B, S, 8 + 2N) tensor."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -240,12 +236,26 @@ def check_ssm_scan(B, S, Din, N, seed=0, strided=False):
         _, B_, C_ = torch.split(rand(B, S, 8 + 2 * N), [8, N, N], dim=-1)
     else:
         B_, C_ = rand(B, S, N), rand(B, S, N)
-    x = rand(B, S, Din)
+    return dt, A, B_, C_, rand(B, S, Din)
+
+
+def check_ssm_scan(B, S, Din, N, seed=0, strided=False, group=None):
+    """K3 on random inputs drawn on the card from ``seed`` (the reference
+    test's distributions: dt = softplus(normal), A = -exp(normal / 2),
+    B_, C_ and x normal), against its plain version on the same inputs, y
+    and h_last at SSM_TOL. ``strided``: B_ and C_ are views into one
+    (B, S, 8 + 2N) tensor, as the model splits them off its projection.
+    ``group``: the lanes a channel (default: the wrapper's choice).
+    Raises AssertionError where they disagree; returns the max abs errors
+    of y and of h_last."""
+    dt, A, B_, C_, x = _ssm_scan_inputs(B, S, Din, N, seed, strided)
     before = ssm_ops.ssm_scan.launches
-    y, h = ssm_ops.ssm_scan(dt, A, B_, C_, x)
+    y, h = ssm_ops.ssm_scan(dt, A, B_, C_, x) if group is None \
+        else ssm_ops._launch(dt, A, B_, C_, x, group)
     assert ssm_ops.ssm_scan.launches == before + 1
     yr, hr = ssm_scan_ref(dt, A, B_, C_, x)
-    case = f"K3 vs plain, B={B} S={S} Din={Din} N={N} strided={strided}"
+    case = (f"K3 vs plain, B={B} S={S} Din={Din} N={N} strided={strided} "
+            f"group={group}")
     for name, a, b in (("y", y, yr), ("h_last", h, hr)):
         assert a.dtype == torch.float32 and a.shape == b.shape, case
         torch.testing.assert_close(a, b, rtol=SSM_TOL, atol=SSM_TOL,
@@ -290,22 +300,74 @@ def check_rglru_scan(B, S, W, seed=0, split=None):
     return (float((h - hr).abs().max()), float((h_last - hr_last).abs().max()))
 
 
-def check_grouped_gemm(E, M, K, N, dtype, seed=0):
-    """K5 on random inputs drawn on the card from ``seed`` (x normal, w
-    normal at the model's K ** -0.5 scale), against its plain version on
-    the same inputs. Raises AssertionError where they disagree; returns
-    (max abs error, normwise relative error)."""
+def _grouped_gemm_inputs(E, M, K, N, dtype, seed, offset=False):
+    """x normal and w normal at the model's K ** -0.5 scale, drawn on the
+    card from ``seed``; ``offset``: x starts one element past a 16-byte
+    boundary (a contiguous view into a longer buffer)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(E, M, K, generator=g, device=dev).to(dtype)
+    x = torch.randn(E * M * K + int(offset), generator=g, device=dev) \
+        .to(dtype)[int(offset):].view(E, M, K)
     w = (torch.randn(E, K, N, generator=g, device=dev) * K ** -0.5) \
         .to(dtype)
+    return x, w
+
+
+def check_grouped_gemm(E, M, K, N, dtype, seed=0, path=None, offset=False):
+    """K5 on random inputs drawn on the card from ``seed`` (x normal, w
+    normal at the model's K ** -0.5 scale), through kernel ``path``
+    (default: the wrapper's choice), against its plain version on the same
+    inputs. ``offset``: x's base off a 16-byte boundary. Raises
+    AssertionError where they disagree; returns (max abs error, normwise
+    relative error)."""
+    x, w = _grouped_gemm_inputs(E, M, K, N, dtype, seed, offset)
     before = gg_ops.grouped_gemm.launches
-    out = gg_ops.grouped_gemm(x, w)
+    out = gg_ops.grouped_gemm(x, w) if path is None \
+        else gg_ops._launch(x, w, path)
     assert gg_ops.grouped_gemm.launches == before + 1
-    case = f"K5 vs plain, E={E} M={M} K={K} N={N} {dtype}"
+    taken = path or gg_ops.choose_path(dtype, M, K, N, x.data_ptr(),
+                                       w.data_ptr())
+    case = (f"K5 vs plain, E={E} M={M} K={K} N={N} {dtype} path={taken} "
+            f"offset={offset}")
     return _compare(out, grouped_gemm_ref(x, w), dtype, case,
                     GG_BF16_NORM_REL)
+
+
+def check_bitwise(call, counter, replays=3):
+    """``call()`` (one kernel launch, counted on ``counter``) twice, equal
+    to the bit, and ``replays`` replays of one CUDA graph that captured it,
+    equal to them. Raises AssertionError otherwise."""
+    def flat(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    before = counter.launches
+    a, b = flat(call()), flat(call())
+    assert counter.launches == before + 2, "one launch a call"
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+        "two launches differ"
+    graph, c = capture_graph(call)
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, flat(c))), \
+            "a graph replay differs from the eager launch"
+
+
+def check_grouped_gemm_bitwise(E, M, K, N, dtype, seed=0, path=None):
+    """K5 through ``path`` bitwise over launches and a CUDA-graph replay
+    (``check_bitwise``)."""
+    x, w = _grouped_gemm_inputs(E, M, K, N, dtype, seed)
+    check_bitwise(lambda: gg_ops.grouped_gemm(x, w) if path is None
+                  else gg_ops._launch(x, w, path), gg_ops.grouped_gemm)
+
+
+def check_ssm_scan_bitwise(B, S, Din, N, seed=0, group=None):
+    """K3 on the inputs of ``check_ssm_scan`` (B_ and C_ strided), with
+    ``group`` lanes a channel (default: the wrapper's choice), bitwise
+    over launches and a CUDA-graph replay (``check_bitwise``)."""
+    args = _ssm_scan_inputs(B, S, Din, N, seed, strided=True)
+    check_bitwise(lambda: ssm_ops.ssm_scan(*args) if group is None
+                  else ssm_ops._launch(*args, group), ssm_ops.ssm_scan)
 
 
 def check_moe_ffn(E, C, D, F, dtype, seed=0):

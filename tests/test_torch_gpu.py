@@ -34,8 +34,10 @@ from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  check_decode_determinism,
                                  check_flash_attention,
                                  check_forward_parity, check_grouped_gemm,
+                                 check_grouped_gemm_bitwise,
                                  check_moe_ffn, check_rglru_scan,
-                                 check_ssm_scan, layer_kernels,
+                                 check_ssm_scan, check_ssm_scan_bitwise,
+                                 layer_kernels,
                                  serve_kernels, tally)
 from repro_torch.utils import tree_map  # noqa: E402
 
@@ -489,3 +491,97 @@ def test_grouped_gemm_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         gg_ops.grouped_gemm(x, torch.zeros(2, 4, 8, device=cuda)
                             .transpose(1, 2))
+
+
+# ------------------------------------------------------- K5's paths ----
+PATH_ROWS = [1, 7, 8, 9, 63, 64, 65, 127, 129, 640, 1280]
+
+
+@pytest.mark.parametrize("M", PATH_ROWS)
+@pytest.mark.parametrize("path", ["wgmma", "mma"])
+def test_grouped_gemm_each_path_matches_plain(cuda, path, M):
+    """Each bf16 kernel against the plain version at M rows an expert on
+    either side of the wgmma kernel's 128-row tiles and the mma kernel's
+    16-row m-tiles, from the decode's few rows to the prefill's 1280; K
+    and N off the 64-deep slices and the 128/256-column tiles (K 200, N
+    136, both multiples of 8)."""
+    check_grouped_gemm(3, M, 200, 136, torch.bfloat16, path=path)
+
+
+@pytest.mark.parametrize("prod", ["gate_up", "down"])
+@pytest.mark.parametrize("path,M", [("wgmma", 8), ("wgmma", 640),
+                                    ("wgmma", 1280), ("mma", 8),
+                                    ("mma", 640)])
+def test_grouped_gemm_each_path_at_qwen3_widths(cuda, path, M, prod):
+    """Every path at qwen3-moe-30b-a3b's expert widths (128 experts), at
+    the decode's 8 rows, the forward's 640 and the prefill's 1280."""
+    K, N = (2048, 768) if prod == "gate_up" else (768, 2048)
+    check_grouped_gemm(128, M, K, N, torch.bfloat16, path=path)
+
+
+@pytest.mark.parametrize("E,M,K,N,offset", [
+    (3, 640, 2047, 768, False), (3, 8, 2048, 767, False),
+    (2, 100, 36, 44, False), (3, 8, 2048, 768, True),
+    (3, 640, 256, 512, True)])
+def test_grouped_gemm_falls_to_the_mma_kernel_where_tma_cannot_map(
+        cuda, E, M, K, N, offset):
+    """K or N not a multiple of 8, or x's base off a 16-byte boundary:
+    the wrapper picks the mma.sync kernel, which holds against the plain
+    version; the TMA path refuses such operands."""
+    x = torch.zeros(E * M * K + int(offset), device=cuda,
+                    dtype=torch.bfloat16)[int(offset):].view(E, M, K)
+    w = torch.zeros(E, K, N, device=cuda, dtype=torch.bfloat16)
+    assert gg_ops.choose_path(x.dtype, M, K, N, x.data_ptr(),
+                              w.data_ptr()) == "mma"
+    with pytest.raises(ValueError, match="cannot take"):
+        gg_ops._launch(x, w, "wgmma")
+    check_grouped_gemm(E, M, K, N, torch.bfloat16, offset=offset)
+
+
+@pytest.mark.parametrize("path,M", [("wgmma", 640), ("wgmma", 65),
+                                    ("wgmma", 8), ("mma", 100),
+                                    ("fma", 50)])
+def test_grouped_gemm_is_bitwise_over_launches_and_a_graph_replay(
+        cuda, path, M):
+    """One launch a call, equal to the bit from launch to launch and in a
+    CUDA-graph replay of the same call (no host sync, the output the only
+    allocation, the TMA maps passed by value)."""
+    dtype = torch.float32 if path == "fma" else torch.bfloat16
+    check_grouped_gemm_bitwise(16, M, 512, 768, dtype, path=path)
+
+
+@pytest.mark.parametrize("B,S,Din,N", [(2, 1, 64, 16), (1, 17, 130, 4),
+                                       (2, 33, 96, 8), (1, 4096, 8192, 16)])
+def test_ssm_kernel_is_bitwise_over_launches_and_a_graph_replay(cuda, B, S,
+                                                                Din, N):
+    """K3's lane groups add their partial sums of y in a fixed tree: equal
+    to the bit from launch to launch and in a CUDA-graph replay, at every
+    state size."""
+    check_ssm_scan_bitwise(B, S, Din, N)
+
+
+@pytest.mark.parametrize("N,G", [(8, 1), (8, 2), (16, 1), (16, 4)])
+def test_ssm_kernel_each_group_is_bitwise_over_launches_and_a_graph_replay(
+        cuda, N, G):
+    """Each lane group, forced, bitwise over launches and a graph replay,
+    at a shape with a ragged chunk."""
+    check_ssm_scan_bitwise(2, 33, 300, N, group=G)
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 31, 33])
+def test_ssm_kernel_lane_groups_at_chunk_edges(cuda, S, N):
+    """The wrapper's lane group at N = 4, 8, 16 (at B = 2, Din = 100: 1,
+    2 and 4 lanes), S of one step and on either side of the 16-step
+    chunk, Din off the channel block, B_/C_ strided."""
+    check_ssm_scan(2, S, 100, N, strided=True)
+
+
+@pytest.mark.parametrize("N,G", [(4, 1), (8, 1), (8, 2), (16, 1),
+                                 (16, 4)])
+@pytest.mark.parametrize("S", [1, 16, 33])
+def test_ssm_kernel_each_lane_group_matches_plain(cuda, S, N, G):
+    """Every lane group the kernel has, forced, against the plain version
+    at SSM_TOL: one step and either side of the chunk, Din off the 256-,
+    128- and 64-channel blocks, B_/C_ strided."""
+    check_ssm_scan(2, S, 300, N, strided=True, group=G)

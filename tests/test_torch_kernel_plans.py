@@ -13,6 +13,17 @@
   ``decode_attention_ref`` at the tolerances of tests/test_kernels.py
   (f32 2e-5, bf16 2e-2) and K2's bf16 normwise limit (6e-3), so a rounding
   or empty-split error shows here before it costs card time.
+- K5's persistent tiling (``grouped_gemm.ops.wgmma_plan``, the tile
+  counts and grid the "wgmma" kernel walks): the tiles cover every
+  output element once at qwen3's capacities and ragged shapes for
+  several SM counts; and the shape dispatch (``choose_path``,
+  ``can_take``) by dtype and the TMA alignment rule, at the decode's few
+  rows an expert and the forward's hundreds.
+- A plain-torch model of K3's lane groups (N / G states a lane, the
+  lanes' partial sums of y added in a fixed tree) at both lane groups the
+  kernel has (one lane a channel, four states a lane), in f32 and f64, against ``ssm_scan_ref`` and the JAX
+  package's scan in interpret mode at SSM_TOL (1e-4); and the host's
+  choice of the group (``ssm_scan.ops.lane_group``, ``plan``).
 """
 import inspect
 
@@ -29,7 +40,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.grouped_gemm import ops as gg_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
-from repro_torch.testing import BF16_NORM_REL, TOL  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
+from repro_torch.testing import BF16_NORM_REL, SSM_TOL, TOL  # noqa: E402
 
 NEG_INF = -1e30
 # (B*K, W) of the serve shapes: glm4-9b (B 8, K 2, W 2120),
@@ -260,3 +272,216 @@ def test_split_combine_model_matches_plain_at_serve_plans(case, dtype):
     p = torch.tensor(pos, dtype=torch.int32)
     _hold(split_combine_model(q, k, v, pos, W, softcap=sc),
           decode_attention_ref(q, k, v, pos=p, window=W, softcap=sc), dtype)
+
+
+# ---------------------------------------- K5: the persistent tiling ----
+QWEN3_PRODUCTS = [(640, 2048, 768), (640, 768, 2048), (1280, 2048, 768),
+                  (1280, 768, 2048), (8, 2048, 768), (8, 768, 2048)]
+
+
+@pytest.mark.parametrize("sms", [1, 7, 114, 132, 144])
+@pytest.mark.parametrize("E,M,N", [(128, M, N) for M, _, N in QWEN3_PRODUCTS]
+                         + [(3, 129, 136), (1, 1, 8), (5, 300, 1000),
+                            (2, 65, 2048)])
+def test_wgmma_plan_tiles_cover_the_output_once(E, M, N, sms):
+    """The 128 x 256 tiles of the plan cover each expert's (M, N) with no
+    tile wholly past its edge, so every output element lies in exactly
+    one (expert, m-tile, n-tile), at qwen3's three capacities (both
+    products) and ragged shapes; the grid is one block an SM, at most one
+    a tile, so no block is idle."""
+    tm, tn, grid = gg_ops.wgmma_plan(E, M, N, sms)
+    bm, bn = gg_ops.WG_TILE
+    assert (tm - 1) * bm < M <= tm * bm
+    assert (tn - 1) * bn < N <= tn * bn
+    assert grid == min(sms, E * tm * tn) >= 1
+
+
+def test_wgmma_plan_depends_on_host_ints_only():
+    """Shapes and the SM count, nothing read from the card: the grid is
+    fixed for a shape, so a graph can hold the launch. At qwen3's forward
+    gate/up (128 experts of 640 x 768): 5 x 3 tiles an expert, 1,920 in
+    all, one block on each of an H100's 132 SMs; at the decode's 8 rows
+    one m-tile an expert."""
+    assert list(inspect.signature(gg_ops.wgmma_plan).parameters) == [
+        "E", "M", "N", "sms"]
+    assert gg_ops.wgmma_plan(128, 640, 768, H100_SMS) == (5, 3, 132)
+    assert gg_ops.wgmma_plan(128, 8, 2048, H100_SMS) == (1, 8, 132)
+    assert gg_ops.wgmma_plan(1, 8, 768, H100_SMS) == (1, 3, 3)
+
+
+# ------------------------------------------------ K5: the shape dispatch ----
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,M,K,N,xp,wp,want", [
+    (BF16, 8, 2048, 768, 0, 0, "wgmma"),          # qwen3's decode
+    (BF16, 8, 768, 2048, 0, 0, "wgmma"),
+    (BF16, 1, 2048, 768, 0, 0, "wgmma"),
+    (BF16, 16, 2048, 768, 0, 0, "wgmma"),
+    (BF16, 129, 2048, 768, 0, 0, "wgmma"),        # off the 128-row tile
+    (BF16, 640, 2048, 768, 0, 0, "wgmma"),        # the forward
+    (BF16, 1280, 768, 2048, 0, 0, "wgmma"),       # the prefill
+    (BF16, 640, 2047, 768, 0, 0, "mma"),          # K off 8
+    (BF16, 8, 2048, 767, 0, 0, "mma"),            # N off 8
+    (BF16, 640, 2048, 768, 2, 0, "mma"),          # x's base off 16 bytes
+    (BF16, 8, 2048, 768, 0, 8, "mma"),            # w's base off 16 bytes
+    (BF16, 640, 2048, 768, 32, 48, "wgmma"),      # 16-byte aligned bases
+    (F32, 8, 2048, 768, 0, 0, "fma"),
+    (F32, 640, 2048, 768, 0, 0, "fma"),
+    (F32, 640, 2047, 767, 4, 4, "fma")])
+def test_choose_path_by_dtype_and_alignment(dtype, M, K, N, xp, wp, want):
+    assert gg_ops.choose_path(dtype, M, K, N, xp, wp) == want
+    assert gg_ops.can_take(want, dtype, M, K, N, xp, wp)
+
+
+@pytest.mark.parametrize("path,dtype,M,K,N,xp,ok", [
+    ("wgmma", BF16, 1, 64, 64, 0, True),          # wgmma takes any M
+    ("wgmma", BF16, 8, 64, 64, 0, True),
+    ("wgmma", BF16, 65, 64, 64, 0, True),
+    ("wgmma", BF16, 640, 60, 64, 0, False),       # K off 8
+    ("wgmma", BF16, 8, 64, 64, 2, False),         # misaligned base
+    ("wgmma", F32, 8, 64, 64, 0, False),
+    ("mma", BF16, 640, 60, 61, 2, True),          # mma takes any bf16
+    ("mma", F32, 640, 64, 64, 0, False),
+    ("fma", BF16, 640, 64, 64, 0, False),
+    ("fma", F32, 7, 3, 5, 4, True),
+    ("tf32", F32, 7, 3, 5, 4, False)])
+def test_can_take_says_which_paths_take_the_operands(path, dtype, M, K, N,
+                                                     xp, ok):
+    assert gg_ops.can_take(path, dtype, M, K, N, xp, xp) is ok
+
+
+def test_choose_path_depends_on_host_ints_only():
+    assert list(inspect.signature(gg_ops.choose_path).parameters) == [
+        "dtype", "M", "K", "N", "x_ptr", "w_ptr"]
+
+
+# ------------------------------------- K3: the lane-group decomposition ----
+def lane_group_model(dt, A, B_, C_, x, G):
+    """K3's arithmetic in plain torch with G lanes a channel: lane s holds
+    states L s .. L s + L - 1 (L = N / G); per step every state as the
+    plain scan updates it, each lane's partial y summed over its L states
+    in n order, then the G partial sums added in a fixed tree (pairs 1
+    apart, then 2 apart: (p0 + p1) + (p2 + p3)), which is y_t."""
+    Bsz, S, Din = dt.shape
+    N = A.shape[1]
+    L = N // G
+    lanes = torch.arange(G)
+    h = torch.zeros(Bsz, Din, N, dtype=dt.dtype)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dt[:, t, :, None] * A)
+        h = dA * h + (dt[:, t] * x[:, t])[..., None] * B_[:, t, None, :]
+        part = (h * C_[:, t, None, :]).reshape(Bsz, Din, G, L)
+        acc = part[..., 0]
+        for j in range(1, L):
+            acc = acc + part[..., j]
+        o = 1
+        while o < G:
+            acc = acc + acc[..., lanes ^ o]     # p_s += p_(s ^ o), every s
+            o <<= 1
+        ys.append(acc[..., 0])
+    return torch.stack(ys, dim=1), h
+
+
+def _ssm_inputs(B, S, Din, N, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, Din))))
+    A = -np.exp(0.5 * rng.standard_normal((Din, N)))
+    return [torch.from_numpy(a.astype(dtype)) for a in (
+        dt, A, rng.standard_normal((B, S, N)),
+        rng.standard_normal((B, S, N)), rng.standard_normal((B, S, Din)))]
+
+
+def _with_groups(shapes):
+    """Each (B, S, Din, N) once for every lane group the kernel has at N."""
+    return [(*shape, G) for shape in shapes
+            for G in ssm_ops.lane_groups(shape[3])]
+
+
+SSM_SHAPES = [(2, 1, 5, 4), (1, 17, 33, 8), (2, 33, 70, 16), (1, 16, 64, 16),
+              (2, 40, 9, 4), (1, 50, 130, 8)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("B,S,Din,N,G", _with_groups(SSM_SHAPES))
+def test_lane_group_model_matches_plain(B, S, Din, N, G, dtype):
+    """S = 1, S off the 16-step chunk and on it, N = 4, 8, 16 at each of
+    their lane groups (1 lane; 1 or 2; 1 or 4), Din off the 64-, 128-
+    and 256-channel blocks; y and h_last within SSM_TOL of
+    ``ssm_scan_ref`` in f32 and in f64."""
+    args = _ssm_inputs(B, S, Din, N, dtype, seed=S)
+    y, h = lane_group_model(*args, G)
+    yr, hr = ssm_scan_ref(*args)
+    torch.testing.assert_close(y, yr.to(y.dtype), rtol=SSM_TOL,
+                               atol=SSM_TOL)
+    torch.testing.assert_close(h, hr.to(h.dtype), rtol=SSM_TOL,
+                               atol=SSM_TOL)
+
+
+@pytest.mark.parametrize("B,S,Din,N,G", _with_groups(
+    [(2, 1, 16, 4), (1, 17, 32, 8), (2, 33, 48, 16)]))
+def test_lane_group_model_matches_the_reference_kernel(B, S, Din, N, G):
+    """The model at each lane group against the JAX package's selective
+    scan run in interpret mode (as tests/test_torch_ssm.py runs it), f32
+    at SSM_TOL."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.ssm_scan import ops as jssm_ops
+    args = _ssm_inputs(B, S, Din, N, np.float32, seed=7)
+    y, h = lane_group_model(*args, G)
+    jy, jh = jssm_ops.ssm_scan(*(jnp.asarray(a.numpy()) for a in args),
+                               block_d=16, chunk=16, interpret=True)
+    torch.testing.assert_close(y, torch.from_numpy(np.array(jy)),
+                               rtol=SSM_TOL, atol=SSM_TOL)
+    torch.testing.assert_close(h, torch.from_numpy(np.array(jh)),
+                               rtol=SSM_TOL, atol=SSM_TOL)
+
+
+@pytest.mark.parametrize("N,groups", [(4, (1,)), (8, (1, 2)),
+                                      (16, (1, 4))])
+def test_ssm_lane_groups_are_one_lane_or_four_states_a_lane(N, groups):
+    assert ssm_ops.lane_groups(N) == groups
+    with pytest.raises(ValueError, match="state size"):
+        ssm_ops.lane_groups(N + 1)
+
+
+@pytest.mark.parametrize("B,Din,N,sms,group", [
+    (2, 8192, 16, H100_SMS, 4),    # falcon-mamba-7b's forward: 2,048 warps
+    (8, 8192, 16, H100_SMS, 1),    # its serve prefill: 2,048 at one lane
+    (4, 8192, 16, H100_SMS, 4),
+    (2, 8192, 8, H100_SMS, 2),     # four states a lane at N = 8
+    (2, 8192, 4, H100_SMS, 1),
+    (1, 100, 16, H100_SMS, 4),     # too few channels
+    (1, 384, 16, 1, 1),            # 12 warps on the one SM at one lane
+    (1, 383, 16, 1, 4),
+    (1, 383, 8, 1, 2)])
+def test_ssm_lane_group_is_one_lane_where_that_fills_the_card(B, Din, N,
+                                                             sms, group):
+    """The host takes one lane a channel where B * Din threads put
+    WARPS_PER_SM (12) warps on each SM, else four states a lane: four
+    lanes a channel at the forward's B = 2, one at the prefill's B = 8."""
+    assert ssm_ops.WARPS_PER_SM == 12
+    assert ssm_ops.lane_group(B, Din, N, sms) == group
+    assert ssm_ops.plan(B, Din, N, sms)["group"] == group
+
+
+@pytest.mark.parametrize("N,group", [(4, 1), (8, 1), (8, 2), (16, 1),
+                                     (16, 4)])
+def test_ssm_plan_gives_the_launch_of_each_group(N, group):
+    """256 threads a block at every group: 256 / G channels a block, N / G
+    states a lane; the warps on the card grow with the group."""
+    p = ssm_ops.plan(2, 8192, N, H100_SMS, group)
+    assert (p["group"], p["states_per_lane"]) == (group, N // group)
+    assert p["threads_per_block"] == 256
+    assert p["channels_per_block"] == 256 // group
+    assert p["blocks"] == 2 * 8192 * group // 256
+    assert p["warps"] == 2 * 8192 * group // 32
+    assert ssm_ops.plan(1, 100, N, H100_SMS, group)["blocks"] == \
+        -(-100 // (256 // group))     # Din off the block
+
+
+def test_ssm_plan_refuses_a_group_the_kernel_lacks():
+    with pytest.raises(ValueError, match="no lane group of 4 at N=8"):
+        ssm_ops.plan(2, 64, 8, H100_SMS, 4)
+    assert list(inspect.signature(ssm_ops.lane_group).parameters) == [
+        "B", "Din", "N", "sms"]
