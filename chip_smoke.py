@@ -12,8 +12,8 @@ and after it each count must read what that path launches. Phases:
                kernels (one process per source, started together) with
                their time and each instance's registers and spills, and,
                where the toolkit has cuobjdump, the HGMMA (wgmma), UTMALDG
-               (TMA load) and UTMASTG (TMA store) instructions in K1's and
-               K5's libraries;
+               (TMA load) and UTMASTG (TMA store) instructions in K1's,
+               K4's and K5's libraries;
   2. kernel  — K2 (decode attention) against its plain version on the
                card: the reference's test grid, glm4-9b's, granite-8b's and
                qwen3-moe-30b-a3b's decode shapes (pos on the edges of the
@@ -113,11 +113,15 @@ x 8 and two rglru; d_model 2560, 10 heads on one kv head of head_dim 256,
 window 2048, vocab 256000):
 
  18. k4      — K4 (the RG-LRU scan) against its plain version on the card,
-               f32, h_all and h_last at 1e-5 (the tolerance of the
-               reference's test_rglru_scan): the reference's grid, the
-               chaining property (two launches, the second from the first's
-               h_last, equal one), a ragged S=4000 with W=2600, and the
-               forward (B=2, S=4096) and serve-prefill (B=8, S=2048) shapes;
+               f32, h_all and h_last equal to the bit, through the
+               wrapper's path and each path forced ("tma" where TMA maps
+               the shape, "registers" everywhere): the reference's grid,
+               the chaining property (two launches, the second from the
+               first's h_last, equal one), ragged S=4000 and 2000 with
+               W=2600 (B=2 and 8), W = 33 and 5 ("registers" only), a and b 4 bytes off a
+               16-byte boundary, and the forward (B=2, S=4096) and
+               serve-prefill (B=8, S=2048) shapes; and each path bitwise
+               over two launches and a CUDA-graph replay at those two;
  19. hd256   — K1 at B=2, S=4096, H=10, K=1, hd=256, causal with the
                2048-key window, and K2 at B=8, H=10, K=1, hd=256 on a
                2048-slot ring at pos 2047, 2048 and 2110 (full, then
@@ -142,7 +146,12 @@ window 2048, vocab 256000):
                seed 0, the check of phase 9;
  25. k4 time — K4 timed with CUDA events at the forward and the prefill
                shapes, beside its bound and its plain version (no PyTorch
-               call computes the linear recurrence, so no library time);
+               call computes the linear recurrence, so no library time),
+               with its plan (path, channels a block, steps a stage,
+               stages, blocks, bytes in flight), each path forced, a
+               device copy of a as the card's streaming rate (timed
+               only), the wrapper's host time a call and the registers
+               and spills of each instance;
  26. k1 time at hd 256 — K1 at recurrentgemma-2b's forward shape over 8
                distinct q/k/v sets, beside its bound, its plain version
                and F.scaled_dot_product_attention with the window as an
@@ -852,33 +861,69 @@ def k1_time(B, S, H, K, hd, window, n_sets, seed):
 
 def k4_check_phase(cfg):
     """K4 against its plain version on the card (``check_rglru_scan``,
-    f32, h_all and h_last at 1e-5). Returns, per case group, the max abs
-    errors of h_all and of h_last."""
-    from repro_torch.testing import check_rglru_scan
+    f32, h_all and h_last equal to the bit), every case through the
+    wrapper's path and through each path forced where it takes the shape;
+    and each path bitwise over launches and a CUDA-graph replay at the
+    forward and prefill shapes. Returns, per case group (and path), the
+    max abs errors of h_all and of h_last."""
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.testing import check_rglru_scan, check_rglru_scan_bitwise
 
     W = cfg.lru_width
     errs: dict = {}
 
     def case(key, *a, **kw):
-        got = check_rglru_scan(*a, **kw)
-        errs[key] = [max(x, y) for x, y in zip(errs.get(key, got), got)]
+        for path in (None, *lru_ops.PATHS):
+            if path == "tma" and not lru_ops.tma_maps(
+                    a[2], 4 * kw.get("offset", False), 0):
+                continue
+            got = check_rglru_scan(*a, path=path, **kw)
+            k = key if path is None else f"{key}_{path}"
+            errs[k] = [max(x, y) for x, y in zip(errs.get(k, got), got)]
 
     for shape in ((2, 64, 32), (1, 96, 64)):
         case("grid", *shape)
     case("chained", 1, 40, 16, split=17)
     case("chained", FWD_BATCH, FWD_SEQ, W, split=1000)
     case("ragged", FWD_BATCH, 4000, 2600)
+    case("ragged", BATCH, 2000, 2600)         # "registers" by the wrapper
+    case("ragged", 3, 9, 33)
+    case("ragged", 1, 1, 5)
+    case("offset", 2, 100, W, offset=True)    # a, b off 16 bytes
     case("forward", FWD_BATCH, FWD_SEQ, W)
     case("prefill", BATCH, PROMPT, W)
+    for B, S in ((FWD_BATCH, FWD_SEQ), (BATCH, PROMPT)):
+        for path in (None, *lru_ops.PATHS):
+            check_rglru_scan_bitwise(B, S, W, path=path)
+    errs["bitwise_over_launches_and_graph_replay"] = True
     return errs
 
 
-def k4_time(cfg, B, S):
+def k4_bytes_in_flight(plan, B, W, sms):
+    """Bytes of a and b K4 keeps in flight card-wide under ``plan``:
+    "tma" its ring in every block resident at once (as many as an SM's
+    228 KB of shared memory holds, each block taking its ring, two output
+    boxes, 128 bytes of alignment and the 1 KB the runtime reserves);
+    "registers" its steps in flight a channel."""
+    if plan["path"] == "registers":
+        return B * W * plan["steps_in_flight"] * 8
+    box = plan["steps_per_stage"] * plan["channels_per_block"] * 4
+    block_smem = (2 * plan["stages"] + 2) * box + 128 + 1024
+    resident = min(plan["blocks"], 228 * 1024 // block_smem * sms)
+    return resident * plan["stages"] * 2 * box
+
+
+def k4_time(cfg, B, S, ptxas=None):
     """K4 and its plain version timed with CUDA events, cycling through two
     input sets of 168 MB or more (a and b), beside the bound: the bytes
-    over the memory rate (a, b and h0 read, h_all and h_last written)."""
+    over the memory rate (a, b and h0 read, h_all and h_last written);
+    with the plan, each path forced, a device copy of a (two thirds of
+    K4's bytes: the card's streaming rate at this size, timed only), the
+    wrapper's host time a call and each kernel instance's registers and
+    spills."""
     import torch
 
+    from repro_torch.kernels import sm_count
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -888,20 +933,33 @@ def k4_time(cfg, B, S):
              torch.randn(B, S, W, generator=g, device="cuda"),
              torch.randn(B, W, generator=g, device="cuda"))
             for _ in range(2)]
+    sms = sm_count(torch.device("cuda"))
+    plan = lru_ops.plan(B, S, W, sms)
+    plan["bytes_in_flight"] = k4_bytes_in_flight(plan, B, W, sms)
     ms = time_ms(torch, lambda i: lru_ops.rglru_scan(*sets[i]), 2, reps=10)
     plain_ms = time_ms(torch, lambda i: rglru_scan_ref(*sets[i]), 1, reps=1)
+    path_ms = {p: time_ms(torch, lambda i: lru_ops._launch(*sets[i], p), 2,
+                          reps=10) for p in lru_ops.PATHS}
     ms_2 = time_ms(torch, lambda i: lru_ops.rglru_scan(*sets[i]), 2,
                    reps=10)
+    dst = torch.empty_like(sets[0][0])
+    copy_ms = time_ms(torch, lambda i: dst.copy_(sets[i][0]), 2, reps=10)
+    host = host_us(torch, lambda: lru_ops.rglru_scan(*sets[0]))
     nbytes = 4 * (3 * B * S * W + 2 * B * W)
     flops = 2 * B * S * W
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flop_ms = flops / F32_FLOPS * 1e3
     bound_ms = max(bytes_ms, flop_ms)
     return {"ms": ms, "ms_repeat": ms_2, "plain_ms": plain_ms,
+            "path_ms": path_ms, "plan": plan, "copy_ms": copy_ms,
+            "copy_tb_per_s": 8 * B * S * W / copy_ms / 1e9,
+            "tb_per_s": nbytes / ms / 1e9,
+            "host_us_per_call": host,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= flop_ms else "operations",
             "bound_share": bound_ms / ms, "bytes": nbytes,
             "bytes_ms": bytes_ms, "flops": flops, "flop_ms": flop_ms,
+            "ptxas": ptxas,
             "shape": {"B": B, "S": S, "W": W, "dtype": "float32"}}
 
 
@@ -1039,29 +1097,23 @@ def k5_time(E, M, K, N, seed, paths=()):
             "library_max_abs_err": lib_err, "library_call": "torch.bmm"}
 
 
-def k5_host_us(E, M, K, N, calls=200, repeats=5):
-    """The K5 wrapper's host time a call (its checks, the path choice,
-    the output's allocation and the launch): ``calls`` calls enqueued
-    between two synchronises, host clock, after a warm-up; the card's
-    work per call is longer than the host's, so the queue never fills.
-    Returns the least and the median of ``repeats`` such passes (the host
-    clock of a shared machine is noisy)."""
+def host_us(torch, fn, calls=200, repeats=5):
+    """A kernel wrapper's host time a call (its checks, the path choice,
+    the outputs' allocation and the launch): ``calls`` calls of fn()
+    enqueued between two synchronises, host clock, after a warm-up; the
+    card's work per call is longer than the host's, so the queue never
+    fills. Returns the least and the median of ``repeats`` such passes
+    (the host clock of a shared machine is noisy)."""
     import statistics
 
-    import torch
-
-    from repro_torch.kernels.grouped_gemm import ops as gg_ops
-
-    x = torch.randn(E, M, K, device="cuda").to(torch.bfloat16)
-    w = torch.randn(E, K, N, device="cuda").to(torch.bfloat16)
     for _ in range(20):
-        gg_ops.grouped_gemm(x, w)
+        fn()
     passes = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(calls):
-            gg_ops.grouped_gemm(x, w)
+            fn()
         passes.append((time.perf_counter() - t) / calls * 1e6)
     torch.cuda.synchronize()
     return {"min": min(passes), "median": statistics.median(passes)}
@@ -1076,6 +1128,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
     from repro_torch.models import build_model
     from repro_torch.testing import (check_decode_attention,
                                      check_decode_determinism,
@@ -1121,13 +1174,13 @@ def main() -> int:
                     or "wgmma" in line:
                 print("  " + line.strip(), flush=True)
     ptxas = {kname: ptxas_info(text) for kname, text in build_logs.items()}
-    # whether K1's and K5's libraries hold Hopper's warpgroup products
-    # (HGMMA), TMA loads (UTMALDG) and TMA stores (UTMASTG), where the
-    # toolkit has cuobjdump
+    # whether K1's, K4's and K5's libraries hold Hopper's warpgroup
+    # products (HGMMA), TMA loads (UTMALDG) and TMA stores (UTMASTG),
+    # where the toolkit has cuobjdump
     sass_counts = {}
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     if cuobjdump.exists():
-        for kname in ("flash_attention", "grouped_gemm"):
+        for kname in ("flash_attention", "rglru_scan", "grouped_gemm"):
             sass = subprocess.run(
                 [str(cuobjdump), "-sass", str(_build.library_path(kname))],
                 capture_output=True, text=True, check=True,
@@ -1395,7 +1448,7 @@ def main() -> int:
     record["hybrid_forward_parity"] = hyb_fwd_parity
 
     # ---------------------------------------------------------- 25. k4 time --
-    k4_fwd = k4_time(hcfg, FWD_BATCH, FWD_SEQ)
+    k4_fwd = k4_time(hcfg, FWD_BATCH, FWD_SEQ, ptxas["rglru_scan"])
     k4_pre = k4_time(hcfg, BATCH, PROMPT)
     k4 = {
         "name": "rglru_scan", "route": "cuda",
@@ -1410,6 +1463,9 @@ def main() -> int:
         "launches_serve": hyb_serve["launches"]["k4"],
         "forward_shape": k4_fwd, "prefill_shape": k4_pre,
         "max_abs_err_prefill": max(k4_errs["prefill"]),
+        "plan": {"forward": k4_fwd["plan"], "prefill": k4_pre["plan"]},
+        "host_us_per_call": k4_fwd["host_us_per_call"],
+        "ptxas": k4_fwd["ptxas"],
         "library_call": "none: no PyTorch call computes the linear "
                         "recurrence",
     }
@@ -1484,8 +1540,12 @@ def main() -> int:
         for name, C in MOE_CAPACITIES.items()
         for prod, dims in (("gate_up", (D, F)), ("down", (F, D)))}
     log(phase="k5_time", **k5_t)
-    host_us = k5_host_us(E, MOE_CAPACITIES["decode"], D, F)
-    log(phase="k5_host", us_per_call_decode_shape=host_us)
+    x = torch.randn(E, MOE_CAPACITIES["decode"], D,
+                    device="cuda").to(torch.bfloat16)
+    w = torch.randn(E, D, F, device="cuda").to(torch.bfloat16)
+    k5_host = host_us(torch, lambda: gg_ops.grouped_gemm(x, w))
+    del x, w
+    log(phase="k5_host", us_per_call_decode_shape=k5_host)
     fwd_t = k5_t["forward_gate_up"]
     k5 = {
         "name": "grouped_gemm", "route": "cuda",
@@ -1500,7 +1560,7 @@ def main() -> int:
         "launches_serve": moe_serve["launches"]["k5"],
         "launches_serve_prefill": moe_serve["launches_in_prefill"]["k5"],
         "shapes": k5_t,
-        "host_us_per_call": host_us,
+        "host_us_per_call": k5_host,
         "ptxas": {k: v for k, v in ptxas["grouped_gemm"].items()
                   if "wgmma" in k},
         "library_call": "torch.bmm",

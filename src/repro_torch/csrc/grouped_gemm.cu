@@ -70,9 +70,6 @@
 // their tiles are then copied 16 bytes at a time, else element by
 // element.
 
-#include <mutex>
-#include <unordered_map>
-
 #include "sm90.cuh"
 
 namespace {
@@ -490,54 +487,12 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 // ------------------------------------------------------------- host ----
 
 // A bf16 (d2, d1, d0) tensor as a 3-D map (d0, d1, d2), boxes of
-// 64 x box1 x 1 with the 128-byte swizzle, zeros out of bounds. Maps are
-// encoded once per (pointer, shape, box) and kept: the same key always
-// encodes the same map, so a cached one is never stale.
-struct MapKey {
-  const void* ptr;
-  long long d0, d1, d2;
-  int box1;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 &&
-           box1 == o.box1;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    size_t h = std::hash<const void*>()(k.ptr);
-    for (long long v : {k.d0, k.d1, k.d2, (long long)k.box1})
-      h = h * 1000003u ^ std::hash<long long>()(v);
-    return h;
-  }
-};
-
+// 64 x box1 x 1 with the 128-byte swizzle, zeros out of bounds, cached
+// (sm90.cuh: cached_map_3d).
 bool cached_map(CUtensorMap* map, const void* ptr, long long d0,
                 long long d1, long long d2, int box1) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, d0, d1, d2, box1};
-  std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return true;
-  }
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
-                              (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2,
-                                 (cuuint64_t)(d0 * d1) * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  if (cache.size() >= 4096) cache.clear();   // bounded; re-encoded on use
-  cache.emplace(key, *map);
-  return true;
+  return cached_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, d0,
+                       d1, d2, 64, box1, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 int launch_wgmma(const void* x, const void* w, void* out, int E, int M,
@@ -548,13 +503,15 @@ int launch_wgmma(const void* x, const void* w, void* out, int E, int M,
       !cached_map(&w_map, w, N, K, E, kWgBK) ||
       !cached_map(&o_map, out, N, M, E, 64))
     return -2;
-  static bool opted = false;
-  if (!opted) {
+  static bool opted[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return -1;
+  if (!opted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         grouped_gemm_wgmma_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted = true;
+    opted[dev] = true;
   }
   // the host's tiling must cover the output, its grid at most one block
   // a tile

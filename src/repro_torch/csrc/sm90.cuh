@@ -3,10 +3,11 @@
 // Ampere-style tensor-core path), mbarriers, TMA loads and stores through
 // tensor maps, wgmma shared-memory descriptors and the wgmma instructions
 // the kernels issue, and the host's tensor-map encoder reached through
-// the runtime's driver entry point (no -lcuda).
-// Included by flash_attention.cu, decode_attention.cu and
-// grouped_gemm.cu; kernels/_build.py hashes it into every library's name,
-// so an edit here rebuilds them all.
+// the runtime's driver entry point (no -lcuda), with a cache of the 3-D
+// maps it encodes.
+// Included by flash_attention.cu, decode_attention.cu, grouped_gemm.cu
+// and rglru_scan.cu; kernels/_build.py hashes it into every library's
+// name, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -14,6 +15,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <unordered_map>
 
 namespace {
 
@@ -424,6 +428,75 @@ EncodeTiledFn encode_tiled() {
     fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// A (d2, d1, d0) tensor, d0 contiguous, of `elem_bytes`-byte elements as
+// a 3-D map (d0, d1, d2) with boxes of box0 x box1 x 1, zeros out of
+// bounds. Maps are encoded once per (pointer, type, shape, box, swizzle)
+// and kept: the same key always encodes the same map, so a cached one is
+// never stale.
+struct MapKey {
+  const void* ptr;
+  long long d0, d1, d2;
+  int dtype, box0, box1, swizzle;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 &&
+           dtype == o.dtype && box0 == o.box0 && box1 == o.box1 &&
+           swizzle == o.swizzle;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (long long v : {k.d0, k.d1, k.d2, (long long)k.dtype,
+                        (long long)k.box0, (long long)k.box1,
+                        (long long)k.swizzle})
+      h = h * 1000003u ^ std::hash<long long>()(v);
+    return h;
+  }
+};
+
+bool cached_map_3d(CUtensorMap* map, CUtensorMapDataType dtype,
+                   int elem_bytes, const void* ptr, long long d0,
+                   long long d1, long long d2, int box0, int box1,
+                   CUtensorMapSwizzle swizzle) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{ptr, d0, d1, d2, (int)dtype, box0, box1, (int)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *map = hit->second;
+    return true;
+  }
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * elem_bytes,
+                                 (cuuint64_t)(d0 * d1) * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  if (fn(map, dtype, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (cache.size() >= 4096) cache.clear();   // bounded; re-encoded on use
+  cache.emplace(key, *map);
+  return true;
+}
+
+// cudaFuncSetAttribute sets a kernel's attribute on the current device
+// only, so a launcher that opts its kernel in keeps one flag a device,
+// indexed by this: the current device, or -1 where it cannot be read or
+// is past kMaxDevices.
+constexpr int kMaxDevices = 64;
+int current_device() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
 }
 
 }  // namespace

@@ -43,9 +43,6 @@ BF16_NORM_REL = 6e-3
 FA_BF16_NORM_REL = 6e-3
 # K3 in f32, y and h_last: the tolerance of the reference's test_ssm_scan
 SSM_TOL = 1e-4
-# K4 in f32, h_all and h_last: the tolerance of the reference's
-# test_rglru_scan
-LRU_TOL = 1e-5
 # K5's bf16 limit on ||out - ref|| / ||ref||. The kernel and its plain
 # version round the same products' f32 sums once to bf16, summed in
 # another order, so only the few elements whose sums straddle a rounding
@@ -263,41 +260,66 @@ def check_ssm_scan(B, S, Din, N, seed=0, strided=False, group=None):
     return (float((y - yr).abs().max()), float((h - hr).abs().max()))
 
 
-def check_rglru_scan(B, S, W, seed=0, split=None):
-    """K4 on random inputs drawn on the card from ``seed`` (the reference
-    test's distributions: a = sigmoid(normal), b and h0 normal), against
-    its plain version on the same inputs, h_all and h_last at LRU_TOL.
-    ``split`` = s1 also checks the chaining property: the first s1 steps,
-    then the rest from their h_last, equal one pass. Raises AssertionError
-    where they disagree; returns the max abs errors of h_all and h_last."""
+def rglru_scan_inputs(B, S, W, seed, offset=False):
+    """a = sigmoid(normal), b and h0 normal (the reference test's
+    distributions), drawn on the card from ``seed``; ``offset``: a and b
+    start one element past a 16-byte boundary (contiguous views into
+    longer buffers)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    a = torch.sigmoid(rand(B, S, W))
-    b = rand(B, S, W)
-    h0 = rand(B, W)
+    n = B * S * W
+    a = torch.sigmoid(rand(n + offset))[int(offset):].view(B, S, W)
+    b = rand(n + offset)[int(offset):].view(B, S, W)
+    return a, b, rand(B, W)
+
+
+def _rglru_call(path):
+    return lru_ops.rglru_scan if path is None else \
+        lambda a, b, h0: lru_ops._launch(a, b, h0, path)
+
+
+def check_rglru_scan(B, S, W, seed=0, split=None, path=None, offset=False):
+    """K4 through ``path`` (default: the wrapper's choice) on the inputs
+    of ``rglru_scan_inputs``, against its plain version on the same
+    inputs: h_all and h_last equal to the bit (each step is rounded as the
+    plain version rounds it, in time order). ``split`` = s1 also checks
+    the chaining property: the first s1 steps, then the rest from their
+    h_last, equal one pass to the bit. Raises AssertionError where they
+    differ; returns the max abs errors of h_all and h_last (0.0)."""
+    a, b, h0 = rglru_scan_inputs(B, S, W, seed, offset)
+    call = _rglru_call(path)
     before = lru_ops.rglru_scan.launches
-    h, h_last = lru_ops.rglru_scan(a, b, h0)
+    h, h_last = call(a, b, h0)
     assert lru_ops.rglru_scan.launches == before + 1
     hr, hr_last = rglru_scan_ref(a, b, h0)
-    case = f"K4 vs plain, B={B} S={S} W={W}"
+    case = f"K4 ({path or 'wrapper'}) vs plain, B={B} S={S} W={W}"
     pairs = [("h_all", h, hr), ("h_last", h_last, hr_last)]
     if split is not None:
-        h1, h1_last = lru_ops.rglru_scan(a[:, :split].contiguous(),
-                                         b[:, :split].contiguous(), h0)
-        h2, h2_last = lru_ops.rglru_scan(a[:, split:].contiguous(),
-                                         b[:, split:].contiguous(), h1_last)
+        h1, h1_last = call(a[:, :split].contiguous(),
+                           b[:, :split].contiguous(), h0)
+        h2, h2_last = call(a[:, split:].contiguous(),
+                           b[:, split:].contiguous(), h1_last)
         case += f" split at {split}"
         pairs += [("chained h_all", torch.cat([h1, h2], dim=1), h),
                   ("chained h_last", h2_last, h_last)]
     for name, x, y in pairs:
         assert x.dtype == torch.float32 and x.shape == y.shape, case
-        torch.testing.assert_close(x, y, rtol=LRU_TOL, atol=LRU_TOL,
-                                   msg=lambda m: f"{case} {name}: {m}")
+        assert torch.equal(x, y), (
+            f"{case} {name}: max abs difference "
+            f"{float((x - y).abs().max())}")
     return (float((h - hr).abs().max()), float((h_last - hr_last).abs().max()))
+
+
+def check_rglru_scan_bitwise(B, S, W, seed=0, path=None):
+    """K4 through ``path`` bitwise over launches and a CUDA-graph replay
+    (``check_bitwise``)."""
+    a, b, h0 = rglru_scan_inputs(B, S, W, seed)
+    call = _rglru_call(path)
+    check_bitwise(lambda: call(a, b, h0), lru_ops.rglru_scan)
 
 
 def _grouped_gemm_inputs(E, M, K, N, dtype, seed, offset=False):

@@ -36,8 +36,9 @@ from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  check_forward_parity, check_grouped_gemm,
                                  check_grouped_gemm_bitwise,
                                  check_moe_ffn, check_rglru_scan,
+                                 check_rglru_scan_bitwise,
                                  check_ssm_scan, check_ssm_scan_bitwise,
-                                 layer_kernels,
+                                 layer_kernels, rglru_scan_inputs,
                                  serve_kernels, tally)
 from repro_torch.utils import tree_map  # noqa: E402
 
@@ -383,32 +384,47 @@ def test_decode_kernel_at_head_dim_256_around_the_ring_wrap(cuda, pos,
 
 
 # ------------------------------------------------------------------- K4 ----
-@pytest.mark.parametrize("B,S,W", [(2, 64, 32), (1, 96, 64)])
-def test_rglru_kernel_matches_plain_on_the_reference_grid(cuda, B, S, W):
-    check_rglru_scan(B, S, W)
+def _paths(shapes):
+    """Each shape through the wrapper's path (None) and each path forced
+    that takes it ("tma" only where W is a multiple of 4)."""
+    return [(*shape, path) for shape in shapes
+            for path in (None, *lru_ops.PATHS)
+            if path != "tma" or shape[2] % 4 == 0]
 
 
-@pytest.mark.parametrize("B,S,W,split", [(1, 40, 16, 17), (2, 300, 96, 64),
-                                         (2, 4096, 2560, 1000)])
-def test_rglru_kernel_chaining_property(cuda, B, S, W, split):
+@pytest.mark.parametrize("B,S,W,path", _paths([(2, 64, 32), (1, 96, 64)]))
+def test_rglru_kernel_matches_plain_on_the_reference_grid(cuda, B, S, W,
+                                                          path):
+    check_rglru_scan(B, S, W, path=path)
+
+
+@pytest.mark.parametrize("B,S,W,split,path", [
+    (*shape, path) for shape in [(1, 40, 16, 17), (2, 300, 96, 64),
+                                 (2, 4096, 2560, 1000)]
+    for path in (None, *lru_ops.PATHS)])
+def test_rglru_kernel_chaining_property(cuda, B, S, W, split, path):
     """Two launches, the second from the first's h_last, equal one."""
-    check_rglru_scan(B, S, W, split=split)
+    check_rglru_scan(B, S, W, split=split, path=path)
 
 
-@pytest.mark.parametrize("B,S,W", [(2, 4000, 2600), (3, 9, 33), (1, 1, 5),
-                                   (2, 65, 40)])
-def test_rglru_kernel_ragged(cuda, B, S, W):
-    """S not a multiple of the kernel's 64 steps in flight, W not a
-    multiple of its 32 channels a block."""
-    check_rglru_scan(B, S, W)
+@pytest.mark.parametrize("B,S,W,path", _paths([
+    (2, 4000, 2600), (8, 2000, 2600), (3, 9, 33), (1, 1, 5), (2, 65, 40),
+    (1, 1, 8)]))
+def test_rglru_kernel_ragged(cuda, B, S, W, path):
+    """S not a multiple of a stage's 32 steps on "tma" or of the 64 steps
+    in flight on "registers", W not a multiple of the 32 channels a block;
+    W = 33 and 5 take "registers", and so does (8, 2000, 2600) through the
+    wrapper (656 blocks, above two an SM), the others "tma"."""
+    check_rglru_scan(B, S, W, path=path)
 
 
+@pytest.mark.parametrize("path", [None, *lru_ops.PATHS])
 @pytest.mark.parametrize("B,S", [(2, 4096), (8, 2048)],
                          ids=["forward", "prefill"])
-def test_rglru_kernel_at_the_slice_shapes(cuda, B, S):
-    """recurrentgemma-2b's forward (B=2, S=4096) and serve prefill (B=8,
-    S=2048), W=2560."""
-    check_rglru_scan(B, S, 2560)
+def test_rglru_kernel_at_the_slice_shapes(cuda, B, S, path):
+    """recurrentgemma-2b's forward (B=2, S=4096: "tma") and serve prefill
+    (B=8, S=2048: "registers" through the wrapper), W=2560."""
+    check_rglru_scan(B, S, 2560, path=path)
 
 
 def test_rglru_kernel_is_deterministic_and_rounds_as_the_plain_version(
@@ -427,6 +443,29 @@ def test_rglru_kernel_is_deterministic_and_rounds_as_the_plain_version(
     assert torch.equal(h, hr) and torch.equal(last, last_r)
 
 
+@pytest.mark.parametrize("B,S,W,path", _paths([
+    (2, 4096, 2560), (8, 2048, 2560), (2, 65, 40)]))
+def test_rglru_kernel_is_bitwise_over_launches_and_a_graph_replay(
+        cuda, B, S, W, path):
+    """One launch a call, equal to the bit from launch to launch and in a
+    CUDA-graph replay (the TMA maps passed by value, the outputs the only
+    allocations)."""
+    check_rglru_scan_bitwise(B, S, W, path=path)
+
+
+@pytest.mark.parametrize("W", [2560, 5])
+def test_rglru_kernel_off_16_bytes_takes_the_register_path(cuda, W):
+    """a and b 4 bytes past a 16-byte boundary: the wrapper takes
+    "registers", still equal to the plain version to the bit; "tma"
+    forced raises."""
+    a, _, h0 = rglru_scan_inputs(2, 100, W, 0, offset=True)
+    assert lru_ops.choose_path(2, W, a.data_ptr(), a.data_ptr(),
+                               lru_ops.sm_count(cuda)) == "registers"
+    check_rglru_scan(2, 100, W, offset=True)
+    with pytest.raises(ValueError, match="cannot map"):
+        lru_ops._launch(a, a, h0, "tma")
+
+
 def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
     a = torch.zeros(1, 4, 8, device=cuda)
     with pytest.raises(ValueError, match="want h0"):
@@ -434,6 +473,9 @@ def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         lru_ops.rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2),
                            a, torch.zeros(1, 8, device=cuda))
+    a = torch.zeros(1, 4, 33, device=cuda)
+    with pytest.raises(ValueError, match="cannot map"):
+        lru_ops._launch(a, a, torch.zeros(1, 33, device=cuda), "tma")
 
 
 # ------------------------------------------------------------------- K5 ----

@@ -24,8 +24,18 @@
   kernel has (one lane a channel, four states a lane), in f32 and f64, against ``ssm_scan_ref`` and the JAX
   package's scan in interpret mode at SSM_TOL (1e-4); and the host's
   choice of the group (``ssm_scan.ops.lane_group``, ``plan``).
+- K4's two paths: the host predicate (``rglru_scan.ops.choose_path``:
+  "tma" where TMA maps a and b and the grid is thin, "registers"
+  elsewhere), its plan (the blocks cover every (batch row, channel) once,
+  host ints only, the ring the constants of ``csrc/rglru_scan.cu``), and
+  a plain-torch model of the "tma" kernel's staged walk (the plan's boxes
+  and stages, zero-filled past S and W, stores clipped there, h_last at
+  step S - 1, the ring's mbarrier phases) held against
+  ``rglru_scan_ref`` to the bit and against the JAX package's kernel in
+  interpret mode.
 """
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,6 +49,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.grouped_gemm import ops as gg_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.testing import BF16_NORM_REL, SSM_TOL, TOL  # noqa: E402
@@ -485,3 +496,210 @@ def test_ssm_plan_refuses_a_group_the_kernel_lacks():
         ssm_ops.plan(2, 64, 8, H100_SMS, 4)
     assert list(inspect.signature(ssm_ops.lane_group).parameters) == [
         "B", "Din", "N", "sms"]
+
+
+# ------------------------------------------ K4: the paths and the ring ----
+# recurrentgemma-2b's forward and serve prefill, ragged shapes
+LRU_SHAPES = [(2, 4096, 2560), (8, 2048, 2560), (2, 4000, 2600),
+              (8, 2000, 2600), (3, 9, 33), (2, 65, 40), (1, 1, 5)]
+
+
+@pytest.mark.parametrize("path", lru_ops.PATHS)
+@pytest.mark.parametrize("B,S,W", LRU_SHAPES)
+def test_rglru_plan_blocks_cover_every_channel_once(B, S, W, path):
+    """Block (x, y) of the grid takes batch row y and channels 32 x to
+    32 x + 31 below W: every (row, channel) in exactly one block, no
+    block wholly past W."""
+    p = lru_ops.plan(B, S, W, H100_SMS, path)
+    gx, gy = p["grid"]
+    C = p["channels_per_block"]
+    assert gy == B and p["blocks"] == gx * gy and (gx - 1) * C < W
+    seen = torch.zeros(B, W, dtype=torch.int64)
+    for y in range(gy):
+        for x in range(gx):
+            seen[y, x * C:min((x + 1) * C, W)] += 1
+    assert bool((seen == 1).all())
+
+
+def test_rglru_plan_takes_the_kernels_ring():
+    """The plan's ring is the one the kernel is built with (kSteps,
+    kStages in csrc/rglru_scan.cu), whatever the shape: the producer
+    issues only the stages S has."""
+    src = (Path(lru_ops.__file__).parents[2] / "csrc"
+           / "rglru_scan.cu").read_text()
+    assert f"constexpr int kSteps = {lru_ops.STEPS};" in src
+    assert f"constexpr int kStages = {lru_ops.STAGES};" in src
+    assert f"constexpr int kC = {lru_ops.CHANNELS};" in src
+    for B, S, W in LRU_SHAPES:
+        p = lru_ops.plan(B, S, W, H100_SMS, "tma")
+        assert (p["steps_per_stage"], p["stages"]) == (32, 5)
+
+
+@pytest.mark.parametrize("B,S,W,want", [
+    (2, 4096, 2560, "tma"),        # the forward: 160 blocks, one wave
+    (2, 4000, 2600, "tma"),        # 164 blocks
+    (8, 1024, 1056, "tma"),        # 264 blocks: two an SM
+    (8, 2048, 2560, "registers"),  # the prefill: 640 blocks
+    (8, 2000, 2600, "registers"),  # 656 blocks
+    (2, 65, 40, "tma"), (1, 1, 8, "tma"),
+    (3, 9, 33, "registers"), (1, 1, 5, "registers")])
+def test_rglru_plan_takes_tma_where_the_grid_is_thin(B, S, W, want):
+    """"tma" where TMA maps the shape and the grid holds at most two
+    blocks an SM; above it the register kernel's loads keep the card
+    busy."""
+    p = lru_ops.plan(B, S, W, H100_SMS)
+    assert p["path"] == want
+    assert lru_ops.choose_path(B, W, 0, 0, H100_SMS) == want
+    assert (p["blocks"] <= lru_ops.TMA_BLOCKS_PER_SM * H100_SMS
+            or want == "registers")
+
+
+def test_rglru_plan_depends_on_host_ints_only():
+    """Shapes and the SM count: the grid and ring are fixed for a shape,
+    so a graph can hold the launch."""
+    assert list(inspect.signature(lru_ops.plan).parameters)[:4] == [
+        "B", "S", "W", "sms"]
+    for path in (None, *lru_ops.PATHS):
+        assert all(lru_ops.plan(2, 4096, 2560, H100_SMS, path)
+                   == lru_ops.plan(2, 4096, 2560, H100_SMS, path)
+                   for _ in range(3))
+    assert list(inspect.signature(lru_ops.choose_path).parameters) == [
+        "B", "W", "a_ptr", "b_ptr", "sms"]
+
+
+def test_rglru_plan_refuses_what_the_kernel_lacks():
+    with pytest.raises(ValueError, match="no path"):
+        lru_ops.plan(2, 64, 32, H100_SMS, "chunked")
+
+
+@pytest.mark.parametrize("W,a_ptr,b_ptr,want", [
+    (2560, 0, 0, "tma"), (2600, 256, 512, "tma"), (40, 16, 48, "tma"),
+    (5, 0, 0, "registers"), (33, 0, 0, "registers"),
+    (2562, 0, 0, "registers"),             # a row of 10,248 bytes
+    (2560, 4, 0, "registers"),             # a 4 bytes past 16
+    (2560, 0, 4, "registers"), (2560, 8, 8, "registers")])
+def test_rglru_choose_path_by_width_and_alignment(W, a_ptr, b_ptr, want):
+    """At the forward's two batch rows, the width and the bases alone
+    decide."""
+    assert lru_ops.choose_path(2, W, a_ptr, b_ptr, H100_SMS) == want
+    assert lru_ops.tma_maps(W, a_ptr, b_ptr) is (want == "tma")
+
+
+def staged_walk_model(a, b, h0, p):
+    """The "tma" kernel's walk in plain torch, every block at once: a and
+    b cut into the plan's boxes (T steps x 32 channels, zeros past S and
+    W, as TMA fills them), each stage walked in time order with a
+    product and then a sum, h kept from step S - 1 (the kernel updates h
+    only for the stage's first n = min(T, S - t0) steps), each output box
+    stored with its rows past S and columns past W clipped. Returns
+    h_all, h_last and how often each element of h_all was written."""
+    Bsz, S, W = a.shape
+    C, T = p["channels_per_block"], p["steps_per_stage"]
+    gx, gy = p["grid"]
+    n_stages = -(-S // T)
+    boxes = []
+    for t in (a, b):
+        z = torch.zeros(gy, n_stages * T, gx * C, dtype=t.dtype)
+        z[:, :S, :W] = t
+        boxes.append(z)
+    h = torch.zeros(gy, gx * C, dtype=a.dtype)
+    h[:, :W] = h0
+    h_all = torch.full((Bsz, S, W), float("nan"), dtype=a.dtype)
+    written = torch.zeros(Bsz, S, W, dtype=torch.int64)
+    for it in range(n_stages):
+        t0 = it * T
+        n = min(T, S - t0)
+        out = torch.empty(gy, T, gx * C, dtype=a.dtype)
+        for i in range(T):
+            if i < n:
+                h = boxes[0][:, t0 + i] * h + boxes[1][:, t0 + i]
+            out[:, i] = h
+        for x in range(gx):           # one TMA store a block, clipped
+            cols = slice(x * C, min((x + 1) * C, W))
+            h_all[:, t0:t0 + n, cols] = out[:, :n, cols]
+            written[:, t0:t0 + n, cols] += 1
+    return h_all, h[:, :W].clone(), written
+
+
+def _lru_inputs(B, S, W, seed=0):
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, W))))
+    return [torch.from_numpy(x.astype(np.float32)) for x in (
+        a, rng.standard_normal((B, S, W)), rng.standard_normal((B, W)))]
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 4000, 2600), (3, 9, 33),
+                                   (2, 65, 40), (2, 32, 40), (1, 1, 8)])
+def test_rglru_staged_walk_matches_plain_to_the_bit(B, S, W):
+    """The staged walk equals ``rglru_scan_ref`` to the bit: S off the
+    stage (or one stage exactly, or a single step), W off the block, every
+    element of h_all written once, h_last from step S - 1 (never from a
+    zero-filled step past it)."""
+    args = _lru_inputs(B, S, W, seed=S)
+    p = lru_ops.plan(B, S, W, H100_SMS, "tma")
+    h, h_last, written = staged_walk_model(*args, p)
+    hr, hr_last = rglru_scan_ref(*args)
+    assert bool((written == 1).all())
+    assert torch.equal(h, hr) and torch.equal(h_last, hr_last)
+
+
+def test_rglru_staged_walk_matches_the_reference_kernel():
+    """The staged walk against the JAX package's RG-LRU kernel run in
+    interpret mode (as tests/test_torch_rglru.py runs it), at the
+    reference's f32 tolerance of 1e-5."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.rglru_scan import ops as jlru_ops
+    args = _lru_inputs(2, 65, 40, seed=3)
+    h, h_last, _ = staged_walk_model(
+        *args, lru_ops.plan(2, 65, 40, H100_SMS, "tma"))
+    jh, jh_last = jlru_ops.rglru_scan(*(jnp.asarray(x.numpy())
+                                        for x in args),
+                                      block_w=8, chunk=13, interpret=True)
+    for got, want in ((h, jh), (h_last, jh_last)):
+        torch.testing.assert_close(got, torch.from_numpy(np.array(want)),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def ring_model(n_stages, stages):
+    """The "tma" kernel's ring as the producer and the consumer drive its
+    mbarriers: stage it goes to slot it % stages; the producer waits on
+    the slot's empty barrier for parity (it / stages - 1) & 1 before a
+    reuse, the consumer on its full barrier for parity (it / stages) & 1.
+    A wait for parity p names one phase unambiguously only where the
+    barrier has completed exactly that phase and no later one, which the
+    model asserts at every wait. Runs the producer as far ahead as the
+    ring lets it; returns the (stage, slot) pairs the consumer reads, in
+    order."""
+    full = [0] * stages        # completed phases of each barrier
+    empty = [0] * stages
+    loaded = {}                # slot -> stage its box holds
+    read, issued = [], 0
+    for it in range(n_stages):
+        while issued < n_stages:
+            s = issued % stages
+            if issued >= stages:
+                k = issued // stages - 1
+                if empty[s] <= k:                  # release k not yet done
+                    break
+                assert empty[s] == k + 1
+            loaded[s] = issued
+            full[s] += 1
+            issued += 1
+        s = it % stages
+        assert full[s] == it // stages + 1
+        read.append((loaded[s], s))
+        empty[s] += 1                              # the consumer's release
+    return read
+
+
+@pytest.mark.parametrize("n_stages,stages", [
+    (1, lru_ops.STAGES), (3, lru_ops.STAGES), (5, lru_ops.STAGES),
+    (64, lru_ops.STAGES), (128, lru_ops.STAGES), (127, lru_ops.STAGES)])
+def test_rglru_ring_hands_each_stage_to_the_consumer_once_in_order(
+        n_stages, stages):
+    """Every stage reaches the consumer once, in time order, from its
+    slot, and the producer never refills a slot before its reader let it
+    go (the model stalls it, and the parities the kernel waits for
+    name the phases that have completed)."""
+    assert ring_model(n_stages, stages) == [
+        (it, it % stages) for it in range(n_stages)]

@@ -1,5 +1,5 @@
-"""Time K3 (selective scan) and K5 (grouped expert GEMM) of one or two
-checkouts of the port on one NVIDIA card, in turns.
+"""Time K3 (selective scan), K4 (RG-LRU scan) and K5 (grouped expert
+GEMM) of one or two checkouts of the port on one NVIDIA card, in turns.
 
   python3 tools/kernel_ab.py                      # this checkout only
   python3 tools/kernel_ab.py --parent DIR         # DIR, this, this, DIR
@@ -16,7 +16,12 @@ between two synchronises, host clock; the least and the median of five
 passes). Where the checkout's K5 has a
 ``_launch`` that forces a kernel, each bf16 path is also checked against
 the plain version and timed at each shape; where its K3 has one that
-forces the lane group, each group is timed at both K3 shapes. The turns
+forces the lane group, each group is timed at both K3 shapes. K4 is
+timed at recurrentgemma-2b's forward (B 2, S 4096) and prefill (B 8,
+S 2048) shapes (W 2560, f32); where the checkout's K4 has a ``_launch``
+that forces a kernel, each path is timed too, and checked equal to the
+wrapper's output, and the wrapper's host time a call at the forward
+shape; beside it a device copy of a (two thirds of K4's bytes). The turns
 of this checkout also time ``tools/k3_floor.cu``, K3's step arithmetic
 alone (inputs made in registers, nothing loaded), four states a thread
 over every state and step of both shapes: the floor of K3's instruction
@@ -39,6 +44,8 @@ E, D, F = 128, 2048, 768                 # qwen3-moe-30b-a3b's experts
 CAPACITIES = {"forward": 640, "prefill": 1280, "decode": 8}
 SSM = {"forward": (2, 4096), "prefill": (8, 2048)}
 DIN, N_STATE, DT_RANK = 8192, 16, 256    # falcon-mamba-7b
+LRU = {"forward": (2, 4096), "prefill": (8, 2048)}
+LRU_W = 2560                             # recurrentgemma-2b's lru_width
 
 
 def events_ms(torch, fn, n_args, reps):
@@ -54,6 +61,60 @@ def events_ms(torch, fn, n_args, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * n_args)
+
+
+def host_us(torch, fn, calls=200, repeats=5) -> dict:
+    """Host time a call of fn(): ``calls`` calls enqueued between two
+    synchronises, host clock, after a warm-up; the least and the median
+    of ``repeats`` such passes."""
+    for _ in range(20):
+        fn()
+    passes = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        passes.append((time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {"min": min(passes), "median": statistics.median(passes)}
+
+
+def k4(torch, g) -> dict:
+    """K4 of the imported checkout at both shapes (see the module's
+    docstring)."""
+    from repro_torch.kernels import sm_count
+    from repro_torch.kernels.rglru_scan import ops as lru
+
+    rec = {"paths": hasattr(lru, "_launch")}
+    for name, (B, S) in LRU.items():
+        sets = [(torch.rand(B, S, LRU_W, generator=g, device="cuda"),
+                 torch.randn(B, S, LRU_W, generator=g, device="cuda"),
+                 torch.randn(B, LRU_W, generator=g, device="cuda"))
+                for _ in range(2)]
+        row = {"ms": events_ms(torch, lambda i: lru.rglru_scan(*sets[i]), 2,
+                               10)}
+        row["ms_repeat"] = events_ms(
+            torch, lambda i: lru.rglru_scan(*sets[i]), 2, 10)
+        dst = torch.empty_like(sets[0][0])     # a device copy of a: the
+        row["copy_ms"] = events_ms(            # card's streaming rate
+            torch, lambda i: dst.copy_(sets[i][0]), 2, 10)
+        if rec["paths"]:
+            sms = sm_count(torch.device("cuda"))
+            row["plan"] = lru.plan(B, S, LRU_W, sms)
+            want = lru.rglru_scan(*sets[0])
+            for p in lru.PATHS:
+                got = lru._launch(*sets[0], p)
+                row[f"{p}_equal"] = all(torch.equal(x, y)
+                                        for x, y in zip(got, want))
+                row[f"{p}_ms"] = events_ms(
+                    torch, lambda i: lru._launch(*sets[i], p), 2, 10)
+            if name == "forward":
+                row["host_us_per_call"] = host_us(
+                    torch, lambda: lru.rglru_scan(*sets[0]))
+        rec[name] = row
+        del sets
+    return rec
 
 
 def k3_floor(torch, build) -> dict:
@@ -93,7 +154,7 @@ def measure(tree: Path) -> dict:
     from repro_torch.kernels.ssm_scan import ops as ssm
 
     assert torch.cuda.is_available(), "no CUDA device"
-    logs = _build.build("grouped_gemm", "ssm_scan")
+    logs = _build.build("grouped_gemm", "ssm_scan", "rglru_scan")
     ptxas = [ln.strip() for text in logs.values() for ln in text.splitlines()
              if "Used" in ln or "spill" in ln or "wgmma" in ln.lower()
              or "Compiling entry" in ln]
@@ -131,22 +192,9 @@ def measure(tree: Path) -> dict:
                         row[f"{p}_ms"] = events_ms(
                             torch, lambda i: gg._launch(*sets[i], p), 2, 10)
                 if name == "decode":
-                    # host time a call: 200 calls between two synchronises,
-                    # the least and the median of five passes
-                    x, w = sets[0]
-                    for _ in range(20):
-                        gg.grouped_gemm(x, w)
-                    passes = []
-                    for _ in range(5):
-                        torch.cuda.synchronize()
-                        t = time.perf_counter()
-                        for _ in range(200):
-                            gg.grouped_gemm(x, w)
-                        passes.append((time.perf_counter() - t) / 200 * 1e6)
-                    torch.cuda.synchronize()
-                    row["host_us_per_call"] = min(passes)
-                    row["host_us_per_call_median"] = statistics.median(
-                        passes)
+                    host = host_us(torch, lambda: gg.grouped_gemm(*sets[0]))
+                    row["host_us_per_call"] = host["min"]
+                    row["host_us_per_call_median"] = host["median"]
                 rec["k5"][f"{name}_{prod}"] = row
                 del sets
         for name, (B, S) in SSM.items():
@@ -174,6 +222,7 @@ def measure(tree: Path) -> dict:
                     rec["k3"][name][f"group_{G}_ms"] = events_ms(
                         torch, lambda i: ssm._launch(*sets[i], G), 2, 5)
             del sets
+        rec["k4"] = k4(torch, g)
     if tree == ROOT:
         rec["k3_floor_ms"] = k3_floor(torch, tree / "build" / "kernels")
     rec["device"] = torch.cuda.get_device_name(0)
@@ -212,8 +261,9 @@ def main() -> int:
     for rec in turns:
         k5 = ", ".join(f"{k} {v['ms']:.4f}" for k, v in rec["k5"].items())
         k3 = ", ".join(f"{k} {v['ms']:.4f}" for k, v in rec["k3"].items())
+        k4 = ", ".join(f"{k} {rec['k4'][k]['ms']:.4f}" for k in LRU)
         host = rec["k5"]["decode_gate_up"]["host_us_per_call"]   # least
-        print(f"{rec['turn']}: K5 ms {k5}; K3 ms {k3}; K5 host "
+        print(f"{rec['turn']}: K5 ms {k5}; K3 ms {k3}; K4 ms {k4}; K5 host "
               f"{host:.2f} us a call; K3 floor "
               f"{rec.get('k3_floor_ms')}", flush=True)
     out = ROOT / "chiprun_out"
