@@ -24,14 +24,20 @@ and after it each count must read what that path launches. Phases:
   3. serve   — the port's serve() on the full glm4-9b config (40 layers,
                bf16, random weights from a seed drawn on the card, kept
                for phases 7 and 8): batch 8, prompt 2048, 64 generated
-               tokens, windows of 8. The K2 launch count is set to 0 just
-               before and must read exactly 40 x 63 after; every decode
+               tokens, windows of 8, twice on the same weights: with the
+               eager engine (graph=False), then with every window one
+               CUDA-graph replay (seven full windows and the tail of 7,
+               both lengths captured before the first window). Each run's
+               K2 launch count is set to 0 just before and must read
+               exactly 40 x 63 after (replays counted); every decode
                window's dispatch runs under CUDA sync-debug mode "error",
-               so a host sync inside a window fails the run. The decode is
-               traced with torch.profiler (device activity only) from
-               window 3 to its end: device busy time, span and idle share,
-               device operations per step, and the kernels that take the
-               most device time;
+               so a host sync inside a window fails the run. The two runs
+               must agree to the bit: tokens, every drained FIFO row and
+               CSR, the final KV cache. Each decode is traced with
+               torch.profiler (device activity only) from window 3 to its
+               end: device busy time, span and idle share, device
+               operations per step, and the kernels that take the most
+               device time. Phases 12, 20 and 29 serve the same way;
   4. parity  — the glm4-9b and granite-8b smoke configs in f32 through
                serve() on the card (kernel) and on the host (plain), from
                the same weights: the greedy tokens must be equal;
@@ -205,6 +211,33 @@ of moe_d_ff 768, vocab 151936, untied; 61.06 GB of bf16 weights):
                hd=128, W=2120, pos 2100) over 48 cache sets, timed as in
                phase 5.
 
+The train phases run last, after qwen3-moe-30b-a3b's weights are freed:
+
+ 36. train   — glm4-9b at full width, 8 of its 40 layers (2.873e9
+               parameters, 34.48 GB of bf16 params and gradients and
+               f32 moments; all 40 would take 112.8 GB), on the
+               reference's train path (attention_impl "xla"), B=2,
+               S=1024, the commit, coverage and router taps, windows
+               of 4, AdamW peaking at 3e-5 after 10 warmup steps, 8
+               steps, under deterministic mode: per
+               step through PShell.run, then from a fresh draw of the same
+               seed through PShell.run_grouped of make_group_step (the
+               first window run eagerly, then captured; the second one
+               CUDA-graph replay), then with the shell off. The grouped
+               run's state (params, m, v, count, step), every step's
+               metrics and every drained record equal the per-step run's
+               to the bit (kept on the host); the shell-off params too;
+               one commit row a layer a step, none dropped; no port kernel
+               launched; the loss lower at the end than at the start.
+               Peak memory and wall time of each run, and one window
+               timed with CUDA events as a replay and run eagerly;
+ 37. train parity — one make_group_step window (3 steps) of the glm4-9b,
+               falcon-mamba-7b, recurrentgemma-2b and qwen3-moe-30b-a3b
+               smoke configs in f32 on the card and on the host from the
+               same state: losses and gradient norms within 1e-4, every
+               parameter within 3 x the window's summed learning rates
+               (``testing.check_train_parity``).
+
 K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
 head_dim 256 numbers under "hd256", K2 its qwen3 numbers under "qwen3".
 The last line is {"ok": true,
@@ -216,6 +249,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -224,6 +258,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# a fixed cuBLAS workspace, set before CUDA initialises: a CUDA-graph
+# capture (on a side stream) then picks the same algorithms as the eager
+# run, and deterministic mode (the train phase) allows cuBLAS
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -255,6 +293,17 @@ HYB_SCALE_DOWN_LAYERS = (0, 14, 25)
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_SCALE_DOWN_LAYERS = (0, 24, 47)
 MOE_CAPACITIES = {"forward": 640, "prefill": 1280, "decode": 8}
+# the train cell: glm4-9b at full width, 8 of its 40 layers (2.873e9
+# parameters; 12 B a parameter, bf16 params and gradients and f32
+# moments, is 34.48 GB, where all 40 layers would take 112.8 GB), B=2,
+# S=1024, windows of 4, 8 steps
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_INTERVAL, TRAIN_STEPS = 2, 1024, 4, 8
+# AdamW's peak rate, reached after 10 warmup steps. At the reference's
+# default 3e-4 this width's loss rose after the first step (12.41, 10.76,
+# 13.10, ..., 15.84 over 8 steps, H100); at 3e-5 it falls at every step
+TRAIN_LR = 3e-5
+TRAIN_TAPS = frozenset({"commits", "coverage", "router"})
 
 
 def ptxas_info(text):
@@ -301,14 +350,8 @@ def ptxas_info(text):
 
 def kernel_ops():
     """The kernels' wrappers, each carrying its launch count."""
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.grouped_gemm import ops as gg_ops
-    from repro_torch.kernels.rglru_scan import ops as lru_ops
-    from repro_torch.kernels.ssm_scan import ops as ssm_ops
-    return {"k1": fa_ops.flash_attention, "k2": da_ops.decode_attention,
-            "k3": ssm_ops.ssm_scan, "k4": lru_ops.rglru_scan,
-            "k5": gg_ops.grouped_gemm}
+    from repro_torch.core.graphs import counted_kernels
+    return counted_kernels()
 
 
 def reset_counts():
@@ -531,26 +574,20 @@ def scale_down_phase(cfg, params, model, batch, layers):
             "scanned_vs_unrolled_launches": got}
 
 
-def serve_phase(cfg, params):
-    """serve() on ``cfg`` at the serve cell with ``params``, every decode
-    window under sync-debug mode "error" and the decode traced from window
-    TRACED on. All launch counts are set to 0 just before. When the first
-    window starts, the prefill must have launched K3 or K4 once per mamba
-    or RG-LRU layer and K5 three times per MoE layer, and nothing else
-    (its attention is plain, as in the reference); at the end K2 must have
-    run once per attention layer and K5 three times per MoE layer per
-    decode step besides (``testing.serve_kernels``). Returns the serve
-    record and the trace."""
+def _serve_run(cfg, params, graph):
+    """serve() at the serve cell, traced from window TRACED on; all launch
+    counts set to 0 just before. Returns (serve record, timer, launch
+    counts, peak memory, trace)."""
     import torch
 
     from repro_torch.launch.serve import serve
-    from repro_torch.testing import serve_kernels
 
     timer = tracing_timer(TRACED)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out = serve(cfg, BATCH, PROMPT, GEN, seed=0, sample_interval=INTERVAL,
-                device="cuda", params=params, timer=timer)
+                device="cuda", params=params, timer=timer, graph=graph,
+                return_cache=True)
     got = counts()
     peak = torch.cuda.max_memory_allocated()
     t = time.perf_counter()
@@ -558,26 +595,67 @@ def serve_phase(cfg, params):
     stop_s = time.perf_counter() - t
     trace = device_trace(timer.prof, GEN - 1 - TRACED * INTERVAL)
     trace.update(windows=f"{TRACED}-end", profiler_stop_s=stop_s)
+    return out, timer, got, peak, trace
+
+
+def serve_phase(cfg, params):
+    """serve() on ``cfg`` at the serve cell with ``params``, twice: with
+    the eager engine (``graph=False``), then with every decode window one
+    CUDA-graph replay (the full window and the tail captured before the
+    first window, after a one-step warm-up on clones), each window under
+    sync-debug mode "error" and each decode traced from window TRACED
+    on. All launch counts are set to 0 just before each run. When the
+    first window starts, the prefill must have launched K3 or K4 once per
+    mamba or RG-LRU layer and K5 three times per MoE layer, and nothing
+    else (its attention is plain, as in the reference); at the end K2
+    must have run once per attention layer and K5 three times per MoE
+    layer per decode step besides (``testing.serve_kernels``), counted as
+    replays in the graph run. The two runs must agree to the bit (tokens,
+    every drained FIFO row and CSR, the final cache). Returns the graph
+    run's record (the eager run's under "eager") and its trace (the
+    eager one under "eager")."""
+    from repro_torch.testing import assert_serve_equal, serve_kernels
+
     steps = GEN - 1
     n_windows = -(-steps // INTERVAL)
-    toks = out["tokens"]
     prefill_counts, total_counts = serve_kernels(cfg, steps)
-    expect_counts(timer.counts_at_decode, prefill_counts, "serve prefill")
-    expect_counts(got, total_counts, "serve")
-    assert out["decode_fifo_rows"] == steps, out["decode_fifo_rows"]
-    assert len(out["drained"]) == n_windows == timer.windows, \
-        (len(out["drained"]), timer.windows)
-    assert [d["tokens_csr"] for d in out["drained"]][-1] == BATCH * steps
-    assert len(toks) == BATCH and all(len(r) == GEN for r in toks)
-    assert all(0 <= t < cfg.vocab_size for r in toks for t in r)
-    assert not out["hung"]
-    rec = {k: out[k] for k in ("prefill_s", "decode_s", "decode_tok_per_s",
-                               "decode_window_ms", "decode_fifo_rows",
-                               "generated")}
-    rec.update(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN,
-               sample_interval=INTERVAL, layers=cfg.num_layers,
-               launches=got, launches_in_prefill=timer.counts_at_decode,
-               windows=n_windows, max_memory_allocated=peak)
+    runs = {}
+    for engine in ("eager", "graph"):
+        out, timer, got, peak, trace = _serve_run(cfg, params,
+                                                  engine == "graph")
+        toks = out["tokens"]
+        expect_counts(timer.counts_at_decode, prefill_counts,
+                      f"serve prefill ({engine})")
+        expect_counts(got, total_counts, f"serve ({engine})")
+        assert out["engine"] == engine, out["engine"]
+        assert out["windows_by_engine"] == {
+            "graph": n_windows if engine == "graph" else 0,
+            "eager": 0 if engine == "graph" else n_windows}, \
+            out["windows_by_engine"]
+        assert out["decode_fifo_rows"] == steps, out["decode_fifo_rows"]
+        assert len(out["drained"]) == n_windows == timer.windows, \
+            (len(out["drained"]), timer.windows)
+        assert [d["tokens_csr"] for d in out["drained"]][-1] \
+            == BATCH * steps
+        assert len(toks) == BATCH and all(len(r) == GEN for r in toks)
+        assert all(0 <= t < cfg.vocab_size for r in toks for t in r)
+        assert not out["hung"]
+        rec = {k: out[k] for k in ("prefill_s", "decode_s",
+                                   "decode_tok_per_s", "decode_window_ms",
+                                   "decode_fifo_rows", "generated",
+                                   "engine", "windows_by_engine",
+                                   "capture_s")}
+        rec.update(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                   sample_interval=INTERVAL, layers=cfg.num_layers,
+                   launches=got, launches_in_prefill=timer.counts_at_decode,
+                   windows=n_windows, max_memory_allocated=peak)
+        runs[engine] = (out, rec, trace)
+    assert_serve_equal(runs["graph"][0], runs["eager"][0],
+                       f"{cfg.name} serve, graph vs eager")
+    rec, trace = runs["graph"][1], runs["graph"][2]
+    rec["eager"] = runs["eager"][1]
+    rec["bitwise_vs_eager"] = True
+    trace["eager"] = runs["eager"][2]
     return rec, trace
 
 
@@ -1097,6 +1175,125 @@ def k5_time(E, M, K, N, seed, paths=()):
             "library_max_abs_err": lib_err, "library_call": "torch.bmm"}
 
 
+def train_phase():
+    """glm4-9b at full width, TRAIN_LAYERS of its layers, on the "xla"
+    path (the reference's train path), under deterministic mode: 8 steps
+    through PShell.run (one dispatch a step, serial drains), then from a
+    fresh draw of the same seed through PShell.run_grouped of
+    make_group_step (the first window run eagerly, then captured; the
+    second one CUDA-graph replay), then run_grouped with the shell off.
+    Gates: the grouped run's whole state (params, m, v, count, step),
+    every step's metrics and every drained record (commit rows, counts,
+    dropped credits, CSRs) equal to the per-step run's to the bit, kept
+    on the host; the shell-off params equal too; one commit row a layer a
+    step, none dropped; no kernel of the port launched (the train path is
+    plain, as in the reference); the loss lower after 8 steps than at the
+    first. Then times, with CUDA events after one warm-up call each, a
+    graph replay of a window and an eager run of the same window (4
+    steps each, state advancing).
+    Returns the record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import Runtime
+    from repro_torch.testing import (assert_records_equal,
+                                     assert_trees_equal, deterministic,
+                                     train_run)
+    from repro_torch.train import OptConfig
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    rt = Runtime(attention_impl="xla", taps=TRAIN_TAPS)
+    kw = dict(opt_cfg=OptConfig(lr=TRAIN_LR, warmup_steps=10))
+    fn = make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    batches = [fn(i) for i in range(TRAIN_STEPS)]
+    rec: dict = {"arch": cfg.name, "layers": TRAIN_LAYERS,
+                 "of_layers": get_config(ARCH).num_layers,
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                 "sample_interval": TRAIN_INTERVAL, "steps": TRAIN_STEPS,
+                 "lr": TRAIN_LR, "warmup_steps": 10}
+    with deterministic():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        a = train_run(cfg, rt, batches, TRAIN_INTERVAL, grouped=False,
+                      **kw)
+        expect_counts(counts(), {}, "train per step")
+        rec["params"] = sum(t.numel() for t in
+                            tree_leaves(a["state"]["params"]))
+        rec["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(a["state"]))
+        rec["per_step"] = {"seconds": a["seconds"],
+                           "s_per_step": a["seconds"] / TRAIN_STEPS,
+                           "max_memory_allocated":
+                               torch.cuda.max_memory_allocated()}
+        host = tree_map(lambda t: t.cpu(), a["state"])
+        recs_a = a["records"]
+        del a
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        b = train_run(cfg, rt, batches, TRAIN_INTERVAL, **kw)
+        expect_counts(counts(), {}, "train grouped")
+        assert b["windows"] == {"graph": 1, "eager": 1}, b["windows"]
+        assert_trees_equal(host, b["state"], "train state, fused vs "
+                           "per step")
+        assert_records_equal(recs_a, b["records"], "train records, fused "
+                             "vs per step")
+        rec["grouped"] = {"seconds": b["seconds"],
+                          "s_per_step": b["seconds"] / TRAIN_STEPS,
+                          "windows": b["windows"],
+                          "capture_s": b["engine"].capture_s,
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated()}
+        # window timing on the card, state advancing: one replay of the
+        # captured window, then the same window run eagerly
+        graphs = b["engine"]
+        window = graphs.graphs[TRAIN_INTERVAL]
+        replay_ms = time_ms(torch, lambda i: window.graph.replay(), 1, 2)
+        state, shell_in, xs_in = window.state_in, window.shell_in, \
+            window.xs_in
+        graphs.graphs.clear()
+        del window, b
+        torch.cuda.empty_cache()
+        eager_ms = time_ms(
+            torch, lambda i: graphs.engine(state, shell_in, xs_in), 1, 1)
+        rec["window_ms"] = {"graph_replay": replay_ms, "eager": eager_ms,
+                            "graph_ms_per_step": replay_ms / TRAIN_INTERVAL,
+                            "eager_ms_per_step": eager_ms / TRAIN_INTERVAL}
+        del graphs, state, shell_in, xs_in
+        torch.cuda.empty_cache()
+        c = train_run(cfg, rt, batches, TRAIN_INTERVAL, shell=False, **kw)
+        assert_trees_equal(host["params"], c["state"]["params"],
+                           "train params, shell off vs on")
+        del c
+        torch.cuda.empty_cache()
+    losses = np.concatenate([r["metrics"]["loss"] for _, r in recs_a])
+    commits = [r["fifos"]["commits"] for _, r in recs_a]
+    assert all(f["count"] == TRAIN_INTERVAL * TRAIN_LAYERS
+               and f["dropped"] == 0 for f in commits), commits
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    rec.update(losses=losses.tolist(),
+               grad_norms=np.concatenate(
+                   [r["metrics"]["grad_norm"] for _, r in recs_a]).tolist(),
+               commit_rows=[f["count"] for f in commits],
+               dropped=[f["dropped"] for f in commits],
+               bitwise_fused_vs_per_step=True, bitwise_shell_off=True)
+    return rec
+
+
+def train_parity_phase():
+    """One make_group_step window (3 steps) of each family's smoke config
+    in f32, on the card and on the host from the same state
+    (``testing.check_train_parity``). Returns the errors per arch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.testing import check_train_parity
+    return {arch: check_train_parity(dataclasses.replace(
+        get_smoke_config(arch), dtype="float32"))
+        for arch in (ARCH, SSM_ARCH, HYB_ARCH, MOE_ARCH)}
+
+
 def host_us(torch, fn, calls=200, repeats=5):
     """A kernel wrapper's host time a call (its checks, the path choice,
     the outputs' allocation and the launch): ``calls`` calls of fn()
@@ -1576,6 +1773,16 @@ def main() -> int:
                   PROMPT + GEN + 8, mcfg.head_dim, 2100, mcfg.num_layers,
                   seed=7)}
     log(phase="k2_time_qwen3", **k2["qwen3"])
+
+    # ---------------------------------------------------------- 36. train --
+    train = train_phase()
+    log(phase="train", **train)
+    record["train"] = train
+
+    # --------------------------------------------------- 37. train parity --
+    train_par = train_parity_phase()
+    log(phase="train_parity", **train_par)
+    record["train_parity"] = train_par
 
     kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels

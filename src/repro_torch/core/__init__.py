@@ -1,10 +1,11 @@
-"""P-Shell, window scheduler, watchdog, commit stream, coverage and
-Scale-Down decomposition of the port."""
+"""P-Shell, window scheduler, CUDA-graph windows, watchdog, commit stream,
+coverage and Scale-Down decomposition of the port."""
 from repro_torch.core.pshell import (  # noqa: F401
-    FifoSpec, ShellConfig, shell_init, csr_write, csr_accum,
+    FifoSpec, ShellConfig, PShell, shell_init, csr_write, csr_accum,
     fifo_push, fifo_push_many, drain, group_reset, stack_batches)
 from repro_torch.core.schedule import (  # noqa: F401
     WindowScheduler, WindowPlan, DrainBarrier, plan_windows, iter_windows)
+from repro_torch.core.graphs import WindowGraphs  # noqa: F401
 from repro_torch.core.watchdog import Watchdog  # noqa: F401
 from repro_torch.core.commit import (  # noqa: F401
     default_shell_config, make_ingest)

@@ -14,16 +14,36 @@ writes a tensor it was given), so a window's output shell stays valid as
 a drain snapshot while the next window runs, and every count and index
 stays on the device: nothing here waits on the host.
 
-Invariant 3 of the reference holds: a drain resets FIFO occupancy but
-never the cumulative ``dropped`` credit counter.
+Clock-gating analogue: the device runs ``sample_interval`` steps between
+host drains. interval=1 == cycle-accurate co-emulation; larger intervals
+trade completeness for speed (the paper's gating-granularity knob).
+
+``PShell`` drives a step function through the core ``WindowScheduler``:
+``run`` dispatches one step at a time and drains serially (the per-step
+baseline); ``run_grouped`` runs each clock-gated window as ONE dispatch
+of a group step (``train.step.make_group_step``) — on the card one
+CUDA-graph replay (``core/graphs.py``) — with the drain of window *i*
+overlapped with window *i+1* through the double-buffered shell.
+
+Non-interference invariants (the tests assert all three):
+  1. Shell state is threaded BESIDE the model state and never feeds back
+     into it: the model state is bit-identical with the shell enabled,
+     disabled, and at any interval.
+  2. Grouped execution is bit-identical to per-step execution: final
+     model/optimizer state AND the drained records (FIFO payload order,
+     counts, cumulative dropped credits, CSR values).
+  3. A drain resets FIFO occupancy but never the cumulative ``dropped``
+     credit counter: overflow accounting is exact across windows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.utils import resolve_device, tree_clone, tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +173,120 @@ def drain(state):
                           "dropped": f["dropped"]}
     csrs = {k: v.cpu().numpy() for k, v in state["csr"].items()}
     return {"fifos": records, "csrs": csrs}, {**state, "fifo": new_fifo}
+
+
+# ------------------------------------------------------------------ shell ---
+class PShell:
+    """Wraps a step function with shell-state threading and runs the
+    host-side drain loop at the configured gating granularity."""
+
+    def __init__(self, cfg: ShellConfig,
+                 ingest: Callable[[Any, Any, Any], Any]):
+        self.cfg = cfg
+        self.ingest = ingest
+        self._compiled: Dict[Any, Callable] = {}
+
+    def init(self, device=None):
+        """A zeroed shell on ``device`` (``cuda`` unless named)."""
+        return shell_init(self.cfg, resolve_device(device))
+
+    def _init_like(self, state):
+        return self.init(tree_leaves(state)[0].device)
+
+    def wrap(self, step_fn):
+        """step_fn(state, batch) -> (state, metrics, aux)  ==>
+        wrapped(state, batch, shell) -> (state, metrics, shell)."""
+        ingest = self.ingest
+
+        def wrapped(state, batch, shell):
+            state, metrics, aux = step_fn(state, batch)
+            shell = ingest(shell, aux, metrics)
+            return state, metrics, shell
+
+        return wrapped
+
+    def scheduler(self, overlap: bool = True, timer=None,
+                  stacked: bool = True):
+        """The core WindowScheduler configured for this shell: P-Shell
+        drain, device-side ``group_reset`` double-buffering when
+        overlapping, windows of ``sample_interval`` steps.
+        ``stacked=False`` hands engines the raw per-step batch list."""
+        from repro_torch.core.schedule import WindowScheduler
+        return WindowScheduler(
+            interval=max(1, self.cfg.sample_interval), overlap=overlap,
+            reset=group_reset if overlap else None, drain_fn=drain,
+            stack_fn=stack_batches if stacked else None, timer=timer)
+
+    def run(self, wrapped_step, state, batches, shell=None,
+            on_drain: Optional[Callable[[int, dict], None]] = None):
+        """Per-step baseline: one dispatch per step, serial drain every
+        ``sample_interval`` steps (tail window included), through the
+        core WindowScheduler. Returns (state, last_metrics, shell)."""
+        shell = self._init_like(state) if shell is None else shell
+        sched = self.scheduler(overlap=False, stacked=False)
+
+        def engine(state, sh, batches):
+            metrics = None
+            for batch in batches:
+                state, metrics, sh = wrapped_step(state, batch, sh)
+            return state, sh, metrics
+
+        def emit(plan, records, ys):
+            if on_drain is not None:
+                on_drain(plan.last, records)
+
+        return sched.run(engine, sched.windows(batches), state, shell,
+                         on_drain=emit)
+
+    def compile_group(self, group_step, donate: bool = True, device=None):
+        """The group step as the engine of one dispatch a window, cached
+        per (function object, donation, device type). On a card: a
+        ``WindowGraphs`` that captures the first window of each length
+        after running it eagerly (a train state is too large to clone) and
+        replays one CUDA graph a window after that. On host tensors: the
+        group step itself. ``donate=False`` clones the incoming state
+        first, so the caller's state survives (the reference's
+        non-donating dispatch).
+
+        The cache is keyed on the function OBJECT (kept alive by the key),
+        never on ``id()``: a recycled id would silently hand a different
+        step function a stale compiled group."""
+        device = resolve_device(device)
+        key = (group_step, donate, device.type)
+        if key not in self._compiled:
+            engine = group_step
+            if not donate:
+                def engine(state, shell, xs, _fn=group_step):
+                    return _fn(tree_clone(state), shell, xs)
+            if device.type == "cuda":
+                from repro_torch.core.graphs import WindowGraphs
+                engine = WindowGraphs(engine, warmup="eager")
+            self._compiled[key] = engine
+        return self._compiled[key]
+
+    def run_grouped(self, group_step, state, batches, shell=None,
+                    on_drain: Optional[Callable[[int, dict], None]] = None,
+                    donate: bool = True):
+        """Fused host loop: ONE dispatch per clock-gated window (on a card
+        one CUDA-graph replay), scheduled by the core WindowScheduler in
+        overlap mode: the window's batches are stacked and dispatched, the
+        next window's shell derived on the device (``group_reset``), and
+        only then is the PREVIOUS window's snapshot drained on the host.
+
+        Returns (state, last_metrics_stack, shell). ``on_drain(i, records)``
+        fires with i = the last step index of the drained window, matching
+        ``run``'s cadence; records also carry the window's stacked per-step
+        metrics under "metrics" (numpy)."""
+        shell = self._init_like(state) if shell is None else shell
+        engine = self.compile_group(group_step, donate=donate,
+                                    device=tree_leaves(state)[0].device)
+        sched = self.scheduler(overlap=True)
+
+        def emit(plan, records, metrics):
+            if on_drain is not None:
+                records["metrics"] = {k: v.cpu().numpy()
+                                      for k, v in metrics.items()}
+                on_drain(plan.last, records)
+
+        return sched.run(engine, sched.windows(batches), state, shell,
+                         on_drain=emit)

@@ -534,9 +534,11 @@ int launch_hd(const void* q, const void* k, const void* v, const void* pos,
               int n_split, float scale, float softcap, cudaStream_t stream) {
   constexpr int bytes = Smem<T, HD>::bytes;
   // more than 48 KB of dynamic shared memory, and clusters of more than
-  // the 8 blocks every card takes, only when opted in, once
-  static bool opted = false;
-  if (!opted) {
+  // the 8 blocks every card takes, only when opted in, once a device
+  static bool opted[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return -1;
+  if (!opted[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         decode_attention_kernel<T, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -545,7 +547,7 @@ int launch_hd(const void* q, const void* k, const void* v, const void* pos,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted = true;
+    opted[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, B * K, 1);

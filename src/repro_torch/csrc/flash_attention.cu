@@ -909,13 +909,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
       !encode_map(&k_map, k, B, T_len, K, HD, L::kBK) ||
       !encode_map(&v_map, v, B, T_len, K, HD, L::kBK))
     return -2;
-  static bool opted = false;
-  if (!opted) {
+  // more than 48 KB of dynamic shared memory only when opted in, once a
+  // device
+  static bool opted[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return -1;
+  if (!opted[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_attention_wgmma_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted = true;
+    opted[dev] = true;
   }
   const dim3 grid((S + kWgBQ - 1) / kWgBQ, H, B);
   flash_attention_wgmma_kernel<HD><<<grid, kWgThreads, L::bytes, stream>>>(

@@ -68,10 +68,13 @@
 //
 // Plain C interface, loaded with ctypes: ssm_scan_launch returns
 // cudaGetLastError() after the launch, or -1 for arguments it does not
-// take (the Python wrapper checks them first).
+// take (the Python wrapper checks them first) or a current device it
+// cannot read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"   // current_device, kMaxDevices
 
 namespace {
 
@@ -295,14 +298,17 @@ int launch(const float* dt, const float* A, const float* Bm, const float* Cm,
            int64_t b_batch, int64_t b_row, int64_t c_batch, int64_t c_row,
            cudaStream_t stream) {
   using P = Plan<N, G>;
-  // above 48 KB of dynamic shared memory only when opted in
-  static bool opted = false;
-  if (!opted) {
+  // above 48 KB of dynamic shared memory only when opted in, once a
+  // device
+  static bool opted[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return -1;
+  if (!opted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         ssm_scan_kernel<N, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)P::bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted = true;
+    opted[dev] = true;
   }
   const dim3 grid((Din + P::kChannels - 1) / P::kChannels, Bsz);
   ssm_scan_kernel<N, G><<<grid, kThreads, P::bytes, stream>>>(

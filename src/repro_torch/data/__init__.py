@@ -1,2 +1,3 @@
 """Data pipeline of the port (numpy only)."""
-from repro_torch.data.pipeline import make_batch_fn  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    SyntheticPipeline, make_batch_fn)

@@ -1,13 +1,17 @@
-"""Deterministic synthetic token stream (numpy only).
+"""Deterministic synthetic token stream (numpy only), with host prefetch.
 
 batch(step) is a pure function of (seed, step): the same seed gives the
 same prompts here as in the JAX package, so both sides serve identical
-requests. Tokens follow a Zipf-like distribution with induced bigram
-structure.
+requests and train on identical batches, and restarting at step k replays
+the identical stream. Tokens follow a Zipf-like distribution with induced
+bigram structure. ``SyntheticPipeline`` prepares batches on a bounded
+background thread while the device steps.
 """
 from __future__ import annotations
 
-from typing import Dict
+import queue
+import threading
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -52,3 +56,39 @@ def make_batch_fn(cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
 
     return fn
+
+
+class SyntheticPipeline:
+    """Bounded-queue prefetching iterator over make_batch_fn."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, seq: int,
+                 seed: int = 0, start_step: int = 0, prefetch: int = 2):
+        self.batch_fn = make_batch_fn(cfg, batch, seq, seed)
+        self.step = start_step
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self.step
+        while not self._stop.is_set():
+            b = self.batch_fn(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, b), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self):
+        step, b = self._q.get()
+        self.step = step + 1
+        return b
+
+    def close(self):
+        self._stop.set()

@@ -5,7 +5,9 @@ params)``), becomes the port's parameter tree leaf by leaf: same
 ``{"blocks": tuple, "tail": list}`` layout, same stacked leading period
 axis, same dtypes. bf16 leaves cross through f32 numpy, which is exact.
 Re-initialising from the same seed cannot match the reference's draw, so
-weights are carried across, never re-derived.
+weights are carried across, never re-derived. ``state_from_jax`` carries a
+whole train state (params, AdamW moments and counts, and the EF residuals
+where present) the same way.
 """
 from __future__ import annotations
 
@@ -63,3 +65,27 @@ def params_to_numpy(tree):
             t = t.float()
         return t.numpy()
     return tree_map(leaf, tree)
+
+
+def state_from_jax(np_state, cfg, device=None):
+    """The port's train state from the JAX package's (``init_state`` /
+    a train step's output) as numpy arrays: ``{"params", "opt": {"m", "v",
+    "count"}, "step"}`` and ``"ef"`` where present, each leaf checked
+    against the port's layout (moments and residuals f32, counts 0-d
+    int32)."""
+    device = resolve_device(device)
+    like = build_model(cfg).init(device="meta")
+    f32 = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                         device="meta"), like)
+    count = torch.empty((), dtype=torch.int32, device="meta")
+    state = {
+        "params": _walk(np_state["params"], like, device, "params"),
+        "opt": {"m": _walk(np_state["opt"]["m"], f32, device, "opt/m"),
+                "v": _walk(np_state["opt"]["v"], f32, device, "opt/v"),
+                "count": _to_torch(np_state["opt"]["count"], count, device,
+                                   "opt/count")},
+        "step": _to_torch(np_state["step"], count, device, "step"),
+    }
+    if "ef" in np_state:
+        state["ef"] = _walk(np_state["ef"], f32, device, "ef")
+    return state

@@ -1,13 +1,16 @@
 """Serving CLI of the port: batched prefill + greedy decode, driven through
 the WindowScheduler.
 
-Decode runs as windows of ``sample_interval`` autoregressive steps. Each
-window is one dispatch of the decode engine, which updates the KV cache in
-place, pushes per-token telemetry ([step, mean token id, max logit]) into
-the P-Shell decode FIFO and counts emissions in a ``tokens`` CSR. The
-scheduler double-buffers the shell, so the host drain of window *i*
-(where the tokens and the per-window latency sample land) overlaps window
-*i+1* queued on the device.
+Decode runs as windows of ``sample_interval`` autoregressive steps. The
+decode engine updates the KV cache in place, pushes per-token telemetry
+([step, mean token id, max logit]) into the P-Shell decode FIFO and counts
+emissions in a ``tokens`` CSR. On a card each window is ONE CUDA-graph
+replay (``core/graphs.py``): the full window and the tail window are
+captured once each, after a one-step warm-up on clones of the cache and
+shell, before the first window runs; on host tensors a window runs its
+steps eagerly. The scheduler double-buffers the shell, so the host drain
+of window *i* (where the tokens and the per-window latency sample land)
+overlaps window *i+1* queued on the device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --smoke --batch 4 --prompt-len 32 --gen 16 --sample-interval 4
@@ -24,13 +27,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
-from repro_torch.core import Watchdog, WindowScheduler
+from repro_torch.core import Watchdog, WindowGraphs, WindowScheduler
 from repro_torch.core.pshell import (FifoSpec, ShellConfig, csr_accum, drain,
                                      fifo_push, shell_init)
+from repro_torch.core.schedule import plan_windows
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.models import build_model
 from repro_torch.serve import make_prefill_step
-from repro_torch.utils import resolve_device, sync, tree_map
+from repro_torch.utils import resolve_device, sync, tree_leaves, tree_map
 
 
 def decode_shell_config(sample_interval: int) -> ShellConfig:
@@ -43,25 +47,48 @@ def decode_shell_config(sample_interval: int) -> ShellConfig:
         sample_interval=sample_interval)
 
 
-def make_decode_engine(model, params, donate: bool = True):
-    """Scheduler engine for decode: state=(cache, last_token); runs one
-    decode step per window slot, pushing telemetry into the shell.
+def _steps_on(idx_stack, device):
+    """The window's step indices as a device tensor: a tensor already on
+    ``device`` as it is, host indices through pinned memory (no host
+    sync)."""
+    if torch.is_tensor(idx_stack) and idx_stack.device == device:
+        return idx_stack
+    idx = torch.as_tensor(np.asarray(idx_stack))
+    if device.type == "cuda":
+        return idx.pin_memory().to(device, non_blocking=True)
+    return idx.to(device)
 
-    The cache is updated in place, which stands in for the reference's
-    donation of the cache/token state; the shell is never written in
-    place, so the snapshot survives until its overlapped drain.
-    ``donate=False`` clones the incoming state first, so the caller's
-    state stays valid (the reference's non-donating engine)."""
+
+def make_decode_engine(model, params, donate: bool = True, graph=None):
+    """Scheduler engine for decode: state=(cache, last_token); runs one
+    decode step per window slot, pushing telemetry into the shell. The
+    step index of each FIFO row is read from a device tensor, so a
+    captured window writes the indices of the window it replays.
+
+    ``graph`` (default: whether ``params`` lie on a card) returns the
+    engine as a ``WindowGraphs``, one CUDA-graph replay a window;
+    ``graph=False`` on a card runs the steps eagerly (the comparison the
+    graphs are held against). The cache is updated in place, which stands
+    in for the reference's donation of the cache/token state; the shell is
+    never written in place, so the snapshot survives until its overlapped
+    drain. ``donate=False`` clones the incoming state first, so the
+    caller's state stays valid (the reference's non-donating engine)."""
+    on_card = tree_leaves(params)[0].is_cuda
+    graph = on_card if graph is None else graph
+    if graph and not on_card:
+        raise ValueError("a CUDA-graph decode engine needs params on a card")
+
     def engine(state, shell, idx_stack):
         cache, tok = state
         if not donate:
             cache = tree_map(torch.clone, cache)
+        idx = _steps_on(idx_stack, tok.device)
         toks = []
-        for idx in idx_stack:
+        for i in range(idx.shape[0]):
             cache, logits = model.decode_step(params, cache, tok)
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
             payload = torch.stack([
-                torch.full((), float(idx), device=tok.device),
+                idx[i].float(),
                 tok.float().mean(),
                 logits.max().float()])
             shell = fifo_push(shell, "decode", payload)
@@ -69,25 +96,30 @@ def make_decode_engine(model, params, donate: bool = True):
             toks.append(tok)
         return (cache, tok), shell, torch.stack(toks)
 
-    return engine
+    return WindowGraphs(engine, warmup="clone") if graph else engine
 
 
 def serve(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
-          sample_interval: int = 4, device=None, params=None, timer=None):
+          sample_interval: int = 4, device=None, params=None, timer=None,
+          graph=None, return_cache: bool = False):
     """Serve ``batch`` synthetic prompts of ``prompt_len`` tokens and
     generate ``gen`` tokens each. ``params=None`` draws random weights from
     ``seed`` on the device; otherwise ``params`` (e.g. carried across with
     ``repro_torch.interop``) must already be on it. ``timer`` is handed to
-    the scheduler (its "device" phase wraps each window's dispatch)."""
+    the scheduler (its "device" phase wraps each window's dispatch).
+    ``graph`` chooses the decode engine (``make_decode_engine``: CUDA-graph
+    windows on a card by default); ``return_cache`` adds the final decode
+    cache to the record, under "cache"."""
     device = resolve_device(device)
     model = build_model(cfg)
     with torch.inference_mode():
         return _serve(model, cfg, batch, prompt_len, gen, seed,
-                      sample_interval, device, params, timer)
+                      sample_interval, device, params, timer, graph,
+                      return_cache)
 
 
 def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
-           device, params, timer):
+           device, params, timer, graph, return_cache):
     if params is None:
         params = model.init(seed, device=device)
     bf = make_batch_fn(cfg, batch, prompt_len, seed)
@@ -106,10 +138,22 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
     sync(device)
     t1 = time.perf_counter()
 
-    engine = make_decode_engine(model, params)
+    engine = make_decode_engine(model, params, graph=graph)
     sched = WindowScheduler(interval=max(1, sample_interval), overlap=True,
                             drain_fn=drain, timer=timer)
     sh = shell_init(decode_shell_config(sample_interval), device)
+    graphed = isinstance(engine, WindowGraphs)
+    t_decode = t1
+    if graphed:
+        # capture every window length of the run, in the order the windows
+        # come (full, then tail: the order the shared pool needs), before
+        # the first window, so no capture (and none of its syncs) falls
+        # inside the decode
+        for g in dict.fromkeys(p.size for p in plan_windows(
+                gen - 1, sample_interval)):
+            engine.prepare((cache, tok), sh, np.arange(g))
+        sync(device)
+        t_decode = time.perf_counter()
 
     out_tokens = [tok.cpu().numpy()]
     dispatch_t: dict = {}
@@ -143,19 +187,27 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
     sync(device)
     t2 = time.perf_counter()
     toks = np.concatenate(out_tokens, axis=1)
-    return {
+    n_windows = len(plan_windows(gen - 1, sample_interval))
+    out = {
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else device.type),
         "prefill_s": t1 - t0,
-        "decode_s": t2 - t1,
-        "decode_tok_per_s": batch * (gen - 1) / max(t2 - t1, 1e-9),
+        "decode_s": t2 - t_decode,
+        "decode_tok_per_s": batch * (gen - 1) / max(t2 - t_decode, 1e-9),
         "decode_window_ms": [round(x, 2) for x in window_ms],
         "decode_fifo_rows": fifo_rows,
         "generated": toks[:, :8].tolist(),
         "tokens": toks.tolist(),
         "drained": drained,
         "hung": wd.should_restart(),
+        "engine": "graph" if graphed else "eager",
+        "windows_by_engine": dict(engine.windows) if graphed
+        else {"graph": 0, "eager": n_windows},
+        "capture_s": engine.capture_s if graphed else 0.0,
     }
+    if return_cache:
+        out["cache"] = cache
+    return out
 
 
 def main(argv=None):

@@ -2,10 +2,13 @@
 decode paths.
 
 The forward (``attention_apply``, the path the commit-tapped model
-forward and the Scale-Down replay run) goes through the K1 wrapper. The
-prefill path keeps the reference's plain attention, q-chunked above
-``_Q_CHUNK`` query positions so the S x S score tensor is never
-materialized whole. Decode uses a ring-buffer KV cache: bounded at
+forward and the Scale-Down replay run) goes through the K1 wrapper under
+``impl="cuda"``, and under ``impl="xla"`` (the train path) through the
+reference's plain attention, q-chunked above ``_Q_CHUNK`` query positions
+so the S x S score tensor is never materialized whole. The prefill path
+keeps that plain attention always, as the reference does. The decode
+attends through K2 under "cuda" and plainly over the masked ring under
+"xla". Decode uses a ring-buffer KV cache: bounded at
 ``cfg.window`` for swa/local mixers, full-length otherwise. Keys are
 stored post-RoPE at their absolute positions, so ring overwrites stay
 position-correct. Layouts follow the JAX package: q is (B,S,H,hd), a
@@ -108,13 +111,24 @@ def _chunked_causal(cfg, q, k, v, positions, window: int):
 
 # ---------------------------------------------------------- forward path ----
 def attention_apply(p, cfg, x, positions, *, window: int = 0,
-                    causal: bool = True):
+                    causal: bool = True, impl: str = "cuda"):
     """Self-attention over the full sequence. x: (B,S,D); positions:
-    (B,S) or (S,) int32, read by RoPE only: like the TPU kernel, K1 masks
-    from the indices 0..S-1. The K1 wrapper is the one path: the CUDA
-    kernel on the card, its plain version on host tensors."""
+    (B,S) or (S,) int32. ``impl="cuda"``: the K1 wrapper (the CUDA kernel
+    on the card, its plain version on host tensors), which masks from the
+    indices 0..S-1 like the TPU kernel; positions are read by RoPE only.
+    ``impl="xla"``: the reference's plain path, masked from the
+    positions."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, x, positions, positions, rope=True)
+    if impl == "xla":
+        if causal and S > _Q_CHUNK and S % _Q_CHUNK == 0:
+            out = _chunked_causal(cfg, q, k, v, positions, window)
+        else:
+            pos = positions[0] if positions.dim() > 1 else positions
+            mask = _causal_window_mask(pos, pos, window) if causal \
+                else None
+            out = _attend(cfg, q, k, v, mask)
+        return dense_apply(p["o"], out)
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=cfg.attn_logit_softcap)
     return dense_apply(p["o"], out.reshape(B, S, -1))
@@ -136,15 +150,17 @@ def init_cache(cfg, batch: int, max_len: int, window: int, device):
             cache_spec(cfg, batch, max_len, window).items()}
 
 
-def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0):
+def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0,
+                           impl: str = "cuda"):
     """One-token decode. x: (B,1,D); pos: 0-d int32 device tensor (the
     current index).
 
     Writes the new k/v into ring slot ``pos % W`` of ``cache`` IN PLACE
     (the reference donates the cache to the same effect) and attends over
-    it through the K2 wrapper: the CUDA kernel on the card, its plain
-    version on host tensors. The slot is a device index: no host sync per
-    layer per step.
+    it: under ``impl="cuda"`` through the K2 wrapper (the CUDA kernel on
+    the card, its plain version on host tensors), under "xla" plainly,
+    slots above ``pos`` masked as in the reference. The slot is a device
+    index: no host sync per layer per step.
     """
     B = x.shape[0]
     W = cache["k"].shape[1]
@@ -155,6 +171,9 @@ def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0):
     ck.index_copy_(1, slot, k)
     cv.index_copy_(1, slot, v)
 
+    if impl == "xla":
+        mask = (torch.arange(W, device=x.device) <= pos)[None, :]
+        return dense_apply(p["o"], _attend(cfg, q, ck, cv, mask)), cache
     out = da_ops.decode_attention(q[:, 0], ck, cv, pos=pos, window=W,
                                   softcap=cfg.attn_logit_softcap)
     return dense_apply(p["o"], out.reshape(B, 1, -1)), cache

@@ -132,14 +132,17 @@ def logits_apply(params, cfg, x):
     """f32 logits from the (bf16) hidden state and head, accumulated in f32
     without rounding the products to the working type. On a card the head
     stays in its own dtype (``mm`` with an f32 output); upcasting the
-    4096 x 151552 head every token step would move ~3.7 GB a step."""
+    4096 x 151552 head every token step would move ~3.7 GB a step. Where a
+    gradient is taken (the train step) the product runs on f32 copies,
+    which autograd differentiates, as on the host."""
     w = params["embed"]["tok"].T if cfg.tie_embeddings \
         else params["lm_head"]["w"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         y = x2 @ w
-    elif x.is_cuda:
+    elif x.is_cuda and not (torch.is_grad_enabled()
+                            and (x.requires_grad or w.requires_grad)):
         y = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         y = x2.float() @ w.float()

@@ -10,9 +10,9 @@ and MoE decoder families.
   decode_step(params, cache, tokens1) -> (cache, logits)   [serve_step]
 
 ``aux`` carries the P-Shell taps that ``rt.taps`` asks for, and each MoE
-layer's load-balance loss. Gradients, the optimizer and the train step
-come with the training slice; the other families (encdec, vlm) with later
-slices of the port.
+layer's load-balance loss. ``loss`` is differentiable under
+``rt.attention_impl="xla"`` (the train step, ``repro_torch.train``); the
+other families (encdec, vlm) come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ class Model:
         x = embed_apply(params["embed"], tokens1,
                         pos.reshape(1, 1).expand(B, 1)
                         if cfg.learned_pos else None)
-        x, cache = tfm.stack_decode(params["stack"], cfg, x, cache)
+        x, cache = tfm.stack_decode(params["stack"], cfg, x, cache, self.rt)
         x = norm_apply(cfg, params["final_norm"], x)
         return cache, logits_apply(params, cfg, x)
 

@@ -3,9 +3,11 @@ through the K5 wrapper, and the dense all-experts oracle.
 
 - ``sort``:  route top-k, dispatch the tokens into uniform (E, C, D)
   expert batches (capacity C per expert; overflow dropped), run the expert
-  FFN as three grouped products (K5 on the card, its plain version on host
-  tensors), and combine with the gates. The reference's single-device
-  ``_moe_sort``.
+  FFN as three grouped products, and combine with the gates. The
+  reference's single-device ``_moe_sort``. The products take
+  ``expert_impl``: "cuda" runs them through the K5 wrapper (the kernel on
+  the card, its plain version on host tensors); "xla" (the train path) as
+  the reference's three einsums.
 - ``dense``: every expert on every token, weighted by the gates, in plain
   torch: O(T * E). The golden model of the tests; never on the card path.
 
@@ -139,34 +141,39 @@ def _sort_combine(cfg, y_ecd, slot, keep, inv_order, gates, T, D):
     return (vals.reshape(T, k, D).float() * gates[..., None]).sum(dim=1)
 
 
-def _expert_ffn(p, h_ecd):
+def _expert_ffn(p, h_ecd, impl: str = "cuda"):
     """silu(h @ gate) * (h @ up) @ down per expert, each product through
-    the K5 wrapper; the silu and the gate product in h's dtype, as the
-    reference's einsum path has them."""
+    the K5 wrapper ("cuda") or as the reference's einsum ("xla"); the silu
+    and the gate product in h's dtype, as the reference has them."""
+    if impl == "xla":
+        g = F.silu(torch.einsum("ecd,edf->ecf", h_ecd, p["gate"]))
+        u = torch.einsum("ecd,edf->ecf", h_ecd, p["up"])
+        return torch.einsum("ecf,efd->ecd", g * u, p["down"])
     g = F.silu(gg_ops.grouped_gemm(h_ecd, p["gate"]))
     u = gg_ops.grouped_gemm(h_ecd, p["up"])
     return gg_ops.grouped_gemm(g * u, p["down"])
 
 
-def _moe_sort(p, cfg, x2):
+def _moe_sort(p, cfg, x2, expert_impl: str = "cuda"):
     T, D = x2.shape
     gates, idx, probs = _route(p, cfg, x2)
     disp, slot, keep, inv_order, _ = _sort_dispatch(cfg, x2, idx)
-    y_ecd = _expert_ffn(p, disp)
+    y_ecd = _expert_ffn(p, disp, expert_impl)
     y = _sort_combine(cfg, y_ecd, slot, keep, inv_order, gates, T, D)
     dropped = 1.0 - keep.float().mean()
     return y.to(x2.dtype), _stats(cfg, idx, probs, dropped)
 
 
 # ------------------------------------------------------------------ entry ---
-def moe_apply(p, cfg, x, *, impl: str = "sort"):
-    """x: (B, S, D) -> (y, stats)."""
+def moe_apply(p, cfg, x, *, impl: str = "sort", expert_impl: str = "cuda"):
+    """x: (B, S, D) -> (y, stats). ``expert_impl`` ("cuda" or "xla")
+    chooses the sort dispatch's expert products."""
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
     if impl == "dense":
         y, st = _moe_dense(p, cfg, x2)
     elif impl == "sort":
-        y, st = _moe_sort(p, cfg, x2)
+        y, st = _moe_sort(p, cfg, x2, expert_impl)
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
     return y.reshape(B, S, D), st

@@ -9,12 +9,14 @@ and decode.
   log_a_t = -8 softplus(Lambda) r_t
   h_t = exp(log_a_t) h_{t-1} + sqrt(1 - exp(2 log_a_t)) (i_t x_t)
 
-The forward and the prefill run the recurrence through the K4 wrapper (the
-CUDA kernel on the card, its plain sequential version on host tensors),
-which returns the last state as well, so the prefill hands the decode its
-state without a loop over the prompt (the reference's prefill runs its XLA
-chunked scan). The decode takes one step in plain torch and updates the
-conv buffer and ``h`` in place. Layouts, dtypes and the points where the
+Under ``impl="cuda"`` the forward and the prefill run the recurrence
+through the K4 wrapper (the CUDA kernel on the card, its plain sequential
+version on host tensors), which returns the last state as well, so the
+prefill hands the decode its state without a loop over the prompt. Under
+``impl="xla"`` (the train path) they run ``linear_scan_chunked``, the
+reference's chunked scan, each chunk recomputed in the backward as the
+reference's ``jax.checkpoint`` does. The decode takes one step in plain
+torch and updates the conv buffer and ``h`` in place. Layouts, dtypes and the points where the
 reference casts follow the JAX package: params in the config dtype except
 ``Lambda`` (f32); the gates and the scan in f32; GELU in its tanh form,
 ``jax.nn.gelu``'s default.
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.models.layers import (causal_conv, causal_conv_step,
@@ -30,6 +33,7 @@ from repro_torch.models.layers import (causal_conv, causal_conv_step,
 from repro_torch.utils import dtype_of
 
 _C_GATE = 8.0
+_CHUNK = 256
 
 
 def _lambda(g, W: int, device) -> torch.Tensor:
@@ -74,23 +78,52 @@ def _gates(p, xc):
     return log_a, b
 
 
-def _mix(p, x):
-    """Both branches and the scan through K4. Returns the block's output
-    (B,S,D), the pre-conv x branch and the last state."""
+def _scan_chunk(h, a, b):
+    """h_t = a_t * h_{t-1} + b_t over one chunk, a, b: (B,c,F) f32.
+    Returns (every h_t (B,c,F), the last)."""
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def linear_scan_chunked(a, b, h0, *, chunk: int = _CHUNK):
+    """h_t = a_t * h_{t-1} + b_t, elementwise. a, b: (B,S,F) f32. The
+    reference's chunked scan: chunks of ``chunk`` steps (one chunk where
+    it does not divide S), each recomputed in the backward. Returns
+    (h_all (B,S,F), h_last)."""
+    S = a.shape[1]
+    c = min(chunk, S)
+    if S % c:
+        c = S
+    h, outs = h0, []
+    for i in range(0, S, c):
+        ys, h = checkpoint(_scan_chunk, h, a[:, i:i + c], b[:, i:i + c],
+                           use_reentrant=False, preserve_rng_state=False)
+        outs.append(ys)
+    return torch.cat(outs, dim=1), h
+
+
+def _mix(p, x, impl: str = "cuda"):
+    """Both branches and the scan (K4 under "cuda", the chunked scan under
+    "xla"). Returns the block's output (B,S,D), the pre-conv x branch and
+    the last state."""
     z = _gelu(dense_apply(p["in_z"], x))
     x_in = dense_apply(p["in_x"], x)
     xc = causal_conv(p, x_in)
     log_a, b = _gates(p, xc)
     B, _, W = xc.shape
     h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
-    h, h_last = lru_ops.rglru_scan(torch.exp(log_a), b, h0)
+    scan = linear_scan_chunked if impl == "xla" else lru_ops.rglru_scan
+    h, h_last = scan(torch.exp(log_a), b, h0)
     y = h.to(x.dtype) * z
     return dense_apply(p["out"], y), x_in, h_last
 
 
-def rglru_apply(p, cfg, x):
+def rglru_apply(p, cfg, x, *, impl: str = "cuda"):
     """Full recurrent block, train/prefill. x: (B,S,D) -> (B,S,D)."""
-    return _mix(p, x)[0]
+    return _mix(p, x, impl)[0]
 
 
 # ----------------------------------------------------------------- decode ---
@@ -101,11 +134,11 @@ def rglru_state_spec(cfg, batch: int):
             "h": ((batch, W), torch.float32)}
 
 
-def rglru_prefill(p, cfg, x):
+def rglru_prefill(p, cfg, x, *, impl: str = "cuda"):
     """Full-sequence forward that also returns the decode state: the last
     conv_width-1 pre-conv inputs (fewer for a shorter prompt, as in the
     reference) and the scan's last state."""
-    out, x_in, h_last = _mix(p, x)
+    out, x_in, h_last = _mix(p, x, impl)
     cw = cfg.conv_width
     return out, {"conv": x_in[:, -(cw - 1):, :].contiguous(), "h": h_last}
 

@@ -1,10 +1,13 @@
 """Mamba-1 selective-scan block (falcon-mamba-7b): forward, prefill and
 decode.
 
-The forward and the prefill run the selective scan through the K3 wrapper
-(the CUDA kernel on the card, its plain sequential version on host
-tensors), which returns the last state as well, so the prefill hands the
-decode its state without a loop over the prompt. The decode takes one
+Under ``impl="cuda"`` the forward and the prefill run the selective scan
+through the K3 wrapper (the CUDA kernel on the card, its plain sequential
+version on host tensors), which returns the last state as well, so the
+prefill hands the decode its state without a loop over the prompt. Under
+``impl="xla"`` (the train path) they run ``mamba_ssm``, the reference's
+chunked scan, each chunk recomputed in the backward as the reference's
+``jax.checkpoint`` does. The decode takes one
 step in plain torch and updates the conv and SSM state in place. Layouts
 and dtypes follow the JAX package: params in the config dtype except
 ``dt_bias``, ``A_log`` and ``D_skip`` (f32); the scan in f32.
@@ -15,11 +18,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.layers import (causal_conv, causal_conv_step,
                                        dense_apply, init_dense, normal)
 from repro_torch.utils import dtype_of
+
+_CHUNK = 128
 
 
 def _dt_bias(g, Din: int, device) -> torch.Tensor:
@@ -61,25 +67,64 @@ def _ssm_inputs(p, cfg, x_c):
     return dt, B_, C_
 
 
-def _mix(p, cfg, x):
-    """In-projection, conv, silu and the scan through K3. Returns the
-    mixer's output (B,S,D), the pre-conv x branch and the last state."""
+def _scan_chunk(A, h, dt, B_, C_, x_c):
+    """Sequential scan over one chunk, all f32. dt, x_c: (B,c,Din);
+    B_, C_: (B,c,N); h: (B,Din,N). Returns (y (B,c,Din), h)."""
+    ys = []
+    for t in range(dt.shape[1]):
+        dA = torch.exp(dt[:, t, :, None] * A)                 # (B,Din,N)
+        dBx = (dt[:, t] * x_c[:, t])[..., None] * B_[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, C_[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def mamba_ssm(p, cfg, x_c, h0=None, *, chunk: int = _CHUNK):
+    """The reference's selective scan y = SSM(x_c) with the D skip:
+    (B,S,Din) -> (B,S,Din) f32, h_last. Chunks of ``chunk`` steps (one
+    chunk where it does not divide S), each recomputed in the backward."""
+    B, S, Din = x_c.shape
+    A = -torch.exp(p["A_log"])
+    dt, B_, C_ = _ssm_inputs(p, cfg, x_c)
+    xf = x_c.float()
+    h = h0 if h0 is not None else torch.zeros(
+        (B, Din, cfg.ssm_state), dtype=torch.float32, device=x_c.device)
+    c = min(chunk, S)
+    if S % c:
+        c = S
+    ys = []
+    for i in range(0, S, c):
+        sl = slice(i, i + c)
+        y, h = checkpoint(_scan_chunk, A, h, dt[:, sl], B_[:, sl],
+                          C_[:, sl], xf[:, sl], use_reentrant=False,
+                          preserve_rng_state=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1) + p["D_skip"] * xf, h
+
+
+def _mix(p, cfg, x, impl: str = "cuda"):
+    """In-projection, conv, silu and the scan (K3 under "cuda",
+    ``mamba_ssm`` under "xla"). Returns the mixer's output (B,S,D), the
+    pre-conv x branch and the last state."""
     Din = cfg.d_inner
     xz = dense_apply(p["in_proj"], x)
     x_in, z = torch.split(xz, [Din, Din], dim=-1)
     x_c = F.silu(causal_conv(p, x_in))
-    A = -torch.exp(p["A_log"])
-    dt, B_, C_ = _ssm_inputs(p, cfg, x_c)
-    xf = x_c.float()
-    y, h_last = ssm_ops.ssm_scan(dt, A, B_, C_, xf)
-    y = y + p["D_skip"] * xf
+    if impl == "xla":
+        y, h_last = mamba_ssm(p, cfg, x_c)
+    else:
+        A = -torch.exp(p["A_log"])
+        dt, B_, C_ = _ssm_inputs(p, cfg, x_c)
+        xf = x_c.float()
+        y, h_last = ssm_ops.ssm_scan(dt, A, B_, C_, xf)
+        y = y + p["D_skip"] * xf
     y = y.to(x.dtype) * F.silu(z)
     return dense_apply(p["out_proj"], y), x_in, h_last
 
 
-def mamba_apply(p, cfg, x):
+def mamba_apply(p, cfg, x, *, impl: str = "cuda"):
     """Full mamba mixer over the sequence. x: (B,S,D) -> (B,S,D)."""
-    return _mix(p, cfg, x)[0]
+    return _mix(p, cfg, x, impl)[0]
 
 
 # ----------------------------------------------------------------- decode ---
@@ -90,10 +135,10 @@ def mamba_state_spec(cfg, batch: int):
             "ssm": ((batch, cfg.d_inner, cfg.ssm_state), torch.float32)}
 
 
-def mamba_prefill(p, cfg, x):
+def mamba_prefill(p, cfg, x, *, impl: str = "cuda"):
     """Full-sequence forward that also returns the decode state: the last
     W-1 pre-conv inputs and the scan's last state."""
-    out, x_in, h_last = _mix(p, cfg, x)
+    out, x_in, h_last = _mix(p, cfg, x, impl)
     W = cfg.conv_width
     return out, {"conv": x_in[:, -(W - 1):, :].contiguous(), "ssm": h_last}
 

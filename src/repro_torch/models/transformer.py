@@ -15,7 +15,10 @@ leaves are stacked over periods on axis 0, "tail": tuple of dicts}``.
 ``core/commit.py`` reads that layout in period-major layer order.
 
 The attention mixers (attn / swa / local), the RG-LRU mixer and the
-Mamba-1 mixer are ported, with the GLU MLP, the MoE FFN or no FFN. A MoE
+Mamba-1 mixer are ported, with the GLU MLP, the MoE FFN or no FFN. Every
+mixer, the decode's attention and the MoE expert products take
+``rt.attention_impl``: the hand-written kernels under "cuda", the
+reference's plain, differentiable code under "xla" (the train path). A MoE
 block also emits its load-balance loss as ``aux["moe_aux_loss"]``, and
 its router stats under ``aux["moe"]``: all of them under the "router"
 tap, only the expert toggles under "coverage".
@@ -71,12 +74,13 @@ def _mixer_window(cfg, mixer):
     return cfg.window if mixer in ("swa", "local") else 0
 
 
-def _ffn_apply(p, cfg, ffn, x, moe_impl: str):
+def _ffn_apply(p, cfg, ffn, x, moe_impl: str, expert_impl: str):
     """The block's FFN on its residual stream x: (x, MoE stats or None)."""
     h2 = norm_apply(cfg, p["norm2"], x)
     if ffn == "mlp":
         return x + mlp_apply(p["mlp"], h2), None
-    y2, stats = moe_mod.moe_apply(p["moe"], cfg, h2, impl=moe_impl)
+    y2, stats = moe_mod.moe_apply(p["moe"], cfg, h2, impl=moe_impl,
+                                  expert_impl=expert_impl)
     return x + y2, stats
 
 
@@ -87,17 +91,19 @@ def block_apply(p, cfg, spec, x, positions, rt: Runtime):
     them; "coverage": the expert toggles) and, always, its aux loss."""
     mixer, ffn = spec
     _check_spec(spec)
+    impl = rt.attention_impl
     h = norm_apply(cfg, p["norm1"], x)
     if mixer == "mamba":
-        x = x + ssm_mod.mamba_apply(p["mamba"], cfg, h)
+        x = x + ssm_mod.mamba_apply(p["mamba"], cfg, h, impl=impl)
     elif mixer == "rglru":
-        x = x + rec_mod.rglru_apply(p["rglru"], cfg, h)
+        x = x + rec_mod.rglru_apply(p["rglru"], cfg, h, impl=impl)
     else:
         x = x + attn.attention_apply(p["attn"], cfg, h, positions,
-                                     window=_mixer_window(cfg, mixer))
+                                     window=_mixer_window(cfg, mixer),
+                                     impl=impl)
     aux: Dict[str, Any] = {}
     if ffn is not None:
-        x, stats = _ffn_apply(p, cfg, ffn, x, rt.moe_impl)
+        x, stats = _ffn_apply(p, cfg, ffn, x, rt.moe_impl, impl)
         if stats is not None:
             if "router" in rt.taps:
                 aux["moe"] = stats
@@ -120,7 +126,7 @@ def block_cache_spec(cfg, spec, batch: int, max_len: int):
     return attn.cache_spec(cfg, batch, max_len, _mixer_window(cfg, spec[0]))
 
 
-def block_decode(p, cfg, spec, x1, cache, pos):
+def block_decode(p, cfg, spec, x1, cache, pos, rt: Runtime = Runtime()):
     """One-token block step; ``cache`` is updated in place. A MoE FFN
     always takes the sort dispatch here, over the batch's B tokens."""
     mixer, ffn = spec
@@ -132,10 +138,11 @@ def block_decode(p, cfg, spec, x1, cache, pos):
         y, cache = rec_mod.rglru_decode(p["rglru"], cfg, h, cache)
     else:
         y, cache = attn.decode_attention_apply(
-            p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer))
+            p["attn"], cfg, h, cache, pos, window=_mixer_window(cfg, mixer),
+            impl=rt.attention_impl)
     x1 = x1 + y
     if ffn is not None:
-        x1, _ = _ffn_apply(p, cfg, ffn, x1, "sort")
+        x1, _ = _ffn_apply(p, cfg, ffn, x1, "sort", rt.attention_impl)
     return x1, cache
 
 
@@ -147,15 +154,17 @@ def block_prefill(p, cfg, spec, x, positions, max_len: int,
     _check_spec(spec)
     h = norm_apply(cfg, p["norm1"], x)
     if mixer == "mamba":
-        y, cache = ssm_mod.mamba_prefill(p["mamba"], cfg, h)
+        y, cache = ssm_mod.mamba_prefill(p["mamba"], cfg, h,
+                                         impl=rt.attention_impl)
     elif mixer == "rglru":
-        y, cache = rec_mod.rglru_prefill(p["rglru"], cfg, h)
+        y, cache = rec_mod.rglru_prefill(p["rglru"], cfg, h,
+                                         impl=rt.attention_impl)
     else:
         y, cache = _attention_prefill(p["attn"], cfg, mixer, h, positions,
                                       max_len)
     x = x + y
     if ffn is not None:
-        x, _ = _ffn_apply(p, cfg, ffn, x, rt.moe_impl)
+        x, _ = _ffn_apply(p, cfg, ffn, x, rt.moe_impl, rt.attention_impl)
     return x, cache
 
 
@@ -261,7 +270,7 @@ def stack_cache_spec(cfg, batch: int, max_len: int):
     return {"scanned": scanned, "tail": tail, "pos": ((), torch.int32)}
 
 
-def stack_decode(stack, cfg, x1, cache):
+def stack_decode(stack, cfg, x1, cache, rt: Runtime = Runtime()):
     """One-token decode through all layers; returns (x1, cache) with the
     layer caches updated in place and ``pos`` advanced on the device."""
     P_len, n_periods, _ = _partition(cfg)
@@ -271,10 +280,10 @@ def stack_decode(stack, cfg, x1, cache):
         for j in range(P_len):
             x1, _ = block_decode(_period(stack["blocks"][j], i), cfg,
                                  pattern[j], x1,
-                                 _period(cache["scanned"][j], i), pos)
+                                 _period(cache["scanned"][j], i), pos, rt)
     for i, p in enumerate(stack["tail"]):
         x1, _ = block_decode(p, cfg, pattern[i % P_len], x1,
-                             cache["tail"][i], pos)
+                             cache["tail"][i], pos, rt)
     return x1, {**cache, "pos": pos + 1}
 
 

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.commit import layer_checksums, nan_bits
 from repro_torch.core.decompose import verify_extraction
+from repro_torch.core.graphs import capture_graph  # noqa: F401
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.kernels.decode_attention import ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -25,8 +26,9 @@ from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models import Runtime, build_model
 from repro_torch.models import moe as moe_mod
+from repro_torch.launch.serve import serve
 from repro_torch.models.layers import embed_apply
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
 
 # elementwise rtol = atol: the tolerances of tests/test_kernels.py
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -90,7 +92,10 @@ def serve_kernels(cfg, steps: int):
     decode steps. The prefill runs K3 or K4 once a mamba or RG-LRU layer
     (its attention is plain, as in the reference) and K5 three times a
     MoE layer; each decode step runs K2 once an attention layer and K5
-    three times a MoE layer (the mamba and RG-LRU steps are plain)."""
+    three times a MoE layer (the mamba and RG-LRU steps are plain). A
+    decode window run as a CUDA-graph replay counts the launches it
+    executes (``core.graphs.WindowGraphs``), so the tallies hold for both
+    engines."""
     prefill = [{k: n for k, n in t.items() if k != "k1"}
                for t in layer_kernels(cfg)]
     step = [{("k2" if k == "k1" else k): n for k, n in t.items()
@@ -135,17 +140,6 @@ def check_decode_attention(B, H, K, W, hd, pos, dtype, softcap=0.0, seed=0):
     case = (f"K2 vs plain, B={B} H={H} K={K} W={W} hd={hd} pos={pos} "
             f"{dtype} softcap={softcap}")
     return _compare(out, ref, dtype, case, BF16_NORM_REL)
-
-
-def capture_graph(fn):
-    """fn() recorded once in a CUDA graph on a side stream; returns the
-    graph and fn's result, whose storage each replay writes anew."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        out = fn()
-    return graph, out
 
 
 def check_decode_determinism(B, H, K, W, hd, positions, seed=0):
@@ -534,4 +528,252 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
     assert np.array_equal(a["nan"], b["nan"]), case
     assert all(a["bitwise"]) and all(b["bitwise"]), case
     assert out.get("router_equal", True), f"routing flip: {case}"
+    return out
+
+
+# ----------------------------------------------- CUDA-graph windows, train --
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` while active (cuBLAS
+    needs ``CUBLAS_WORKSPACE_CONFIG``, e.g. ``:4096:8``, set before CUDA
+    initialises, or it raises)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def assert_trees_equal(a, b, what):
+    """Every leaf of ``a`` equal to ``b``'s to the bit (on the host)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb), what
+    for i, (x, y) in enumerate(zip(la, lb)):
+        x = x.cpu() if torch.is_tensor(x) else torch.as_tensor(x)
+        y = y.cpu() if torch.is_tensor(y) else torch.as_tensor(y)
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, i)
+        assert torch.equal(x, y), (
+            f"{what}: leaf {i} differs, max abs "
+            f"{float((x.double() - y.double()).abs().max())}")
+
+
+def assert_records_equal(recs_a, recs_b, what):
+    """Drained P-Shell records (``[(i, records)]``) equal: drain cadence,
+    FIFO counts, dropped credits and payloads, CSRs, and the "metrics"
+    stacks where both carry them."""
+    assert [i for i, _ in recs_a] == [i for i, _ in recs_b], what
+    for (i, ra), (_, rb) in zip(recs_a, recs_b):
+        assert set(ra["fifos"]) == set(rb["fifos"]), (what, i)
+        for name, fa in ra["fifos"].items():
+            fb = rb["fifos"][name]
+            assert fa["count"] == fb["count"], (what, i, name)
+            assert fa["dropped"] == fb["dropped"], (what, i, name)
+            assert np.array_equal(fa["data"], fb["data"]), (what, i, name)
+        assert set(ra["csrs"]) == set(rb["csrs"]), (what, i)
+        for name in ra["csrs"]:
+            assert np.array_equal(ra["csrs"][name], rb["csrs"][name]), \
+                (what, i, name)
+        for name in set(ra.get("metrics", {})) & set(rb.get("metrics", {})):
+            assert np.array_equal(ra["metrics"][name],
+                                  rb["metrics"][name]), (what, i, name)
+
+
+def assert_serve_equal(a, b, what):
+    """Two serve records (``serve(..., return_cache=True)``) equal to the
+    bit: tokens, every drained FIFO row, count, dropped credit and
+    ``tokens`` CSR, and the final decode cache (KV rings, recurrent
+    states, ``pos``)."""
+    assert a["tokens"] == b["tokens"], f"{what}: tokens differ"
+    assert len(a["drained"]) == len(b["drained"]), what
+    for i, (x, y) in enumerate(zip(a["drained"], b["drained"])):
+        assert x == y, f"{what}: drained window {i}: {x} != {y}"
+    assert a["decode_fifo_rows"] == b["decode_fifo_rows"], what
+    assert_trees_equal(a["cache"], b["cache"], f"{what}: final cache")
+
+
+def check_decode_graph(cfg, B=2, prompt_len=16, gen=8, sample_interval=3,
+                       seed=0):
+    """serve() of ``cfg`` (weights drawn on the card from ``seed``) with
+    CUDA-graph windows against the eager engine (``graph=False``) on the
+    same weights, both under NoSyncInWindow: equal to the bit
+    (``assert_serve_equal``), every window of the graph run a replay
+    (captured before the run), and each run's launch counts as
+    ``serve_kernels`` says. Returns both records (without the caches)."""
+    from repro_torch.core.graphs import counted_kernels, launch_counts
+    params = build_model(cfg).init(seed, device="cuda")
+    runs = {}
+    steps = gen - 1
+    n_windows = -(-steps // sample_interval)
+    for graph in (True, False):
+        for fn in counted_kernels().values():
+            fn.launches = 0
+        timer = NoSyncInWindow()
+        out = serve(cfg, B, prompt_len, gen, seed=seed,
+                    sample_interval=sample_interval, device="cuda",
+                    params=params, timer=timer, graph=graph,
+                    return_cache=True)
+        want = serve_kernels(cfg, steps)[1]
+        got = {k: n for k, n in launch_counts().items() if n}
+        assert got == {k: n for k, n in want.items() if n}, (graph, got,
+                                                             want)
+        assert timer.windows == n_windows
+        engine = "graph" if graph else "eager"
+        assert out["engine"] == engine
+        assert out["windows_by_engine"][engine] == n_windows, out
+        runs[engine] = out
+    assert_serve_equal(runs["graph"], runs["eager"],
+                       f"{cfg.name} graph vs eager")
+    return {k: {n: v for n, v in r.items() if n != "cache"}
+            for k, r in runs.items()}
+
+
+def check_drain_before_replay(windows=6, interval=4, n=1024):
+    """A graphed engine whose every window is slow (a chain of n x n
+    products) and ends by pushing its own step indices into the shell's
+    FIFO and ys, run by the overlapping WindowScheduler with each replay
+    enqueued right after the last: every drained row and ys must be its
+    own window's (the pinned copies are queued on the replay's stream,
+    before the next replay overwrites the outputs)."""
+    from repro_torch.core.graphs import WindowGraphs
+    from repro_torch.core.pshell import (FifoSpec, ShellConfig, drain,
+                                         fifo_push, shell_init)
+    from repro_torch.core.schedule import WindowScheduler
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(n, n, generator=g, device=dev) / n ** 0.5
+
+    def engine(state, shell, idx):
+        x = state
+        for i in range(idx.shape[0]):
+            for _ in range(8):
+                x = torch.tanh(x @ w)
+            shell = fifo_push(shell, "f", idx[i].float().expand(3))
+        state.copy_(x)
+        return state, shell, idx.float() * 2
+    cfg = ShellConfig(fifos={"f": FifoSpec(depth=interval, shape=(3,))},
+                      sample_interval=interval)
+    graphs = WindowGraphs(engine, warmup="clone")
+    state = torch.randn(n, n, generator=g, device=dev)
+    shell = shell_init(cfg, dev)
+    graphs.prepare(state, shell, np.arange(interval))
+    sched = WindowScheduler(interval=interval, overlap=True, drain_fn=drain)
+    seen = []
+    sched.run(graphs, sched.windows(range(windows * interval)), state, shell,
+              on_drain=lambda plan, rec, ys: seen.append(
+                  (plan, rec["fifos"]["f"]["data"][:, 0], ys.numpy())))
+    assert graphs.windows == {"graph": windows, "eager": 0}
+    for plan, rows, ys in seen:
+        want = np.arange(plan.start, plan.boundary, dtype=np.float32)
+        assert np.array_equal(rows, want), (plan, rows)
+        assert np.array_equal(ys, want * 2), (plan, ys)
+    return len(seen)
+
+
+def train_run(cfg, rt, batches, sample_interval, *, seed=0, device="cuda",
+              grouped=True, shell=True, commit_depth=None, opt_cfg=None,
+              accum_steps=1, state=None):
+    """Train ``cfg`` from ``state`` (default ``init_state(seed)`` on
+    ``device``) on ``batches`` through the
+    P-Shell: ``PShell.run`` (one dispatch a step) or ``run_grouped`` of
+    ``make_group_step`` (one dispatch a window; on a card one CUDA-graph
+    replay, after the first window of each length runs eagerly).
+    ``shell=False`` runs the group step with ``ingest=None``. Returns the
+    final state, the drained records ``[(i, records)]``, the group engine
+    (None per step) and its windows, and the wall time (after a sync)."""
+    import time
+
+    from repro_torch.core.commit import default_shell_config, make_ingest
+    from repro_torch.core.pshell import PShell
+    from repro_torch.train import (OptConfig, init_state, make_group_step,
+                                   make_train_step)
+    opt_cfg = opt_cfg or OptConfig(warmup_steps=10)
+    model = build_model(cfg, rt)
+    if state is None:
+        state = init_state(model, seed, device=device)
+    ingest = make_ingest(cfg) if shell else None
+    ps = PShell(default_shell_config(cfg, sample_interval, commit_depth),
+                ingest)
+    recs: list = []
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    if grouped:
+        group_step = make_group_step(model, opt_cfg, ingest=ingest,
+                                     accum_steps=accum_steps)
+        state, _, _ = ps.run_grouped(group_step, state, batches,
+                                     on_drain=lambda i, r: recs.append(
+                                         (i, r)))
+        engine = ps.compile_group(group_step, device=device)
+        windows = dict(getattr(engine, "windows", {"graph": 0,
+                                                   "eager": len(recs)}))
+    else:
+        step = make_train_step(model, opt_cfg, accum_steps=accum_steps)
+        metrics: list = []
+
+        def wrapped(state, batch, sh, _w=ps.wrap(step)):
+            state, m, sh = _w(state, batch, sh)
+            metrics.append(m)
+            return state, m, sh
+
+        def on_drain(i, r):
+            got = [metrics.pop(0) for _ in range(len(metrics))]
+            r["metrics"] = {k: torch.stack([m[k] for m in got]).cpu().numpy()
+                            for k in got[0]}
+            recs.append((i, r))
+        state, _, _ = ps.run(wrapped, state, batches, on_drain=on_drain)
+        engine, windows = None, {"graph": 0, "eager": 0}
+    sync()
+    return {"state": state, "records": recs, "windows": windows,
+            "engine": engine, "seconds": time.perf_counter() - t0}
+
+
+# card against host for one train window in f32: each step's loss and
+# gradient norm within TRAIN_RTOL (relative); every parameter within
+# TRAIN_LR_ATOL times the summed learning rates of the window, since a
+# gradient element near zero can change sign between two devices, and an
+# early Adam update is about lr * sign(g) (|update| < 1.5 in these steps)
+TRAIN_RTOL = 1e-4
+TRAIN_LR_ATOL = 3.0
+
+
+def check_train_parity(cfg, steps=3, B=2, S=16, seed=0):
+    """One ``make_group_step`` window of ``steps`` steps of ``cfg`` (an f32
+    config) on the "xla" path, from the same state (drawn on the host from
+    ``seed``) and batches, on the card (one window: run eagerly, the first
+    of its length) and on the host. Gated at TRAIN_RTOL and TRAIN_LR_ATOL;
+    returns the errors."""
+    from repro_torch.train import OptConfig, init_state
+    taps = TAPS | {"router"} if cfg.num_experts else TAPS
+    rt = Runtime(attention_impl="xla", taps=taps)
+    opt_cfg = OptConfig(warmup_steps=10)
+    host = init_state(build_model(cfg, rt), seed, device="cpu")
+    card = tree_map(lambda t: t.to("cuda"), host)
+    batches = [make_batch_fn(cfg, B, S, seed)(i) for i in range(steps)]
+    runs = {dev: train_run(cfg, rt, batches, steps, device=dev,
+                           opt_cfg=opt_cfg, state=st)
+            for dev, st in (("cuda", card), ("cpu", host))}
+    ma = runs["cuda"]["records"][-1][1]["metrics"]
+    mb = runs["cpu"]["records"][-1][1]["metrics"]
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / (np.abs(b) + 1e-6)))
+
+    lr_sum = float(mb["lr"].sum())
+    pa = tree_leaves(runs["cuda"]["state"]["params"])
+    pb = tree_leaves(runs["cpu"]["state"]["params"])
+    param_err = max(float((a.cpu().double() - b.double()).abs().max())
+                    for a, b in zip(pa, pb))
+    out = {"loss_rel_err": rel(ma["loss"], mb["loss"]),
+           "grad_norm_rel_err": rel(ma["grad_norm"], mb["grad_norm"]),
+           "param_max_abs_err": param_err,
+           "param_limit": TRAIN_LR_ATOL * lr_sum,
+           "losses": ma["loss"].tolist()}
+    case = f"train parity {cfg.name}: {out}"
+    assert out["loss_rel_err"] <= TRAIN_RTOL, case
+    assert out["grad_norm_rel_err"] <= TRAIN_RTOL, case
+    assert param_err <= out["param_limit"], case
+    assert np.array_equal(ma["lr"], mb["lr"]), case
     return out

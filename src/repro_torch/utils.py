@@ -53,6 +53,11 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_clone(tree: Any) -> Any:
+    """A copy of ``tree`` with every tensor leaf cloned."""
+    return tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, tree)
+
+
 def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
@@ -63,3 +68,13 @@ def sync(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the host)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """``tree``'s containers with its leaves replaced, in ``tree_leaves``
+    order, by ``leaves``."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

@@ -7,6 +7,13 @@ On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
+The CUDA-graph windows (decode and train) are held bitwise against the
+eager engines, and the train window's "xla" path against the same code
+on host tensors (``testing.check_train_parity``'s stated limits).
+cuBLAS takes a fixed workspace (``CUBLAS_WORKSPACE_CONFIG``, set below
+before CUDA initialises), so a capture on a side stream picks the same
+algorithms as the eager run, and deterministic mode allows it.
+
 Kernel tolerances are those of tests/test_kernels.py, f32 2e-5 and bf16
 2e-2 for K1, K2 and K5, and in bf16 also a normwise relative error (6e-3
 for K1 and K2, 2e-3 for K5); K3 at 1e-4 and K4 at 1e-5 in f32
@@ -15,8 +22,12 @@ expert FFN at 1e-4 in f32 (test_moe_ffn_composed's); the forward holds
 the loss and checksums within 1e-5 (``repro_torch.testing``).
 """
 import dataclasses
+import os
 
+import numpy as np
 import pytest
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 torch = pytest.importorskip("torch")
 
@@ -28,9 +39,16 @@ from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
+from repro_torch.models import Runtime, build_model  # noqa: E402
 from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
+                                 TAPS, assert_records_equal,
+                                 assert_trees_equal,
                                  check_decode_attention,
+                                 check_decode_graph,
+                                 check_drain_before_replay,
+                                 check_train_parity, deterministic,
+                                 train_run,
                                  check_decode_determinism,
                                  check_flash_attention,
                                  check_forward_parity, check_grouped_gemm,
@@ -627,3 +645,94 @@ def test_ssm_kernel_each_lane_group_matches_plain(cuda, S, N, G):
     at SSM_TOL: one step and either side of the chunk, Din off the 256-,
     128- and 64-channel blocks, B_/C_ strided."""
     check_ssm_scan(2, S, 300, N, strided=True, group=G)
+
+
+# ------------------------------------------------- CUDA-graph windows ----
+FAMILIES = ["glm4-9b", "falcon-mamba-7b", "recurrentgemma-2b",
+            "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_decode_window_graph_is_bitwise_against_the_eager_engine(cuda,
+                                                                 arch):
+    """serve() with every window one CUDA-graph replay (a full window and a
+    tail) equals the eager engine to the bit: tokens, FIFO rows, CSRs and
+    the final cache; the launch counts hold as replays."""
+    out = check_decode_graph(get_smoke_config(arch), B=2, prompt_len=16,
+                             gen=9, sample_interval=3)
+    assert out["graph"]["windows_by_engine"] == {"graph": 3, "eager": 0}
+
+
+def test_pinned_drain_is_ordered_before_the_next_replay(cuda):
+    assert check_drain_before_replay() == 6
+
+
+def test_window_graph_counts_each_replay(cuda):
+    """A capture counts nothing (nor its warm-up on clones); each replay
+    adds the launches the window executes."""
+    from repro_torch.core.graphs import WindowGraphs
+    from repro_torch.core.pshell import ShellConfig, shell_init
+    q = torch.randn(2, 4, 32, device="cuda")
+    k = torch.randn(2, 64, 2, 32, device="cuda")
+    pos = torch.tensor(40, dtype=torch.int32, device="cuda")
+
+    def engine(state, shell, xs):
+        out = state
+        for _ in range(xs.shape[0]):
+            out = ops.decode_attention(out, k, k, pos=pos, window=64)
+        state.copy_(out)
+        return state, shell, xs
+    graphs = WindowGraphs(engine)
+    shell = shell_init(ShellConfig(), "cuda")
+    before = ops.decode_attention.launches
+    graphs.prepare(q, shell, np.arange(5))
+    assert ops.decode_attention.launches == before
+    assert graphs.warmup_launches == {"k2": 1}
+    for i in range(3):
+        graphs(q, shell, np.arange(5))
+        assert ops.decode_attention.launches == before + 5 * (i + 1)
+    assert graphs.windows == {"graph": 3, "eager": 0}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_fused_train_window_replays_bitwise_against_per_step(cuda, arch):
+    """PShell.run_grouped of make_group_step (a window run eagerly first,
+    then one CUDA-graph replay a window) equals PShell.run step by step to
+    the bit under deterministic mode: the whole train state, every step's
+    metrics, every drained record (commit rows, counts, dropped credits,
+    CSRs), with an undersized commit FIFO so credits are dropped; and the
+    params equal with the shell off."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    rt = Runtime(attention_impl="xla", taps=TAPS | {"router"})
+    batches = [make_batch_fn(cfg, 2, 16, 0)(i) for i in range(7)]
+    depth = 2 * cfg.num_layers - 1
+    with deterministic():
+        a = train_run(cfg, rt, batches, 2, grouped=False,
+                      commit_depth=depth)
+        b = train_run(cfg, rt, batches, 2, commit_depth=depth)
+        c = train_run(cfg, rt, batches, 2, shell=False)
+    assert b["windows"] == {"graph": 2, "eager": 2}
+    assert_trees_equal(a["state"], b["state"], f"{arch} train state")
+    assert_records_equal(a["records"], b["records"], f"{arch} records")
+    assert_trees_equal(a["state"]["params"], c["state"]["params"],
+                       f"{arch} shell off")
+    dropped = [r["fifos"]["commits"]["dropped"] for _, r in b["records"]]
+    assert dropped == [1, 2, 3, 3], dropped
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_window_on_the_card_matches_the_host(cuda, arch):
+    check_train_parity(dataclasses.replace(get_smoke_config(arch),
+                                           dtype="float32"))
+
+
+def test_make_train_step_on_a_cuda_model_raises_on_the_card(cuda):
+    """The kernels have no backward: a "cuda" model cannot train on the
+    card (the wrappers refuse under grad mode)."""
+    from repro_torch.train import init_state, make_train_step
+    cfg = get_smoke_config("glm4-9b")
+    model = build_model(cfg)
+    state = init_state(model, 0, device="cuda")
+    step = make_train_step(model)
+    with pytest.raises(RuntimeError, match="no backward"):
+        step(state, make_batch_fn(cfg, 2, 16, 0)(0))
