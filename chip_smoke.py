@@ -222,8 +222,8 @@ The train phases run last, after qwen3-moe-30b-a3b's weights are freed:
                steps, under deterministic mode: per
                step through PShell.run, then from a fresh draw of the same
                seed through PShell.run_grouped of make_group_step (the
-               first window run eagerly, then captured; the second one
-               CUDA-graph replay), then with the shell off. The grouped
+               first window run eagerly; the second captured, then
+               replayed), then with the shell off. The grouped
                run's state (params, m, v, count, step), every step's
                metrics and every drained record equal the per-step run's
                to the bit (kept on the host); the shell-off params too;
@@ -237,6 +237,38 @@ The train phases run last, after qwen3-moe-30b-a3b's weights are freed:
                same state: losses and gradient norms within 1e-4, every
                parameter within 3 x the window's summed learning rates
                (``testing.check_train_parity``).
+ 38. coemu  — CoEmulator.verify at granite-8b's full width on 4 of its 36
+               layers (1.275e9 parameters; a verify holds a bf16 DUT state,
+               an f32 oracle state and a working copy of each, 44 B a
+               parameter, 56.1 GB), B=2, S=1024, 8 steps, the bf16 DUT the
+               train step on the "xla" path with the commit tap, under
+               deterministic mode, TF32 off: (a) the DUT against itself
+               (rtol 1e-6) step-locked, then group-locked in windows of 4
+               overlapped and serial: no divergence, max_rel_err exactly
+               0, the three reports equal, 1 eager + 1 graph window a
+               side; (b) inject_fault at layers 0, 2 and 3 named (0, k)
+               step-locked and group-locked; (c) determinism True; (d)
+               the bf16 DUT against the f32 oracle drawn from the same
+               seed: max_rel_err per layer and component and the loss
+               difference recorded, gated finite only, verified steps/s
+               step-locked, group-locked overlapped and serial (wall and
+               CUDA-event span a step, capture seconds, peak memory, each
+               side's state bytes); (e) a forward-only step on the kernels
+               (K1 at hd 128, bf16) against the same step on the plain
+               path in f32, and inject_fault at layer 2 against the clean
+               kernel step named (0, 2), K1 launched exactly 4 times a step
+               a kernel side (replays counted). The caller's states equal
+               their host copies after every verify and determinism;
+ 39. loop   — train_loop at granite-8b's full width on 2 of its 36 layers
+               (8.4 GB of DUT state a checkpoint), 8 steps, windows of 2,
+               checkpoints every 4 into a temporary directory the phase
+               deletes, under deterministic mode: fused with the clean
+               oracle (the same step, rtol 1e-5) publishes [4, 8]; an
+               oracle state from another seed raises CommitDivergence
+               with nothing published, fused and per step; a second
+               train_loop resumed from step 4 replays steps 4-7 with the
+               uninterrupted run's losses to the bit; seconds a save and
+               bytes written.
 
 K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
 head_dim 256 numbers under "hd256", K2 its qwen3 numbers under "qwen3".
@@ -304,6 +336,23 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_INTERVAL, TRAIN_STEPS = 2, 1024, 4, 8
 # 13.10, ..., 15.84 over 8 steps, H100); at 3e-5 it falls at every step
 TRAIN_LR = 3e-5
 TRAIN_TAPS = frozenset({"commits", "coverage", "router"})
+# the co-emulation cell: granite-8b at full width, 4 of its 36 layers
+# (1.275e9 parameters). A verify holds a bf16 DUT state (2 B params + 8 B
+# f32 moments), an f32 oracle state (4 + 8 B) and a working copy of each:
+# 44 B a parameter, 56.1 GB, plus the oracle's f32 gradients (5.1 GB) and
+# the activations; glm4-9b's embedding and head alone hold 1.242e9
+# parameters, and 2 of its 40 layers would need 72.6 GB
+COEMU_ARCH, COEMU_LAYERS = "granite-8b", 4
+COEMU_BATCH, COEMU_SEQ, COEMU_STEPS, COEMU_GROUP = 2, 1024, 8, 4
+COEMU_FAULT_LAYERS = (0, 2, 3)
+COEMU_KERNEL_FAULT_LAYER = 2
+# the example's tolerance for a bf16 DUT against the f32 oracle
+# (examples/coemu_verify.py); the phase gates only that the errors are
+# finite, since this error sits near it and can cross it
+COEMU_BF16_RTOL = 0.3
+# the train loop with the verifier: 2 of granite-8b's 36 layers (8.4 GB of
+# DUT state a checkpoint)
+LOOP_LAYERS, LOOP_STEPS, LOOP_INTERVAL, LOOP_EVERY = 2, 8, 2, 4
 
 
 def ptxas_info(text):
@@ -1180,8 +1229,8 @@ def train_phase():
     path (the reference's train path), under deterministic mode: 8 steps
     through PShell.run (one dispatch a step, serial drains), then from a
     fresh draw of the same seed through PShell.run_grouped of
-    make_group_step (the first window run eagerly, then captured; the
-    second one CUDA-graph replay), then run_grouped with the shell off.
+    make_group_step (the first window run eagerly; the second captured,
+    then replayed), then run_grouped with the shell off.
     Gates: the grouped run's whole state (params, m, v, count, step),
     every step's metrics and every drained record (commit rows, counts,
     dropped credits, CSRs) equal to the per-step run's to the bit, kept
@@ -1292,6 +1341,328 @@ def train_parity_phase():
     return {arch: check_train_parity(dataclasses.replace(
         get_smoke_config(arch), dtype="float32"))
         for arch in (ARCH, SSM_ARCH, HYB_ARCH, MOE_ARCH)}
+
+
+def _nbytes(tree):
+    from repro_torch.utils import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _recording(step, sink, on):
+    """``step`` that, while ``on[0]``, keeps a device copy of each step's
+    commit checksums in ``sink`` (no host sync; eager runs only)."""
+    from repro_torch.core.commit import layer_checksums
+
+    def recorded(state, batch):
+        out = step(state, batch)
+        if on[0]:
+            sink.append(layer_checksums(out[2]).detach().clone())
+        return out
+    return recorded
+
+
+def _layer_errors(sink):
+    """max over steps of the co-emulator's relative error, per layer and
+    component ([mean, mean |x|]), from a recorded DUT and oracle."""
+    import torch
+    n = len(sink) // 2
+    d = torch.stack(sink[0::2]).cpu().double().numpy()
+    o = torch.stack(sink[1::2]).cpu().double().numpy()
+    assert d.shape[0] == n
+    return (np.abs(d - o) / (np.abs(o) + 1e-6)).max(axis=0)
+
+
+def _timed_verify(emu, *args, **kw):
+    """emu.verify(...) between two synchronises: the report, and the wall
+    and CUDA-event span a verified step (the span includes the card's idle
+    time between dispatches)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    rep = emu.verify(*args, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rep, {"wall_s": wall, "verified_steps_per_s": rep.steps / wall,
+                 "wall_ms_per_step": wall * 1e3 / rep.steps,
+                 "device_span_ms_per_step":
+                     start.elapsed_time(end) / rep.steps}
+
+
+def _windows(emu):
+    return {side: dict(engine.windows) for side, engine in
+            emu._engines.items()}
+
+
+def coemu_phase():
+    """CoEmulator at granite-8b's full width on COEMU_LAYERS layers (see
+    the module docstring, phase 38). Returns the record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CoEmulator
+    from repro_torch.core.coemu import inject_fault
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.testing import (assert_trees_equal, deterministic,
+                                     forward_step)
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.utils import tree_leaves, tree_map
+
+    # the golden model in f32: no TF32 in its products
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    cfg = dataclasses.replace(get_config(COEMU_ARCH), num_layers=COEMU_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    commits = frozenset({"commits"})
+    model = build_model(cfg, Runtime(attention_impl="xla", taps=commits))
+    model32 = build_model(cfg32, Runtime(attention_impl="xla", taps=commits))
+    step, step32 = make_train_step(model), make_train_step(model32)
+    fn = make_batch_fn(cfg, COEMU_BATCH, COEMU_SEQ, 0)
+    batches = [fn(i) for i in range(COEMU_STEPS)]
+    rec: dict = {"arch": cfg.name, "layers": COEMU_LAYERS,
+                 "of_layers": get_config(COEMU_ARCH).num_layers,
+                 "batch": COEMU_BATCH, "seq": COEMU_SEQ,
+                 "steps": COEMU_STEPS, "group_size": COEMU_GROUP,
+                 "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+    def host(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    def _mem():
+        return {"allocated": torch.cuda.memory_allocated(),
+                "reserved": torch.cuda.memory_reserved(),
+                "max_allocated": torch.cuda.max_memory_allocated()}
+    mem: dict = {}
+    rec["memory"] = mem
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic():
+        state = init_state(model, 0, device="cuda")
+        kept = host(state)
+        rec["params"] = sum(t.numel() for t in
+                            tree_leaves(state["params"]))
+        # (a) clean self-verify, three modes; (b) faults named at full
+        # width, step-locked before any window is captured (an eager step
+        # beside the sides' graph pool would not fit), group-locked after,
+        # the same graphs replayed on the faulted and the clean copies
+        emu = CoEmulator(step, step, rtol=1e-6)
+        rep_s, t_s = _timed_verify(emu, state, state, batches)
+        mem["self_verify_step_locked"] = _mem()
+        faults = {}
+        for k in COEMU_FAULT_LAYERS:
+            bad = {**state, "params": inject_fault(state["params"], cfg, k)}
+            rep = emu.verify(bad, state, batches)
+            del bad
+            assert rep.diverged and \
+                (rep.first.step, rep.first.layer) == (0, k), (k, rep)
+            faults[k] = [rep.summary()]
+        rep_g, t_g = _timed_verify(emu, state, state, batches,
+                                   group_size=COEMU_GROUP)
+        mem["self_verify_group_locked"] = _mem()
+        windows = _windows(emu)
+        rep_ser, t_ser = _timed_verify(emu, state, state, batches,
+                                       group_size=COEMU_GROUP,
+                                       overlap=False)
+        for rep in (rep_s, rep_g, rep_ser):
+            assert rep.steps == COEMU_STEPS and not rep.diverged, rep
+            assert rep.max_rel_err == 0.0 and rep.loss_max_abs_diff == 0.0
+        assert rep_s == rep_g == rep_ser, (rep_s, rep_g, rep_ser)
+        assert windows == {side: {"graph": 1, "eager": 1}
+                           for side in ("dut", "orc")}, windows
+        rec["self_verify"] = {
+            "step_locked": t_s, "group_locked": t_g, "serial": t_ser,
+            "windows_first_grouped_call": windows,
+            "capture_s": {side: e.capture_s
+                          for side, e in emu._engines.items()},
+            "summary": rep_s.summary()}
+        for k in COEMU_FAULT_LAYERS:
+            bad = {**state, "params": inject_fault(state["params"], cfg, k)}
+            rep = emu.verify(bad, state, batches, group_size=COEMU_GROUP)
+            del bad
+            assert rep.diverged and \
+                (rep.first.step, rep.first.layer) == (0, k), (k, rep)
+            faults[k].append(rep.summary())
+        assert all(w["eager"] == 1 for w in _windows(emu).values())
+        rec["faults"] = faults
+        rec["windows_after_faults"] = _windows(emu)
+        del emu
+        torch.cuda.empty_cache()
+        # (c) determinism on clones
+        assert CoEmulator.determinism(step, state, batches[0])
+        assert_trees_equal(kept, state, "caller's state after (a)-(c)")
+        rec["determinism"] = True
+        torch.cuda.empty_cache()
+        # (d) the bf16 DUT against the f32 oracle from the same seed
+        state32 = init_state(model32, 0, device="cuda")
+        kept32 = host(state32)
+        rec["state_bytes"] = {"dut": _nbytes(state), "orc": _nbytes(state32)}
+        sink, on = [], [True]
+        emu = CoEmulator(_recording(step, sink, on),
+                         _recording(step32, sink, on), rtol=COEMU_BF16_RTOL)
+        torch.cuda.reset_peak_memory_stats()
+        rep_s, t_s = _timed_verify(emu, state, state32, batches)
+        mem["bf16_vs_f32_step_locked"] = _mem()
+        on[0] = False
+        rep_g1, t_g1 = _timed_verify(emu, state, state32, batches,
+                                     group_size=COEMU_GROUP)
+        rep_ser, t_ser = _timed_verify(emu, state, state32, batches,
+                                       group_size=COEMU_GROUP, overlap=False)
+        rep_g, t_g = _timed_verify(emu, state, state32, batches,
+                                   group_size=COEMU_GROUP)
+        mem["bf16_vs_f32_group_locked"] = _mem()
+        errs = _layer_errors(sink)
+        assert np.isfinite(errs).all() and \
+            np.isfinite(rep_s.loss_max_abs_diff), (errs, rep_s)
+        assert float(errs.max()) == rep_s.max_rel_err
+        assert rep_g == rep_g1 == rep_ser == rep_s, (rep_s, rep_g, rep_ser)
+        rec["bf16_vs_f32"] = {
+            "rtol": COEMU_BF16_RTOL, "summary": rep_s.summary(),
+            "diverged_at_rtol": rep_s.diverged,
+            "max_rel_err": rep_s.max_rel_err,
+            "max_rel_err_per_layer_mean_absmean": errs.tolist(),
+            "loss_max_abs_diff": rep_s.loss_max_abs_diff,
+            "step_locked": t_s, "group_locked": t_g, "serial": t_ser,
+            "group_locked_first_call": t_g1,
+            "windows": _windows(emu),
+            "capture_s": {side: e.capture_s
+                          for side, e in emu._engines.items()},
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del emu, sink
+        torch.cuda.empty_cache()
+        assert_trees_equal(kept, state, "caller's DUT state after (d)")
+        assert_trees_equal(kept32, state32, "caller's oracle state after (d)")
+        del kept, kept32
+        # (e) the kernel path: a forward-only step on K1
+        params, params32 = state["params"], state32["params"]
+        del state, state32
+        torch.cuda.empty_cache()
+        kstep = forward_step(build_model(cfg, Runtime(attention_impl="cuda",
+                                                      taps=commits)))
+        xstep32 = forward_step(model32)
+        kern: dict = {}
+        for g in (1, COEMU_GROUP):
+            sink, on = [], [g == 1]
+            emu = CoEmulator(_recording(kstep, sink, on),
+                             _recording(xstep32, sink, on),
+                             rtol=COEMU_BF16_RTOL)
+            reset_counts()
+            rep, t = _timed_verify(emu, params, params32, batches,
+                                   group_size=g)
+            expect_counts(counts(), {"k1": COEMU_LAYERS * COEMU_STEPS},
+                          f"kernel DUT, group {g}")
+            entry = {"summary": rep.summary(),
+                     "max_rel_err": rep.max_rel_err,
+                     "loss_max_abs_diff": rep.loss_max_abs_diff,
+                     "k1_launches": counts()["k1"], **t}
+            if g == 1:
+                errs = _layer_errors(sink)
+                assert np.isfinite(errs).all(), errs
+                entry["max_rel_err_per_layer_mean_absmean"] = errs.tolist()
+            else:
+                entry["windows"] = _windows(emu)
+            kern[f"group_{g}"] = entry
+            del emu, sink
+        k = COEMU_KERNEL_FAULT_LAYER
+        bad = inject_fault(params, cfg, k)
+        emu = CoEmulator(kstep, kstep)
+        for g in (1, COEMU_GROUP):
+            reset_counts()
+            rep = emu.verify(bad, params, batches, group_size=g)
+            assert rep.diverged and (rep.first.step, rep.first.layer) == \
+                (0, k), (g, rep)
+            expect_counts(counts(), {"k1": 2 * COEMU_LAYERS * COEMU_STEPS},
+                          f"kernel fault, group {g}")
+            kern[f"fault_group_{g}"] = rep.summary()
+        kern["windows_fault"] = _windows(emu)
+        rec["kernel_dut"] = kern
+        del emu, bad, params, params32
+        torch.cuda.empty_cache()
+    return rec
+
+
+def loop_phase():
+    """train_loop with the commit-stream verifier at granite-8b's full
+    width on LOOP_LAYERS layers (see the module docstring, phase 39).
+    Returns the record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.coemu import CommitDivergence
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.testing import deterministic
+    from repro_torch.train import (LoopConfig, init_state, make_train_step,
+                                   train_loop)
+
+    cfg = dataclasses.replace(get_config(COEMU_ARCH), num_layers=LOOP_LAYERS)
+    model = build_model(cfg, Runtime(attention_impl="xla",
+                                     taps=frozenset({"commits"})))
+    oracle = make_train_step(model)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    run = tmp / "run"
+    lc = LoopConfig(steps=LOOP_STEPS, batch=COEMU_BATCH, seq=COEMU_SEQ,
+                    sample_interval=LOOP_INTERVAL,
+                    checkpoint_every=LOOP_EVERY, checkpoint_dir=str(run))
+    rec: dict = {"arch": cfg.name, "layers": LOOP_LAYERS,
+                 "steps": LOOP_STEPS, "sample_interval": LOOP_INTERVAL,
+                 "checkpoint_every": LOOP_EVERY,
+                 "disk_free_bytes": shutil.disk_usage(tmp).free}
+    try:
+        with deterministic():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clean = train_loop(model, lc, resume=False, oracle_step=oracle)
+            torch.cuda.synchronize()
+            rec["clean"] = {"seconds": time.perf_counter() - t0,
+                            "profile": clean["profile"],
+                            "losses": clean["losses"]}
+            assert CheckpointManager(str(run)).steps() == [4, 8]
+            assert np.isfinite(clean["losses"]).all(), clean["losses"]
+            rec["state_bytes"] = _nbytes(clean["state"])
+            last = run / "step_00000008"
+            rec["bytes_written_per_save"] = sum(
+                f.stat().st_size for f in last.iterdir())
+            shutil.rmtree(last)
+            t0 = time.perf_counter()
+            CheckpointManager(str(run)).save(clean["state"], 8,
+                                             blocking=True)
+            rec["seconds_per_blocking_save"] = time.perf_counter() - t0
+            shutil.rmtree(last)         # resume from step 4 below
+            del clean["state"]
+            torch.cuda.empty_cache()
+            for fused in (True, False):
+                vdir = tmp / f"veto_{'fused' if fused else 'per_step'}"
+                bad = init_state(model, 99, device="cuda")
+                try:
+                    train_loop(model, dataclasses.replace(
+                        lc, steps=LOOP_EVERY, fused=fused,
+                        checkpoint_dir=str(vdir)), resume=False,
+                        oracle_step=oracle, oracle_state=bad)
+                except CommitDivergence as e:
+                    rec[f"veto_{'fused' if fused else 'per_step'}"] = str(e)
+                else:
+                    raise AssertionError("the faulted oracle did not veto")
+                assert CheckpointManager(str(vdir)).steps() == []
+                del bad
+                torch.cuda.empty_cache()
+            resumed = train_loop(model, lc, resume=True, oracle_step=oracle)
+            assert resumed["losses"] == clean["losses"][LOOP_EVERY:], (
+                resumed["losses"], clean["losses"])
+            assert CheckpointManager(str(run)).steps() == [4, 8]
+            rec["resumed_losses_bitwise"] = True
+            del resumed
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
 
 
 def host_us(torch, fn, calls=200, repeats=5):
@@ -1783,6 +2154,18 @@ def main() -> int:
     train_par = train_parity_phase()
     log(phase="train_parity", **train_par)
     record["train_parity"] = train_par
+
+    # ---------------------------------------------------------- 38. coemu --
+    coemu = coemu_phase()
+    log(phase="coemu", **coemu)
+    record["coemu"] = coemu
+    k1["launches_coemu_kernel_dut"] = coemu["kernel_dut"]["group_1"][
+        "k1_launches"]
+
+    # ----------------------------------------------------------- 39. loop --
+    loop = loop_phase()
+    log(phase="loop", **loop)
+    record["loop"] = loop
 
     kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels

@@ -1,0 +1,330 @@
+"""Fault-tolerant checkpointing: async, integrity-checked, on the JAX
+package's on-disk layout.
+
+Layout (one directory per step), the reference's exactly:
+    <dir>/step_000042/manifest.json     paths, shapes, dtypes, crc32s
+    <dir>/step_000042/<leaf-path>.npy   one file per leaf
+
+Leaves are named by their logical path in the JAX package's flatten order
+(``utils.tree_paths_sorted``: sorted dict keys), and bf16 (and fp8) leaves
+are stored as their raw unsigned-integer view with the logical dtype name
+in the manifest, as the reference stores ``ml_dtypes`` arrays. So a
+checkpoint written by either package restores in the other, bit for bit.
+
+Contract pieces:
+  - atomic publish: write into step_X.tmp, then rename — a crash mid-save
+    can never corrupt the latest checkpoint;
+  - async: the device-to-host copy happens at save() call (forced host
+    copies: the next window writes the train state in place), the file
+    I/O in a background thread; a background write that FAILS is never
+    silent — the error is recorded and re-raised on the next ``wait()``
+    or ``save()`` call;
+  - integrity: per-leaf crc32 verified on restore (detects torn writes),
+    raised as :class:`SnapshotIntegrityError`; ``restore(fallback=True)``
+    walks back to the newest VERIFIABLE snapshot instead of raising on a
+    corrupt/partial one;
+  - retention: keep the newest ``keep`` checkpoints.
+
+Restoring onto another mesh (``restore(shardings=...)``) waits for the
+sharding slice of the port and raises.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import threading
+import zlib
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.utils import tree_paths_sorted, tree_unflatten_sorted
+
+# numpy has no bf16 or fp8: such a leaf is stored as its raw view and the
+# logical dtype name goes into the manifest (the reference's _EXOTIC)
+_EXOTIC = {"bfloat16": (torch.bfloat16, torch.uint16),
+           "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8),
+           "float8_e5m2": (torch.float8_e5m2, torch.uint8)}
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _encode(t: torch.Tensor):
+    """A host tensor as the numpy array written to disk and its logical
+    dtype name."""
+    name = _dtype_name(t)
+    if name in _EXOTIC:
+        return t.view(_EXOTIC[name][1]).numpy(), name
+    return t.numpy(), name
+
+
+def _decode(raw: np.ndarray, dtype_name: str) -> torch.Tensor:
+    t = torch.from_numpy(raw)
+    return t.view(_EXOTIC[dtype_name][0]) if dtype_name in _EXOTIC else t
+
+
+def _host_copy(x):
+    """A forced host copy: never a view of a buffer the caller (or the
+    next window's replay) writes again."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", copy=True)
+    return torch.as_tensor(np.array(x))
+
+
+def _leaf_paths(tree) -> List[str]:
+    return [p for p, _ in tree_paths_sorted(tree)]
+
+
+class SnapshotIntegrityError(IOError):
+    """A snapshot failed its content-digest check (torn write, truncated
+    directory, bit flip). Carries the offending ``step`` so a fallback
+    path can log exactly which snapshot was written off."""
+
+    def __init__(self, message: str, step: Optional[int] = None):
+        super().__init__(message)
+        self.step = step
+
+
+def _tree_digest(leaves) -> int:
+    """Order-sensitive crc32 over every leaf's raw bytes — the snapshot's
+    content digest (bf16 leaves by their raw 2-byte words, as the
+    reference digests ``ml_dtypes`` arrays)."""
+    crc = 0
+    for x in leaves:
+        raw = _encode(x.detach().cpu())[0] if torch.is_tensor(x) \
+            else np.asarray(x)
+        crc = zlib.crc32(raw.tobytes(), crc)
+    return crc
+
+
+def step_to_window(step: int, interval: int) -> int:
+    """Step→window mapping for resume cursors: the number of
+    ``interval``-sized windows fully contained in ``step`` committed steps
+    (the tail window of a non-divisible stream counts once it completed —
+    ceil division, matching ``plan_windows`` boundaries)."""
+    interval = max(1, interval)
+    return -(-step // interval)
+
+
+def _place(tree, like, copy: bool = True):
+    """``tree``'s tensors, each on the device of ``like``'s leaf at its
+    path (the host where ``like`` is None or on the meta device), copied
+    even where already there unless ``copy=False``; shapes and dtypes must
+    match ``like``'s."""
+    if like is None:
+        return tree_unflatten_sorted(
+            tree, [t.clone() for _, t in tree_paths_sorted(tree)])
+    out = []
+    for (path, t), (ref_path, ref) in zip(tree_paths_sorted(tree),
+                                          tree_paths_sorted(like),
+                                          strict=True):
+        if path != ref_path or tuple(t.shape) != tuple(ref.shape) \
+                or t.dtype != ref.dtype:
+            raise ValueError(f"{path}: the snapshot holds {t.dtype}"
+                             f"{list(t.shape)}, the state {ref.dtype}"
+                             f"{list(ref.shape)}")
+        device = "cpu" if ref.device.type == "meta" else ref.device
+        out.append(t.to(device, copy=copy))
+    return tree_unflatten_sorted(like, out)
+
+
+class MemorySnapshotStore:
+    """In-process snapshot target with the :class:`CheckpointManager`
+    save/restore contract (atomic publish, retention, latest-step restore)
+    but no file I/O: leaves are host-copied at ``save`` and the snapshot
+    becomes visible in one reference swap. ``restore`` returns copies
+    (onto ``like``'s devices where given), because the port's steps update
+    their state in place and would otherwise write into the snapshot."""
+
+    def __init__(self, keep: int = 2):
+        self.keep = keep
+        self._snaps: Dict[int, Any] = {}
+        self._digests: Dict[int, int] = {}
+
+    def save(self, state, step: int, blocking: bool = True):
+        flat = tree_paths_sorted(state)
+        host = [_host_copy(x) for _, x in flat]
+        self._digests[step] = _tree_digest(host)
+        self._snaps[step] = tree_unflatten_sorted(state, host)
+        for s in sorted(self._snaps)[:-self.keep]:
+            del self._snaps[s]
+            self._digests.pop(s, None)
+
+    def wait(self):
+        pass                                        # saves are synchronous
+
+    def steps(self) -> List[int]:
+        return sorted(self._snaps)
+
+    def verify(self, step: int) -> bool:
+        """Re-digest a snapshot's leaves against the digest recorded at
+        save time — False means the stored bytes were mutated after
+        publish."""
+        if step not in self._snaps:
+            return False
+        leaves = [x for _, x in tree_paths_sorted(self._snaps[step])]
+        return _tree_digest(leaves) == self._digests.get(step)
+
+    def restore(self, like=None, step: Optional[int] = None,
+                fallback: bool = False):
+        if not self._snaps:
+            raise FileNotFoundError("no snapshots published")
+        step = max(self._snaps) if step is None else step
+        candidates = [step] + ([s for s in sorted(self._snaps, reverse=True)
+                                if s < step] if fallback else [])
+        for s in candidates:
+            if s in self._snaps and self.verify(s):
+                return _place(self._snaps[s], like), s
+        raise SnapshotIntegrityError(
+            f"snapshot digest mismatch at step {step}"
+            + (" (no older verifiable snapshot)" if fallback else ""),
+            step=step)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # ------------------------------------------------------------- save ---
+    def save(self, state, step: int, blocking: bool = False):
+        """Snapshot to host memory now; write files asynchronously. A
+        prior async save that FAILED (disk full, permission lost) raises
+        here — a failed write must never be silently absorbed while the
+        caller keeps training past it."""
+        self.wait()                                # one in-flight save max
+        flat = tree_paths_sorted(state)
+        paths = [p for p, _ in flat]
+        host_leaves = [_host_copy(x) for _, x in flat]
+
+        def write():
+            tmp = self.dir / f"step_{step:08d}.tmp"
+            final = self.dir / f"step_{step:08d}"
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
+            manifest = {"step": step, "leaves": []}
+            for p, t in zip(paths, host_leaves):
+                fp = tmp / (p.replace("/", "__") + ".npy")
+                raw, dtype_name = _encode(t)
+                np.save(fp, raw)
+                manifest["leaves"].append({
+                    "path": p, "file": fp.name,
+                    "shape": list(t.shape), "dtype": dtype_name,
+                    "crc32": zlib.crc32(raw.tobytes()),
+                    # one device, no sharding (the sharding slice)
+                    "sharding": "None",
+                })
+            with open(tmp / "manifest.json", "w") as f:
+                json.dump(manifest, f)
+            if final.exists():
+                shutil.rmtree(final)
+            tmp.rename(final)                       # atomic publish
+            self._gc()
+
+        if blocking:
+            write()
+        else:
+            def guarded():
+                try:
+                    write()
+                except BaseException as e:  # noqa: BLE001 — surfaced at
+                    self._error = e         # the next wait()/save()
+            self._thread = threading.Thread(target=guarded, daemon=True)
+            self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _gc(self):
+        steps = sorted(self.steps())
+        for s in steps[:-self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # ---------------------------------------------------------- restore ---
+    def steps(self) -> List[int]:
+        return sorted(int(p.name.split("_")[1]) for p in self.dir.glob(
+            "step_*") if p.is_dir() and not p.name.endswith(".tmp"))
+
+    def verify(self, step: int) -> bool:
+        """Integrity-check one on-disk snapshot without building a tree:
+        readable manifest, every leaf file present, every crc32 matching.
+        False on ANY torn/partial/corrupt state."""
+        d = self.dir / f"step_{step:08d}"
+        try:
+            with open(d / "manifest.json") as f:
+                manifest = json.load(f)
+            for meta in manifest["leaves"]:
+                raw = np.load(d / meta["file"])
+                if zlib.crc32(raw.tobytes()) != meta["crc32"]:
+                    return False
+        except Exception:       # noqa: BLE001 — unreadable IS unverifiable
+            return False
+        return True
+
+    def _load_step(self, like, step: int):
+        d = self.dir / f"step_{step:08d}"
+        try:
+            with open(d / "manifest.json") as f:
+                manifest = json.load(f)
+            by_path = {l["path"]: l for l in manifest["leaves"]}
+            leaves = []
+            for p in _leaf_paths(like):
+                meta = by_path[p]
+                raw = np.load(d / meta["file"])
+                if zlib.crc32(raw.tobytes()) != meta["crc32"]:
+                    raise SnapshotIntegrityError(
+                        f"checksum mismatch for {p} in step {step}",
+                        step=step)
+                leaves.append(_decode(raw, meta["dtype"]))
+        except SnapshotIntegrityError:
+            raise
+        except Exception as e:  # torn write: missing/truncated/unparseable
+            raise SnapshotIntegrityError(
+                f"unreadable snapshot at step {step}: {e!r}",
+                step=step) from e
+        return tree_unflatten_sorted(like, leaves)
+
+    def restore(self, like, step: Optional[int] = None,
+                shardings=None, fallback: bool = False) -> Any:
+        """Load into the structure of ``like``, each leaf onto the device
+        of ``like``'s leaf (the host for a meta-device ``like``). A
+        corrupt or partially-written snapshot raises
+        :class:`SnapshotIntegrityError`; with ``fallback=True`` the restore
+        walks back to the newest OLDER snapshot that verifies instead (the
+        returned step tells the caller how far back it landed). Returns
+        ``(tree, step)``."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "restore(shardings=...) waits for the sharding slice of "
+                "the port")
+        steps = self.steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        step = steps[-1] if step is None else step
+        candidates = [step] + ([s for s in sorted(steps, reverse=True)
+                                if s < step] if fallback else [])
+        tree, landed, err = None, None, None
+        for s in candidates:
+            try:
+                tree, landed = self._load_step(like, s), s
+                break
+            except SnapshotIntegrityError as e:
+                err = err or e
+        if tree is None:
+            raise err or SnapshotIntegrityError(
+                f"no verifiable snapshot at or below step {step}",
+                step=step)
+        return _place(tree, like, copy=False), landed

@@ -12,9 +12,16 @@ each window length and then runs each window as one replay:
     its state in place (the KV cache, the train state), so the state's
     tensors are the graph's own static buffers: a state leaf that is not
     one of them (e.g. the previous replay's ``pos`` output) is copied in;
-  * one memory pool for every capture of a ``WindowGraphs``: the full
-    window and the tail window share it, and are replayed in the order
-    they were captured (all full windows, then the tail);
+  * one memory pool (``GraphPool``: the pool and the side stream its
+    captures run on) for every capture of a ``WindowGraphs``: the full
+    window and the tail window share it and reuse each other's freed
+    memory, and are replayed in the order they were captured (all full
+    windows, then the tail). ``pool=`` hands several ``WindowGraphs`` one
+    pool, for graphs that are always replayed in the order they were
+    captured, each one's outputs consumed before the next replays (the
+    co-emulator's two sides). A capture first empties the allocator's
+    cache: the memory the eager windows freed goes back to the card,
+    where the pool can take it;
   * outputs live in the pool and each replay writes them anew: the
     scheduler queues its pinned copies of the shell snapshot and ``ys``
     on the replay's stream, before the next replay;
@@ -27,8 +34,11 @@ each window length and then runs each window as one replay:
     step on clones of the state and shell and discards it (its launches
     are taken back too: they touch no data of the run); ``warmup="eager"``
     runs the first window of each length eagerly as a real window and
-    captures after it (for a state too large to clone, such as a train
-    state). ``windows`` counts the windows each way ran.
+    captures that length when it comes again, just before its first
+    replay (for a state too large to clone, such as a train state; a
+    length that never comes again is never captured, and no eager window
+    runs beside a pool that is already held). ``windows`` counts the
+    windows each way ran.
 
 A failed capture raises; nothing falls back to the eager engine.
 """
@@ -67,12 +77,30 @@ def _diff(after, before):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
-def capture_graph(fn, pool=None):
-    """fn() recorded once in a CUDA graph on a side stream; returns the
-    graph and fn's result, whose storage each replay writes anew. The
-    launches fn counts while it is recorded are taken back (a capture
-    executes nothing)."""
-    stream = torch.cuda.Stream()
+class GraphPool:
+    """A CUDA-graph memory pool and the one side stream that every capture
+    into it runs on: the caching allocator hands a freed block only to a
+    later allocation on the block's own stream, so captures that are to
+    reuse each other's freed memory share the stream as well as the
+    pool. Created on the card at the first capture."""
+
+    def __init__(self):
+        self._handle = None
+        self._stream = None
+
+    def handle_and_stream(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream()
+        return self._handle, self._stream
+
+
+def capture_graph(fn, pool=None, stream=None):
+    """fn() recorded once in a CUDA graph on a side stream (``stream``, or
+    a new one); returns the graph and fn's result, whose storage each
+    replay writes anew. The launches fn counts while it is recorded are
+    taken back (a capture executes nothing)."""
+    stream = stream if stream is not None else torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
@@ -127,7 +155,8 @@ class WindowGraphs:
     """``engine`` run as one CUDA-graph replay a window (module docstring).
     Call it as the engine itself: ``graphs(state, shell, xs)``."""
 
-    def __init__(self, engine: Callable, *, warmup: str = "clone"):
+    def __init__(self, engine: Callable, *, warmup: str = "clone",
+                 pool: "GraphPool | None" = None):
         if warmup not in ("clone", "eager"):
             raise ValueError(f"unknown warm-up {warmup!r}")
         self.engine = engine
@@ -136,7 +165,8 @@ class WindowGraphs:
         self.windows = {"graph": 0, "eager": 0}
         self.warmup_launches: Dict[str, int] = {}
         self.capture_s = 0.0
-        self._pool = None
+        self._pool = pool if pool is not None else GraphPool()
+        self._warm: set = set()     # lengths run eagerly ("eager" warm-up)
 
     def _device(self, state):
         for t in tree_leaves(state):
@@ -150,8 +180,8 @@ class WindowGraphs:
     def _capture(self, state, shell, xs):
         t0 = time.perf_counter()
         device = self._device(state)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
         shell_in = tree_clone(shell)
         xs_in = tree_map(lambda x: _static_like(x, device), xs)
         tree_map(_fill, xs_in, xs)
@@ -164,8 +194,10 @@ class WindowGraphs:
             _add_counts(delta, -1)
             for k, n in delta.items():
                 self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
+        handle, stream = self._pool.handle_and_stream()
         graph, out = capture_graph(
-            lambda: self.engine(state, shell_in, xs_in), pool=self._pool)
+            lambda: self.engine(state, shell_in, xs_in), pool=handle,
+            stream=stream)
         self.graphs[_window_len(xs)] = _Captured(graph, state, shell_in,
                                                  xs_in, out)
         self.capture_s += time.perf_counter() - t0
@@ -181,11 +213,10 @@ class WindowGraphs:
     def __call__(self, state, shell, xs):
         g = _window_len(xs)
         if g not in self.graphs:
-            if self.warmup == "eager":
-                out = self.engine(state, shell, xs)
+            if self.warmup == "eager" and g not in self._warm:
+                self._warm.add(g)
                 self.windows["eager"] += 1
-                self._capture(out[0], out[1], xs)
-                return out
+                return self.engine(state, shell, xs)
             self._capture(state, shell, xs)
         self.windows["graph"] += 1
         return self.graphs[g].replay(state, shell, xs)

@@ -146,11 +146,14 @@ def group_reset(shell):
 
 
 def stack_batches(group):
-    """Stack a window's per-step items into one (g, ...) host-numpy stack
-    per leaf."""
+    """Stack a window's per-step items into one (g, ...) stack per leaf:
+    host arrays into a host-numpy stack, tensors with ``torch.stack`` on
+    their own device."""
     first = group[0]
     if isinstance(first, dict):
         return {k: stack_batches([g[k] for g in group]) for k in first}
+    if torch.is_tensor(first):
+        return torch.stack(list(group))
     return np.stack([np.asarray(x) for x in group])
 
 
@@ -241,10 +244,10 @@ class PShell:
     def compile_group(self, group_step, donate: bool = True, device=None):
         """The group step as the engine of one dispatch a window, cached
         per (function object, donation, device type). On a card: a
-        ``WindowGraphs`` that captures the first window of each length
-        after running it eagerly (a train state is too large to clone) and
-        replays one CUDA graph a window after that. On host tensors: the
-        group step itself. ``donate=False`` clones the incoming state
+        ``WindowGraphs`` that runs the first window of each length eagerly
+        (a train state is too large to clone), captures that length when
+        it comes again and replays one CUDA graph a window from then on.
+        On host tensors: the group step itself. ``donate=False`` clones the incoming state
         first, so the caller's state survives (the reference's
         non-donating dispatch).
 

@@ -174,23 +174,27 @@ class WindowScheduler:
     def windows(self, items: Iterable[Any]):
         return iter_windows(items, self.interval)
 
-    def run(self, engine, windows, state, shell, *,
+    def run(self, engine, windows, state, shell, *, start_step: int = 0,
             on_drain: Optional[Callable] = None,
             on_dispatch: Optional[Callable] = None,
+            on_window: Optional[Callable] = None,
             barriers: Sequence[DrainBarrier] = ()):
         """Drive ``engine`` over ``windows`` (an iterable of per-step item
-        lists). Returns ``(state, last_ys, shell)``.
+        lists). Returns ``(state, last_ys, shell)``. ``start_step`` is the
+        global index of the first window's first step (a resumed run):
+        plans, drain ids and barrier boundaries count from it.
 
         Callbacks: ``on_dispatch(plan, state)`` fires right after a
         window's dispatch is enqueued; ``on_drain(plan, records, ys)`` fires
         once per window in window order with the drained shell records and
         the window's ys as host tensors — raising here vetoes any barrier
-        commit that depends on the window.
+        commit that depends on the window; ``on_window(plan, state)`` fires
+        after the window's host phase (profiler step accounting).
         """
         timer = self.timer
         pending = None              # (plan, host_snapshot, host_ys, event)
         last_ys = None
-        step = 0
+        step = start_step
         index = 0
         it = iter(windows)
         while True:
@@ -228,6 +232,8 @@ class WindowScheduler:
                         self._flush(pending, on_drain)
                         pending = None
                         b.action(state, plan.boundary)
+            if on_window is not None:
+                on_window(plan, state)
             last_ys = ys
             step += len(items)
             index += 1

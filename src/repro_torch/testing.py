@@ -1,8 +1,9 @@
 """Checks of the port on the card, shared by ``chip_smoke.py`` and
 ``tests/test_torch_gpu.py``: the kernels each path launches, a scheduler
 timer that forbids host syncs inside a decode window, K1 to K5 held
-against their plain versions, and the commit-tapped forward with its
-Scale-Down replay on the card against the same on the host."""
+against their plain versions, the commit-tapped forward with its
+Scale-Down replay on the card against the same on the host, the train
+windows, and a forward-only step that the co-emulator verifies."""
 from __future__ import annotations
 
 import contextlib
@@ -777,3 +778,19 @@ def check_train_parity(cfg, steps=3, B=2, S=16, seed=0):
     assert param_err <= out["param_limit"], case
     assert np.array_equal(ma["lr"], mb["lr"]), case
     return out
+
+
+# ------------------------------------------------- co-emulation, kernels --
+def forward_step(model):
+    """A forward-only co-emulation step ``(params, batch) -> (params,
+    {"loss"}, aux)`` on ``model.loss``: the state is the params, returned
+    as they came. On ``attention_impl="cuda"`` the forward launches the
+    kernels, so ``CoEmulator`` verifies them through the API it verifies
+    the train step with. The batch's arrays go to the params' device."""
+    def step(params, batch):
+        device = params["embed"]["tok"].device
+        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            loss, (_, aux) = model.loss(params, batch)
+        return params, {"loss": loss}, aux
+    return step

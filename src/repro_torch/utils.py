@@ -70,6 +70,51 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _walk_sorted(t: Any, path: tuple, out: list) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _walk_sorted(t[k], path + (str(k),), out)
+    elif isinstance(t, (tuple, list)):
+        for i, v in enumerate(t):
+            _walk_sorted(v, path + (str(i),), out)
+    elif t is not None:
+        out.append(("/".join(path), t))
+
+
+def tree_paths_sorted(tree: Any) -> list:
+    """``(path, leaf)`` pairs in the JAX package's flatten order
+    (``jax.tree_util.tree_flatten_with_path``): dict keys sorted, tuples
+    and lists in order, ``None`` holding no leaf. A path joins the keys
+    and indices with "/" (e.g. ``params/stack/blocks/0/attn/k/w``)."""
+    # module-level walkers, not nested recursive closures: a closure that
+    # calls itself sits in a reference cycle, which would keep the leaves
+    # (gigabytes of device memory) alive until the garbage collector runs
+    out: list = []
+    _walk_sorted(tree, (), out)
+    return out
+
+
+def _rebuild(t: Any, path: tuple, by_path: dict) -> Any:
+    if isinstance(t, dict):
+        return {k: _rebuild(v, path + (str(k),), by_path)
+                for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_rebuild(v, path + (str(i),), by_path)
+                       for i, v in enumerate(t))
+    return None if t is None else by_path["/".join(path)]
+
+
+def tree_unflatten_sorted(tree: Any, leaves) -> Any:
+    """``tree``'s containers, in their own key order, with its leaves
+    replaced by ``leaves`` given in ``tree_paths_sorted`` order."""
+    leaves = list(leaves)
+    paths = [p for p, _ in tree_paths_sorted(tree)]
+    if len(leaves) != len(paths):
+        raise ValueError(f"{len(leaves)} leaves for a tree of "
+                         f"{len(paths)}")
+    return _rebuild(tree, (), dict(zip(paths, leaves)))
+
+
 def tree_unflatten(tree: Any, leaves) -> Any:
     """``tree``'s containers with its leaves replaced, in ``tree_leaves``
     order, by ``leaves``."""

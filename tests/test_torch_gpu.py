@@ -2,7 +2,8 @@
 decode-attention (K2), selective-scan (K3), RG-LRU scan (K4) and grouped
 expert GEMM (K5) kernels against their plain versions on the card, and
 the serve slice and the commit-tapped forward with its Scale-Down replay
-on the card against the same on the host. They skip where CUDA is absent.
+on the card against the same on the host, and the co-emulator's
+group-locked windows. They skip where CUDA is absent.
 On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -58,7 +59,7 @@ from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  check_ssm_scan, check_ssm_scan_bitwise,
                                  layer_kernels, rglru_scan_inputs,
                                  serve_kernels, tally)
-from repro_torch.utils import tree_map  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 ARCHS = ["glm4-9b", "granite-8b", "falcon-mamba-7b", "recurrentgemma-2b",
@@ -736,3 +737,118 @@ def test_make_train_step_on_a_cuda_model_raises_on_the_card(cuda):
     step = make_train_step(model)
     with pytest.raises(RuntimeError, match="no backward"):
         step(state, make_batch_fn(cfg, 2, 16, 0)(0))
+
+
+# ------------------------------------------------------------ co-emulation --
+def _coemu_setup(arch, dtype=None, seed=1, impl="xla"):
+    from repro_torch.train import init_state, make_train_step
+    cfg = get_smoke_config(arch)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg, Runtime(attention_impl=impl,
+                                     taps=frozenset({"commits"})))
+    batches = [make_batch_fn(cfg, 2, 16, 0)(i) for i in range(8)]
+    return (cfg, model, make_train_step(model),
+            init_state(model, seed, device="cuda"), batches)
+
+
+def _static_ptrs(graphs):
+    return {t.data_ptr() for c in graphs.graphs.values()
+            for t in tree_leaves(c.state_in)}
+
+
+@pytest.mark.parametrize("fault_layer", [0, 1])
+def test_group_locked_coemu_on_the_card_localizes_a_fault(cuda,
+                                                          fault_layer):
+    """CoEmulator(step, step): one step function on both sides, yet each
+    side replays graphs of its own whose static state is that side's
+    working copy (one shared graph would copy each side's state into the
+    other's buffers from the second window on)."""
+    from repro_torch.core import CoEmulator
+    from repro_torch.core.coemu import inject_fault
+    from repro_torch.core.graphs import WindowGraphs
+    cfg, _, step, state, batches = _coemu_setup("glm4-9b")
+    bad = {**state, "params": inject_fault(state["params"], cfg,
+                                           fault_layer)}
+    emu = CoEmulator(step, step)
+    with deterministic():
+        rep = emu.verify(bad, state, batches, group_size=4)
+    assert rep.diverged and rep.steps == 8
+    assert (rep.first.step, rep.first.layer) == (0, fault_layer)
+    dut, orc = emu._engines["dut"], emu._engines["orc"]
+    assert isinstance(dut, WindowGraphs) and isinstance(orc, WindowGraphs)
+    assert dut is not orc
+    assert dut.windows == orc.windows == {"graph": 1, "eager": 1}
+    assert _static_ptrs(dut) == {t.data_ptr()
+                                 for t in tree_leaves(emu._work["dut"])}
+    assert _static_ptrs(orc) == {t.data_ptr()
+                                 for t in tree_leaves(emu._work["orc"])}
+    assert not _static_ptrs(dut) & _static_ptrs(orc)
+
+
+def test_a_second_verify_allocates_no_second_working_copy(cuda):
+    from repro_torch.core import CoEmulator
+    _, _, step, state, batches = _coemu_setup("granite-8b")
+    emu = CoEmulator(step, step, rtol=1e-6)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    with deterministic():
+        first = emu.verify(state, state, batches, group_size=4)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        work = dict(emu._work)
+        second = emu.verify(state, state, batches, group_size=4)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - allocated < state_bytes // 2
+    assert emu._work["dut"] is work["dut"] and emu._work["orc"] is work["orc"]
+    assert emu._engines["dut"].windows == {"graph": 3, "eager": 1}
+    assert first == second and first.max_rel_err == 0.0
+
+
+def test_grouped_report_equals_step_locked_on_the_card(cuda):
+    """A bf16 DUT against an f32 oracle drawn from the same seed: the
+    group-locked reports (graph replays, a tail of 2, overlapped and
+    serial) equal the step-locked report field by field, and each side's
+    final working state equals the step-locked run's to the bit."""
+    from repro_torch.core import CoEmulator
+    _, _, step16, s16, batches = _coemu_setup("granite-8b")
+    _, _, step32, s32, _ = _coemu_setup("granite-8b", "float32")
+    with deterministic():
+        es = CoEmulator(step16, step32, rtol=0.3)
+        rep_s = es.verify(s16, s32, batches)
+        eg = CoEmulator(step16, step32, rtol=0.3)
+        rep_g = eg.verify(s16, s32, batches, group_size=3)
+        for side in ("dut", "orc"):
+            assert_trees_equal(eg._work[side], es._work[side], side)
+        rep_ser = eg.verify(s16, s32, batches, group_size=3, overlap=False)
+    assert rep_g == rep_s == rep_ser
+    assert rep_s.steps == 8 and 0 < rep_s.max_rel_err < float("inf")
+    assert eg._engines["dut"].windows == {"graph": 1 + 3, "eager": 2}
+
+
+def test_kernel_forward_step_verifies_on_the_card(cuda):
+    """The forward-only step on the kernels ("cuda": K1) against the same
+    step on the plain path in f32, and a fault at layer 1 against the
+    clean kernel step: named at (0, 1); K1 launched once a layer a step on
+    each kernel side, replays counted."""
+    from repro_torch.core import CoEmulator
+    from repro_torch.core.coemu import inject_fault
+    from repro_torch.testing import forward_step
+    cfg, kmodel, _, _, batches = _coemu_setup("glm4-9b", "float32",
+                                              impl="cuda")
+    kstep = forward_step(kmodel)
+    xstep = forward_step(build_model(cfg, Runtime(
+        attention_impl="xla", taps=frozenset({"commits"}))))
+    params = build_model(cfg).init(1, device="cuda")
+    L = cfg.num_layers
+    for group in (1, 4):
+        KERNELS["k1"].launches = 0
+        rep = CoEmulator(kstep, xstep, rtol=1e-3).verify(
+            params, params, batches, group_size=group)
+        assert not rep.diverged, rep.summary()
+        assert KERNELS["k1"].launches == L * 8
+        KERNELS["k1"].launches = 0
+        rep = CoEmulator(kstep, kstep).verify(
+            inject_fault(params, cfg, 1), params, batches, group_size=group)
+        assert (rep.first.step, rep.first.layer) == (0, 1)
+        assert KERNELS["k1"].launches == 2 * L * 8
