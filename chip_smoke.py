@@ -270,6 +270,49 @@ The train phases run last, after qwen3-moe-30b-a3b's weights are freed:
                uninterrupted run's losses to the bit; seconds a save and
                bytes written.
 
+The ZP-Scope plane, remat and the examples (this order in the run: phase
+40 right after phase 10, on phase 3's weights; 41, 42 and the examples
+after phase 39):
+
+ 40. scope-serve — serve() at phase 3's cell and weights four times: the
+               graph engine with the plane off, with the plane on unfused
+               (ScopeSpec(every_n_windows=2): the counter update runs
+               eagerly after each replay), with the plane fused (the update
+               captured into each window's graph: still one replay a
+               window), and the eager engine with the plane on. Each
+               run's launch counts are set to 0 just before and must read
+               exactly 40 x 63 K2 after, every window under sync-debug
+               mode "error"; tokens, every drained FIFO row and CSR and
+               the final cache equal the plane-off run's to the bit; every
+               sample's cumulative digest and digest ring equal
+               ``digest_tree`` of the same windows' host tokens. Decode
+               tok/s of each run, and the device operations and time of
+               one eager counter update (profiled);
+ 41. scope-loop — phase 39's train_loop cell (granite-8b, 2 of 36 layers,
+               8 steps, windows of 2, checkpoints every 4) with the plane
+               off and on (ScopeSpec()), fused and per step, under
+               deterministic mode: losses and the final state equal to
+               the bit, and each published checkpoint's manifest (every
+               leaf's path, shape, dtype and crc32) equal; the report
+               counts 4 windows (8 steps fused; per step, a window of
+               scalar losses counts one step, as in the reference) and
+               its gate bits are folded into the coverage map. Then the
+               fused run's drained window digests through a
+               CommitStreamVerifier whose oracle is the same bf16 step,
+               with the expected digests of its own run: digest_hits 4;
+               an oracle from another seed misses, falls through to the
+               row compare and raises CommitDivergence;
+ 42. remat  — phase 36's train cell (glm4-9b, 8 of 40 layers, B=2,
+               S=1024, windows of 4, 8 steps, lr 3e-5, the "xla" path)
+               through run_grouped under remat "none", "dots" and "full":
+               losses and updated params equal to the bit across the three
+               (deterministic mode), no port kernel launched; peak memory
+               and a window replay timed with CUDA events for each, and
+               the bytes one forward (B=2, S=1024) leaves allocated for
+               the backward and its forward and backward peaks;
+ examples — the five examples/torch_*.py with --device cuda at their
+               smoke budgets, each in a subprocess that must exit 0.
+
 K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
 head_dim 256 numbers under "hd256", K2 its qwen3 numbers under "qwen3".
 The last line is {"ok": true,
@@ -353,6 +396,14 @@ COEMU_BF16_RTOL = 0.3
 # the train loop with the verifier: 2 of granite-8b's 36 layers (8.4 GB of
 # DUT state a checkpoint)
 LOOP_LAYERS, LOOP_STEPS, LOOP_INTERVAL, LOOP_EVERY = 2, 8, 2, 4
+# the ZP-Scope plane's read rate in the scoped serve (phase 40)
+SCOPE_EVERY = 2
+# the examples and their smoke budgets, run on the card last
+EXAMPLES = (("torch_quickstart.py", ["--steps", "4"]),
+            ("torch_coemu_verify.py", ["--steps", "2"]),
+            ("torch_train_e2e.py", ["--steps", "20"]),
+            ("torch_fault_tolerance.py", []),
+            ("torch_scale_down_extraction.py", []))
 
 
 def ptxas_info(text):
@@ -1665,6 +1716,338 @@ def loop_phase():
     return rec
 
 
+def _unfused_update_ops(spec, ys):
+    """Device operations (kernels, copies, fills) one eager counter update
+    of the plane launches on a window's ys, read from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.scope import make_update, scope_init
+    upd = make_update(spec)
+    sc = scope_init(spec, device="cuda")
+    upd(sc, ys)                      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        upd(sc, ys)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"device_ops": len(evs),
+            "device_us": sum(e.time_range.elapsed_us() for e in evs)}
+
+
+def scope_serve_phase(cfg, params):
+    """serve() at the serve cell with the ZP-Scope plane (phase 40): the
+    graph engine with the plane off, on unfused and on fused, then the
+    eager engine with the plane on; all launch counts set to 0 just before
+    each run, every window under sync-debug mode "error". Returns the
+    record."""
+    import torch
+
+    from repro_torch.core.scope import ScopeSpec
+    from repro_torch.launch.serve import serve
+    from repro_torch.testing import (NoSyncInWindow, assert_serve_equal,
+                                     check_scope_digests,
+                                     serve_window_digests, serve_kernels)
+
+    steps = GEN - 1
+    n_windows = -(-steps // INTERVAL)
+    _, total_counts = serve_kernels(cfg, steps)
+    spec = ScopeSpec(every_n_windows=SCOPE_EVERY)
+    runs, rec = {}, {"every_n_windows": SCOPE_EVERY, "windows": n_windows}
+    for name, graph, sc in (("off", True, None), ("unfused", True, spec),
+                            ("fused", True,
+                             dataclasses.replace(spec, fuse=True)),
+                            ("eager", False, spec)):
+        timer = NoSyncInWindow()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = serve(cfg, BATCH, PROMPT, GEN, seed=0,
+                    sample_interval=INTERVAL, device="cuda", params=params,
+                    timer=timer, graph=graph, return_cache=True, scope=sc)
+        got = counts()
+        expect_counts(got, total_counts, f"scope serve ({name})")
+        assert timer.windows == n_windows, (name, timer.windows)
+        assert out["windows_by_engine"] == {
+            "graph": n_windows if graph else 0,
+            "eager": 0 if graph else n_windows}, out["windows_by_engine"]
+        r = {k: out[k] for k in ("decode_s", "decode_tok_per_s",
+                                 "decode_window_ms", "capture_s", "engine")}
+        r.update(k2_launches=got["k2"],
+                 max_memory_allocated=torch.cuda.max_memory_allocated())
+        if sc is not None:
+            rep = out["scope"]
+            assert rep["windows"] == n_windows and rep["steps"] == steps
+            assert rep["tokens"] == float(BATCH * steps), rep["tokens"]
+            r.update(samples=check_scope_digests(
+                rep, serve_window_digests(out["tokens"], INTERVAL)),
+                gates=rep["gates"], digest=rep["digest"])
+        runs[name] = out
+        rec[name] = r
+    for name in ("unfused", "fused", "eager"):
+        assert_serve_equal(runs[name], runs["off"],
+                           f"scope serve, {name} vs off")
+    assert rec["fused"]["samples"] == n_windows // SCOPE_EVERY
+    assert rec["unfused"]["digest"] == rec["fused"]["digest"] \
+        == rec["eager"]["digest"]
+    ys = torch.tensor(np.asarray(runs["off"]["tokens"], np.int32)[
+        :, 1:1 + INTERVAL].T[:, :, None].copy(), device="cuda")
+    rec["unfused_update_per_window"] = _unfused_update_ops(spec, ys)
+    rec["bitwise_vs_off"] = True
+    return rec
+
+
+def scope_loop_phase():
+    """train_loop at phase 39's cell with the ZP-Scope plane (phase 41):
+    both engines, plane off and on, checkpoints every LOOP_EVERY into a
+    temporary directory the phase deletes; then the verifier's digest
+    first pass on the fused run's drains. Returns the record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.coemu import CommitDivergence, CommitStreamVerifier
+    from repro_torch.core.scope import ScopeSpec
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.testing import (assert_trees_equal, deterministic,
+                                     train_window_digests)
+    from repro_torch.train import (LoopConfig, init_state, make_train_step,
+                                   train_loop)
+
+    cfg = dataclasses.replace(get_config(COEMU_ARCH), num_layers=LOOP_LAYERS)
+    model = build_model(cfg, Runtime(attention_impl="xla",
+                                     taps=frozenset({"commits"})))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_scope_"))
+    n_windows = LOOP_STEPS // LOOP_INTERVAL
+    rec: dict = {"arch": cfg.name, "layers": LOOP_LAYERS,
+                 "steps": LOOP_STEPS, "sample_interval": LOOP_INTERVAL,
+                 "checkpoint_every": LOOP_EVERY, "windows": n_windows}
+    drains: list = []               # the fused plane-on run's drains
+    try:
+        with deterministic():
+            for fused in (True, False):
+                engine = "fused" if fused else "per_step"
+                outs = {}
+                for plane in ("off", "on"):
+                    lc = LoopConfig(
+                        steps=LOOP_STEPS, batch=COEMU_BATCH, seq=COEMU_SEQ,
+                        sample_interval=LOOP_INTERVAL,
+                        checkpoint_every=LOOP_EVERY, fused=fused,
+                        checkpoint_dir=str(tmp / plane),
+                        scope=ScopeSpec() if plane == "on" else None)
+                    keep = (lambda last, r: drains.append((last, r))) \
+                        if fused and plane == "on" else None
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = train_loop(model, lc, resume=False,
+                                     on_drain=keep)
+                    torch.cuda.synchronize()
+                    out["seconds"] = time.perf_counter() - t0
+                    outs[plane] = out
+                off, on = outs["off"], outs["on"]
+                assert on["losses"] == off["losses"], engine
+                assert_trees_equal(off["state"], on["state"],
+                                   f"loop state, plane on vs off ({engine})")
+                del off["state"], on["state"]
+                torch.cuda.empty_cache()
+                # each published checkpoint's manifest: every leaf's path,
+                # shape, dtype and crc32 of its stored bytes
+                for plane in ("off", "on"):
+                    assert CheckpointManager(str(tmp / plane)).steps() \
+                        == [LOOP_EVERY, LOOP_STEPS], (engine, plane)
+                for step_dir in sorted((tmp / "off").glob("step_*")):
+                    manifest = (step_dir / "manifest.json").read_text()
+                    assert manifest == (tmp / "on" / step_dir.name /
+                                        "manifest.json").read_text(), \
+                        (engine, step_dir.name)
+                rep = on["scope"]
+                assert rep["windows"] == n_windows, rep["windows"]
+                # the per-step engine's ys are a list of scalar losses:
+                # as in the reference, a window of them counts one step
+                assert rep["steps"] == (LOOP_STEPS if fused else n_windows)
+                assert rep["samples"] == n_windows
+                assert on["coverage"]["per_map"]["scope_gates"][
+                    "covered"] == sum(rep["gates"])
+                rec[engine] = {
+                    "losses": on["losses"], "seconds_plane_off":
+                        off["seconds"], "seconds_plane_on": on["seconds"],
+                    "scope": {k: rep[k] for k in (
+                        "windows", "steps", "tokens", "samples", "gates",
+                        "digest")},
+                    "checkpoint_manifests_equal": [LOOP_EVERY, LOOP_STEPS],
+                    "final_state_bitwise": True}
+                if fused:
+                    got = [h["win_digests"][0] for h in rep["history"]]
+                shutil.rmtree(tmp / "off")
+                shutil.rmtree(tmp / "on")
+            # the verifier's digest first pass on the fused drains: the
+            # oracle is the same bf16 step, its expected digests from its
+            # own run; then an oracle from another seed must miss the
+            # digest, fall through to the row compare and veto
+            step = make_train_step(model)
+            batches = [make_batch_fn(cfg, COEMU_BATCH, COEMU_SEQ, 0)(i)
+                       for i in range(LOOP_STEPS)]
+            for seed in (0, 99):
+                exp = train_window_digests(
+                    step, init_state(model, seed, device="cuda"), batches,
+                    LOOP_INTERVAL)
+                torch.cuda.empty_cache()
+                v = CommitStreamVerifier(
+                    step, init_state(model, seed, device="cuda"), batches,
+                    layers=cfg.num_layers, expected_digests=exp)
+                if seed == 0:
+                    assert exp == dict(enumerate(got)), (exp, got)
+                    t0 = time.perf_counter()
+                    for w, (last, r) in enumerate(drains):
+                        v(last, r, digest=got[w], window=w)
+                    assert v.digest_hits == n_windows, v.digest_hits
+                    rec["digest_pass"] = {
+                        "digest_hits": v.digest_hits,
+                        "seconds": time.perf_counter() - t0}
+                else:
+                    assert all(exp[w] != got[w] for w in exp)
+                    try:
+                        v(*drains[0], digest=got[0], window=0)
+                    except CommitDivergence as e:
+                        rec["digest_pass"]["faulted_oracle"] = str(e)
+                    else:
+                        raise AssertionError(
+                            "the faulted oracle passed the digest pass")
+                    assert v.digest_hits == 0
+                del v
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def remat_phase():
+    """Phase 36's train cell under remat "none", "dots" and "full" (phase
+    42): run_grouped of make_group_step on the "xla" path under
+    deterministic mode (the first window eager, the second captured and
+    replayed); each run's losses and updated params against the first's
+    to the bit, its peak memory, the memory one forward holds for the
+    backward (``_backward_memory``), and a window replay timed with CUDA
+    events (state advancing). Returns the record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.testing import (assert_records_equal,
+                                     assert_trees_equal, deterministic,
+                                     train_run)
+    from repro_torch.train import OptConfig
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    fn = make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    batches = [fn(i) for i in range(TRAIN_STEPS)]
+    rec: dict = {"arch": cfg.name, "layers": TRAIN_LAYERS,
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                 "sample_interval": TRAIN_INTERVAL, "steps": TRAIN_STEPS}
+    first = None
+    with deterministic():
+        for remat in ("none", "dots", "full"):
+            rt = Runtime(attention_impl="xla", taps=TRAIN_TAPS, remat=remat)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            run = train_run(cfg, rt, batches, TRAIN_INTERVAL,
+                            opt_cfg=OptConfig(lr=TRAIN_LR, warmup_steps=10))
+            expect_counts(counts(), {}, f"train, remat {remat}")
+            assert run["windows"] == {"graph": 1, "eager": 1}
+            peak = torch.cuda.max_memory_allocated()
+            params = run["state"]["params"]
+            if first is None:
+                first = (run["records"],
+                         tree_map(lambda t: t.cpu(), params))
+            else:
+                assert_records_equal(first[0], run["records"],
+                                     f"train records, remat {remat}")
+                assert_trees_equal(first[1], params,
+                                   f"train params, remat {remat}")
+            memory = _backward_memory(build_model(cfg, rt), params,
+                                      batches[0])
+            graphs = run["engine"]
+            window = graphs.graphs[TRAIN_INTERVAL]
+            replay_ms = time_ms(torch, lambda i: window.graph.replay(), 1, 2)
+            losses = np.concatenate([r["metrics"]["loss"]
+                                     for _, r in run["records"]])
+            rec[remat] = {"max_memory_allocated": peak, **memory,
+                          "window_replay_ms": replay_ms,
+                          "s_per_step_replay":
+                              replay_ms / 1e3 / TRAIN_INTERVAL,
+                          "seconds": run["seconds"],
+                          "capture_s": graphs.capture_s,
+                          "losses": losses.tolist()}
+            del run, params, graphs, window
+            torch.cuda.empty_cache()
+    rec["bitwise_losses_and_params"] = True
+    return rec
+
+
+def _backward_memory(model, params, batch):
+    """One forward of ``model.loss`` with grad on the card, then its
+    gradients: the bytes the forward leaves allocated for the backward,
+    and the peak above the start through the forward and through the
+    backward (the gradients included)."""
+    import torch
+
+    from repro_torch.utils import tree_leaves, tree_unflatten
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        forward_peak = torch.cuda.max_memory_allocated() - base
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads, loss, leaves
+    torch.cuda.empty_cache()
+    return {"held_for_backward_bytes": held,
+            "forward_peak_bytes": forward_peak,
+            "forward_backward_peak_bytes": peak}
+
+
+def examples_phase():
+    """The five examples/torch_*.py with --device cuda at their smoke
+    budgets, each in a subprocess that must exit 0, all five started
+    together (small models: they share the card). Returns the seconds
+    until each had exited and the last line each printed."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name), "--device", "cuda",
+         *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, args in EXAMPLES}
+    rec = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                sys.stderr.write(out[-4000:] + err[-8000:])
+                raise AssertionError(f"{name} exited {proc.returncode}")
+            lines = out.strip().splitlines()
+            rec[name] = {"seconds_to_exit": time.perf_counter() - t0,
+                         "last_line": lines[-1] if lines else ""}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rec
+
+
 def host_us(torch, fn, calls=200, repeats=5):
     """A kernel wrapper's host time a call (its checks, the path choice,
     the outputs' allocation and the launch): ``calls`` calls of fn()
@@ -1891,6 +2274,15 @@ def main() -> int:
         **k1_t,
         "launches_per_step": cfg.num_layers,
     }
+
+    # ---------------------------------------------------- 40. scope-serve --
+    # on phase 3's weights, before they are freed
+    scope_serve = scope_serve_phase(cfg, params)
+    log(phase="scope_serve", **scope_serve)
+    record["scope_serve"] = scope_serve
+    assert scope_serve["fused"]["k2_launches"] == launches, \
+        (scope_serve["fused"]["k2_launches"], launches)
+    k2["launches_scope_serve"] = scope_serve["fused"]["k2_launches"]
     del params, model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2166,6 +2558,21 @@ def main() -> int:
     loop = loop_phase()
     log(phase="loop", **loop)
     record["loop"] = loop
+
+    # ----------------------------------------------------- 41. scope-loop --
+    scope_loop = scope_loop_phase()
+    log(phase="scope_loop", **scope_loop)
+    record["scope_loop"] = scope_loop
+
+    # ---------------------------------------------------------- 42. remat --
+    remat = remat_phase()
+    log(phase="remat", **remat)
+    record["remat"] = remat
+
+    # ------------------------------------------------------- the examples --
+    examples = examples_phase()
+    log(phase="examples", **examples)
+    record["examples"] = examples
 
     kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels

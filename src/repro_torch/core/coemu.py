@@ -37,7 +37,7 @@ the drain, which vetoes the checkpoint before it can publish.
 
 Not ported yet: the multi-DUT farm mode (``subsystem_boards``,
 ``submit_subsystem_jobs``, ``verify_subsystems``), which waits for the
-farm, and the verifier's digest fast path, which waits for ZP-Scope.
+farm.
 """
 from __future__ import annotations
 
@@ -54,10 +54,6 @@ from repro_torch.core.pshell import stack_batches
 from repro_torch.core.schedule import WindowScheduler
 from repro_torch.utils import (tree_clone, tree_leaves, tree_map,
                                tree_paths_sorted)
-
-_SCOPE = ("waits for the ZP-Scope slice of the port (core/scope.py, "
-          "digest_tree)")
-
 
 @dataclasses.dataclass
 class Divergence:
@@ -357,16 +353,21 @@ class CommitStreamVerifier:
     stream, so resume requires ``batches`` to be a sequence or a zero-arg
     factory (a one-shot iterator can be consumed but never rewound).
 
-    The digest first pass (``expected_digests``, a drain's ``digest``)
-    waits for ZP-Scope and raises ``NotImplementedError``.
+    Digest first pass (ZP-Scope): ``expected_digests`` maps a window index
+    to the oracle's digest of that window's outputs
+    (:func:`repro_torch.core.scope.digest_tree`, the exact host twin of
+    the plane's device fold). When the caller passes the drained window's
+    ``digest`` and ``window`` and the digest MATCHES, the per-step,
+    per-layer row compare is skipped; the oracle still steps, so its state
+    stays step-locked. A mismatch falls through to the full compare, which
+    localises the divergence and raises. ``digest_hits`` counts the
+    windows verified by digest alone.
     """
 
     def __init__(self, oracle_step: Callable, state, batches,
                  layers: int, rtol: float = 1e-5, start_step: int = 0,
                  lane: Optional[int] = None,
                  expected_digests: Optional[dict] = None):
-        if expected_digests:
-            raise NotImplementedError(f"expected_digests {_SCOPE}")
         self.oracle_step = oracle_step
         self.state = state
         self._batches_src = batches
@@ -377,6 +378,8 @@ class CommitStreamVerifier:
         self._consumed = 0          # batches taken from the stream so far
         self.lane = lane            # lane-batched boards: divergences name
         # the lane, so a fused farm run localizes the veto to ONE board
+        self.expected_digests = expected_digests or {}
+        self.digest_hits = 0        # windows verified by digest alone
 
     def _iter_batches(self):
         b = self._batches_src
@@ -389,13 +392,19 @@ class CommitStreamVerifier:
 
     def __call__(self, last_step: int, records, digest: Optional[int] = None,
                  window: Optional[int] = None):
-        if digest is not None:
-            raise NotImplementedError(f"a drain digest {_SCOPE}")
         rows = np.asarray(records["fifos"]["commits"]["data"], np.float64)
         steps = rows.shape[0] // self.L
+        # digest first pass: the device fold matched the oracle's digest
+        # for this window, so the host row compare is skipped; the oracle
+        # still steps to stay step-locked
+        skip_rows = (digest is not None and window is not None
+                     and window in self.expected_digests
+                     and int(digest) == int(self.expected_digests[window]))
         for s in range(steps):
             batch = self._next_batch()
             self.state, _, aux = self.oracle_step(self.state, batch)
+            if skip_rows:
+                continue
             exp = _f64(layer_checksums(aux))                     # (L, 2)
             got = rows[s * self.L:(s + 1) * self.L, 1:]
             err = _rel_err(got, exp).max(axis=1)                 # (L,)
@@ -405,6 +414,8 @@ class CommitStreamVerifier:
                 raise CommitDivergence(step=self.step + s, layer=l,
                                        rel_err=float(err[l]),
                                        lane=self.lane)
+        if skip_rows:
+            self.digest_hits += 1
         self.step += steps
 
     # ------------------------------------------------------------- resume --

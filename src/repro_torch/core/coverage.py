@@ -5,10 +5,8 @@ expert) selection toggles for MoE archs, per-layer nan/inf overflow bits
 for all archs. Device-side they are OR-accumulated CSR bitmaps (cheap,
 under-representing); host-side this class accumulates drained CSRs across
 step groups and reports coverage increments (the hook a coverage-guided
-fuzzer would use for early termination).
-
-The reference's ``update_gates`` (ZP-Scope gate bits) arrives with the
-slice that ports ZP-Scope.
+fuzzer would use for early termination). ``update_gates`` folds in the
+ZP-Scope plane's gate bits as one more bitmap.
 """
 from __future__ import annotations
 
@@ -33,6 +31,21 @@ class CoverageMap:
                 self.bitmaps[name] = np.zeros_like(bits)
             new_bits += int((bits & ~self.bitmaps[name]).sum())
             self.bitmaps[name] |= bits
+        self.history.append(self.fraction())
+        return new_bits
+
+    def update_gates(self, gates, name: str = "scope_gates") -> int:
+        """Ingest ZP-Scope gate toggle bits (value-class coverpoints
+        OR-accumulated on the device by the plane, the same
+        under-representing CSR semantics as the mux toggles). ``gates`` is
+        the drained int bit vector ((lanes, bits) under a lane batch,
+        flattened so each lane's bits are distinct coverpoints). Returns
+        the coverage increment like :meth:`update`."""
+        bits = np.asarray(gates).astype(bool).reshape(-1)
+        if name not in self.bitmaps:
+            self.bitmaps[name] = np.zeros_like(bits)
+        new_bits = int((bits & ~self.bitmaps[name]).sum())
+        self.bitmaps[name] |= bits
         self.history.append(self.fraction())
         return new_bits
 

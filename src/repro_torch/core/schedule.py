@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core.pshell import drain as shell_drain
 from repro_torch.core.pshell import group_reset, stack_batches
+from repro_torch.core.scope import as_plane
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -178,7 +179,8 @@ class WindowScheduler:
             on_drain: Optional[Callable] = None,
             on_dispatch: Optional[Callable] = None,
             on_window: Optional[Callable] = None,
-            barriers: Sequence[DrainBarrier] = ()):
+            barriers: Sequence[DrainBarrier] = (),
+            scope: Any = None):
         """Drive ``engine`` over ``windows`` (an iterable of per-step item
         lists). Returns ``(state, last_ys, shell)``. ``start_step`` is the
         global index of the first window's first step (a resumed run):
@@ -190,8 +192,22 @@ class WindowScheduler:
         the window's ys as host tensors — raising here vetoes any barrier
         commit that depends on the window; ``on_window(plan, state)`` fires
         after the window's host phase (profiler step accounting).
+
+        ``scope`` (a ``ScopeSpec`` or ``ScopePlane``) opts the pass into
+        the ZP-Scope plane (``core/scope.py``): device counters ride
+        beside the shell, and the plane samples them at its read rate
+        from the drained snapshot (on the overlapped path, from the host
+        copy queued above, so the plane adds no host sync). The returned
+        state, ys and shell are bit-identical to an un-instrumented pass
+        (``plane.finalize`` unwraps the composite shell before return).
         """
         timer = self.timer
+        drain_fn, reset = self.drain_fn, self.reset
+        plane = None
+        if scope is not None:
+            plane = as_plane(scope)
+            engine, shell, drain_fn, reset = plane.bind(
+                engine, shell, drain_fn, reset)
         pending = None              # (plan, host_snapshot, host_ys, event)
         last_ys = None
         step = start_step
@@ -210,17 +226,18 @@ class WindowScheduler:
             with timer.phase("device"):
                 state, snap, ys = engine(state, shell, stack)
                 if self.overlap:
-                    shell = self.reset(snap) if self.reset else snap
+                    shell = reset(snap) if reset else snap
                     fetched = _to_host((snap, ys))
             if on_dispatch is not None:
                 on_dispatch(plan, state)
             with timer.phase("host"):
                 if self.overlap:
-                    self._flush(pending, on_drain)
+                    self._flush(pending, on_drain, drain_fn)
                     (host_snap, host_ys), event = fetched
                     pending = (plan, host_snap, host_ys, event)
                 else:
-                    records, shell = self._drain_now(snap)
+                    records, shell = (drain_fn(snap) if drain_fn
+                                      is not None else ({}, snap))
                     host_ys, event = _to_host(ys)
                     if event is not None:
                         event.synchronize()
@@ -229,7 +246,7 @@ class WindowScheduler:
                     if b.fires(plan):
                         # commit barrier: every window up to the boundary
                         # must be drained and accepted before the action
-                        self._flush(pending, on_drain)
+                        self._flush(pending, on_drain, drain_fn)
                         pending = None
                         b.action(state, plan.boundary)
             if on_window is not None:
@@ -238,15 +255,12 @@ class WindowScheduler:
             step += len(items)
             index += 1
         with timer.phase("host"):
-            self._flush(pending, on_drain)
+            self._flush(pending, on_drain, drain_fn)
+        if plane is not None:
+            shell = plane.finalize(shell)
         return state, last_ys, shell
 
-    def _drain_now(self, snap):
-        if self.drain_fn is None:
-            return {}, snap
-        return self.drain_fn(snap)
-
-    def _flush(self, pending, on_drain):
+    def _flush(self, pending, on_drain, drain_fn):
         if pending is None:
             return
         plan, snap, ys, event = pending
@@ -254,8 +268,7 @@ class WindowScheduler:
             event.synchronize()     # this window's copies only
         # the snapshot's reset state is discarded: the live shell was
         # reset on the device
-        records = self.drain_fn(snap)[0] if self.drain_fn is not None \
-            else {}
+        records = drain_fn(snap)[0] if drain_fn is not None else {}
         self._emit(plan, records, ys, on_drain)
 
     @staticmethod

@@ -12,6 +12,14 @@ steps eagerly. The scheduler double-buffers the shell, so the host drain
 of window *i* (where the tokens and the per-window latency sample land)
 overlaps window *i+1* queued on the device.
 
+``scope=`` (or ``--scope N``) runs the decode with the ZP-Scope plane
+(``core/scope.py``): device counters over each window's tokens, read every
+N drains, reported under "scope". The tokens, the drained shell and the
+cache are bit-identical with the plane on or off. With
+``ScopeSpec(fuse=True)`` the counter update is captured into each window's
+CUDA graph (still one replay a window); unfused it runs eagerly after the
+replay.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --smoke --batch 4 --prompt-len 32 --gen 16 --sample-interval 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
@@ -31,6 +39,7 @@ from repro_torch.core import Watchdog, WindowGraphs, WindowScheduler
 from repro_torch.core.pshell import (FifoSpec, ShellConfig, csr_accum, drain,
                                      fifo_push, shell_init)
 from repro_torch.core.schedule import plan_windows
+from repro_torch.core.scope import ScopeSpec, as_plane, unwrap
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.models import build_model
 from repro_torch.serve import make_prefill_step
@@ -101,7 +110,7 @@ def make_decode_engine(model, params, donate: bool = True, graph=None):
 
 def serve(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
           sample_interval: int = 4, device=None, params=None, timer=None,
-          graph=None, return_cache: bool = False):
+          graph=None, return_cache: bool = False, scope=None):
     """Serve ``batch`` synthetic prompts of ``prompt_len`` tokens and
     generate ``gen`` tokens each. ``params=None`` draws random weights from
     ``seed`` on the device; otherwise ``params`` (e.g. carried across with
@@ -115,11 +124,11 @@ def serve(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     with torch.inference_mode():
         return _serve(model, cfg, batch, prompt_len, gen, seed,
                       sample_interval, device, params, timer, graph,
-                      return_cache)
+                      return_cache, scope)
 
 
 def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
-           device, params, timer, graph, return_cache):
+           device, params, timer, graph, return_cache, scope):
     if params is None:
         params = model.init(seed, device=device)
     bf = make_batch_fn(cfg, batch, prompt_len, seed)
@@ -142,16 +151,29 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
     sched = WindowScheduler(interval=max(1, sample_interval), overlap=True,
                             drain_fn=drain, timer=timer)
     sh = shell_init(decode_shell_config(sample_interval), device)
-    graphed = isinstance(engine, WindowGraphs)
+    plane = None
+    ran = engine            # the engine whose windows run
+    if scope is not None:
+        plane = as_plane(scope)
+        # a fused plane's engine is a WindowGraphs of its own (the window
+        # and the counter update in one capture); unfused, the update runs
+        # after the inner engine's replay. The scheduler's bind finds the
+        # same instrumented engine and composite shell again.
+        instrumented = plane.instrument(engine)
+        sh = plane.wrap_shell(sh)
+        if isinstance(instrumented, WindowGraphs):
+            ran = instrumented
+    graphed = isinstance(ran, WindowGraphs)
     t_decode = t1
     if graphed:
         # capture every window length of the run, in the order the windows
         # come (full, then tail: the order the shared pool needs), before
         # the first window, so no capture (and none of its syncs) falls
         # inside the decode
+        prep_sh = sh if ran is not engine else unwrap(sh)
         for g in dict.fromkeys(p.size for p in plan_windows(
                 gen - 1, sample_interval)):
-            engine.prepare((cache, tok), sh, np.arange(g))
+            ran.prepare((cache, tok), prep_sh, np.arange(g))
         sync(device)
         t_decode = time.perf_counter()
 
@@ -183,7 +205,7 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
 
     (cache, tok), _, sh = sched.run(
         engine, sched.windows(range(gen - 1)), (cache, tok), sh,
-        on_dispatch=on_dispatch, on_drain=on_drain)
+        on_dispatch=on_dispatch, on_drain=on_drain, scope=plane)
     sync(device)
     t2 = time.perf_counter()
     toks = np.concatenate(out_tokens, axis=1)
@@ -201,10 +223,12 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
         "drained": drained,
         "hung": wd.should_restart(),
         "engine": "graph" if graphed else "eager",
-        "windows_by_engine": dict(engine.windows) if graphed
+        "windows_by_engine": dict(ran.windows) if graphed
         else {"graph": 0, "eager": n_windows},
-        "capture_s": engine.capture_s if graphed else 0.0,
+        "capture_s": ran.capture_s if graphed else 0.0,
     }
+    if plane is not None:
+        out["scope"] = plane.report()
     if return_cache:
         out["cache"] = cache
     return out
@@ -221,12 +245,18 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--sample-interval", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scope", type=int, default=0, metavar="N",
+                    help="enable the ZP-Scope instrumentation plane with "
+                         "a read rate of every N window drains")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    scope = ScopeSpec(every_n_windows=args.scope) if args.scope > 0 \
+        else None
     out = serve(cfg, args.batch, args.prompt_len, args.gen, seed=args.seed,
-                sample_interval=args.sample_interval, device=args.device)
+                sample_interval=args.sample_interval, device=args.device,
+                scope=scope)
     print(json.dumps(out, indent=1, default=float))
 
 

@@ -229,18 +229,41 @@ def init_stack(g, cfg, device):
     return {"blocks": tuple(blocks), "tail": tail}
 
 
+def _period_apply(blocks, i, x, cfg, positions, rt):
+    """Period ``i`` of the stack: one block per pattern position. Returns
+    (x, one aux dict per position). The taps are pure outputs, so a remat
+    recompute pushes nothing twice."""
+    auxes = []
+    for j, spec in enumerate(cfg.layer_pattern):
+        x, aux = block_apply(_period(blocks[j], i), cfg, spec, x, positions,
+                             rt)
+        auxes.append(aux)
+    return x, tuple(auxes)
+
+
+def _period_prefill(blocks, i, x, cfg, positions, max_len, rt):
+    """Period ``i``'s prefill: (x, one cache per pattern position)."""
+    caches = []
+    for j, spec in enumerate(cfg.layer_pattern):
+        x, c = block_prefill(_period(blocks[j], i), cfg, spec, x, positions,
+                             max_len, rt)
+        caches.append(c)
+    return x, tuple(caches)
+
+
 def stack_apply(stack, cfg, x, positions, rt: Runtime):
-    """Forward through all layers in period-major order. Returns (x, aux)
-    in the reference's layout: "scanned" (present when there is at least
-    one period) holds one dict per pattern position with each tap stacked
-    over periods; "tail" one dict per tail layer."""
+    """Forward through all layers in period-major order, each period's
+    body under ``rt.checkpoint`` (the reference's remat of its scan body).
+    Returns (x, aux) in the reference's layout: "scanned" (present when
+    there is at least one period) holds one dict per pattern position with
+    each tap stacked over periods; "tail" one dict per tail layer."""
     P_len, n_periods, _ = _partition(cfg)
     pattern = cfg.layer_pattern
     per_pos = [[] for _ in range(P_len)]
+    body = rt.checkpoint(_period_apply)
     for i in range(n_periods):
-        for j in range(P_len):
-            x, aux = block_apply(_period(stack["blocks"][j], i), cfg,
-                                 pattern[j], x, positions, rt)
+        x, auxes = body(stack["blocks"], i, x, cfg, positions, rt)
+        for j, aux in enumerate(auxes):
             per_pos[j].append(aux)
     aux_all: Dict[str, Any] = {}
     if n_periods > 0:
@@ -292,10 +315,10 @@ def stack_prefill(stack, cfg, x, positions, max_len: int,
     P_len, n_periods, _ = _partition(cfg)
     pattern = cfg.layer_pattern
     per_pos = [[] for _ in range(P_len)]
+    body = rt.checkpoint(_period_prefill)
     for i in range(n_periods):
-        for j in range(P_len):
-            x, c = block_prefill(_period(stack["blocks"][j], i), cfg,
-                                 pattern[j], x, positions, max_len, rt)
+        x, caches = body(stack["blocks"], i, x, cfg, positions, max_len, rt)
+        for j, c in enumerate(caches):
             per_pos[j].append(c)
     cache: Dict[str, Any] = {"scanned": tuple(
         tree_map(lambda *cs: torch.stack(cs), *cs) for cs in per_pos)

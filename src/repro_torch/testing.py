@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.commit import layer_checksums, nan_bits
 from repro_torch.core.decompose import verify_extraction
+from repro_torch.core.scope import _FNV, _M32, digest_tree
 from repro_torch.core.graphs import capture_graph  # noqa: F401
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.kernels.decode_attention import ops
@@ -794,3 +795,49 @@ def forward_step(model):
             loss, (_, aux) = model.loss(params, batch)
         return params, {"loss": loss}, aux
     return step
+
+
+# ---------------------------------------------------------------- ZP-Scope --
+def serve_window_digests(tokens, interval: int) -> list:
+    """``digest_tree`` of each decode window's ys as the decode engine
+    emits them ((g, B, 1) int32), from ``serve()``'s token matrix (B, gen;
+    column 0 comes from the prefill)."""
+    toks = np.asarray(tokens, np.int32)
+    steps = toks.shape[1] - 1
+    return [digest_tree(np.ascontiguousarray(
+        toks[:, 1 + s:1 + min(s + interval, steps)].T[:, :, None]))
+        for s in range(0, steps, interval)]
+
+
+def train_window_digests(step, state, batches, interval: int) -> dict:
+    """The oracle's expected digests for ``CommitStreamVerifier``: window
+    index -> ``digest_tree`` of the window's stacked metrics (the fused
+    train engine's ys), ``step`` run over ``batches`` from ``state``
+    (stepped in place)."""
+    out = {}
+    for w, start in enumerate(range(0, len(batches), interval)):
+        ms = []
+        for b in batches[start:start + interval]:
+            state, m, _ = step(state, b)
+            ms.append(m)
+        out[w] = digest_tree({k: torch.stack([m[k] for m in ms])
+                              for k in ms[0]})
+    return out
+
+
+def check_scope_digests(report, window_digests) -> int:
+    """Every sample of a plane's report against the host twin's window
+    digests: the cumulative digest, and each ring slot holding the window
+    last written there. Returns the number of samples checked."""
+    n = report["spec"]["every_n_windows"]
+    cum, seen = 0, 0
+    for s in report["history"]:
+        while seen < s["windows"]:
+            cum = ((cum * _FNV) + window_digests[seen]) & _M32
+            seen += 1
+        assert s["digest"] == cum, (s["seq"], s["digest"], cum)
+        for w in range(max(0, s["windows"] - n), s["windows"]):
+            assert s["win_digests"][w % n] == window_digests[w], (
+                s["seq"], w, s["win_digests"], window_digests[w])
+    assert seen == len(window_digests), (seen, len(window_digests))
+    return len(report["history"])

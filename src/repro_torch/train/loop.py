@@ -30,9 +30,14 @@ and ACCEPTED by the host (an on_drain verifier that raises vetoes it).
 Profiler attribution: "device" is the dispatch (the enqueue), and the
 wait for a window's results lands in "host" at its drain.
 
+``LoopConfig.scope`` (a ``ScopeSpec`` or ``ScopePlane``) runs both engines
+with the ZP-Scope plane (``core/scope.py``): device counters drained at
+its read rate, the DUT stream bit-identical with the plane on or off; the
+last sample's gate bits fold into the coverage map and the plane's report
+comes back under "scope".
+
 Not ported yet: the measured-window roofline (``WindowCapture``, the
-reference's ``out["roofline"]``), which waits for ``roofline/``, and
-``LoopConfig.scope``, which waits for ZP-Scope and raises if set.
+reference's ``out["roofline"]``), which waits for ``roofline/``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.core import (CoverageMap, DrainBarrier, PShell, Watchdog,
                               default_shell_config, make_ingest,
                               plan_windows)
 from repro_torch.core.profiler import Profiler
+from repro_torch.core.scope import as_plane
 from repro_torch.data import SyntheticPipeline
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.step import init_state, make_group_step, \
@@ -64,7 +70,9 @@ class LoopConfig:
     grad_compress: bool = False
     accum_steps: int = 1
     fused: bool = True          # fused step groups vs per-step dispatch
-    scope: Any = None           # ZP-Scope plane: waits for its slice
+    scope: Any = None           # ScopeSpec: ZP-Scope instrumentation
+    # plane (device counters drained at the read rate; bit-identical DUT
+    # stream with the plane on or off)
 
 
 def train_loop(model, loop_cfg: LoopConfig,
@@ -90,11 +98,9 @@ def train_loop(model, loop_cfg: LoopConfig,
     the other's state or into the caller's.
 
     Returns ``{"state", "losses", "coverage", "profile", "stragglers",
-    "final_step"}``; the reference's ``"roofline"`` (and ``"scope"``) wait
-    for their slices."""
-    if loop_cfg.scope is not None:
-        raise NotImplementedError(
-            "LoopConfig.scope waits for the ZP-Scope slice of the port")
+    "final_step"}``, plus ``"scope"`` (the plane's report) where
+    ``loop_cfg.scope`` is set; the reference's ``"roofline"`` waits for
+    its slice."""
     device = resolve_device(device)
     cfg = model.cfg
 
@@ -116,6 +122,9 @@ def train_loop(model, loop_cfg: LoopConfig,
     prof = Profiler(sample_interval=loop_cfg.sample_interval)
     wd = Watchdog(timeout_s=loop_cfg.watchdog_timeout_s)
     cov = CoverageMap()
+    scope_plane = None
+    if loop_cfg.scope is not None:
+        scope_plane = as_plane(loop_cfg.scope)
     pipe = SyntheticPipeline(cfg, loop_cfg.batch, loop_cfg.seq,
                              seed=loop_cfg.seed, start_step=start_step)
     losses: list = []
@@ -137,7 +146,7 @@ def train_loop(model, loop_cfg: LoopConfig,
         runner = _run_fused if loop_cfg.fused else _run_per_step
         state = runner(model, loop_cfg, opt_cfg, state, shell, sh, ingest,
                        pipe, prof, wd, cov, ckpt, losses, start_step,
-                       on_drain, verifier)
+                       on_drain, verifier, scope_plane)
     finally:
         pipe.close()
         if orc_pipe is not None:
@@ -145,7 +154,13 @@ def train_loop(model, loop_cfg: LoopConfig,
         if ckpt:
             ckpt.wait()
 
-    return {
+    if scope_plane is not None and scope_plane.samples:
+        # fold the plane's device gate bits into the coverage map: the
+        # same OR-accumulated CSR semantics, one more bitmap
+        last = scope_plane.samples[-1]
+        if last.get("gates") is not None:
+            cov.update_gates(last["gates"])
+    out = {
         "state": state,
         "losses": losses,
         "coverage": cov.summary(),
@@ -153,6 +168,9 @@ def train_loop(model, loop_cfg: LoopConfig,
         "stragglers": wd.stragglers(),
         "final_step": loop_cfg.steps,
     }
+    if scope_plane is not None:
+        out["scope"] = scope_plane.report()
+    return out
 
 
 def _pipe_windows(pipe, loop_cfg, start_step):
@@ -180,7 +198,7 @@ def _step_counter(prof):
 
 def _run_fused(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
                prof, wd, cov, ckpt, losses, start_step, on_drain,
-               verifier=None):
+               verifier=None, scope_plane=None):
     """Group-granular engine: one dispatch per clock-gated window (on the
     card one CUDA-graph replay), host drain of window i overlapped with
     window i+1 on the card."""
@@ -203,13 +221,14 @@ def _run_fused(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
         group_fn, _pipe_windows(pipe, loop_cfg, start_step), state, sh,
         start_step=start_step, on_drain=emit,
         on_dispatch=lambda plan, state: wd.heartbeat(),
-        on_window=_step_counter(prof), barriers=_barriers(ckpt, loop_cfg))
+        on_window=_step_counter(prof), barriers=_barriers(ckpt, loop_cfg),
+        scope=scope_plane)
     return state
 
 
 def _run_per_step(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
                   prof, wd, cov, ckpt, losses, start_step, on_drain,
-                  verifier=None):
+                  verifier=None, scope_plane=None):
     """Per-step dispatch baseline (``overlap=False``: serial in-place
     drains at window boundaries). Loss tensors are fetched at the drain
     boundaries only."""
@@ -238,5 +257,6 @@ def _run_per_step(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
     state, _, _ = sched.run(
         engine, _pipe_windows(pipe, loop_cfg, start_step), state, sh,
         start_step=start_step, on_drain=emit,
-        on_window=_step_counter(prof), barriers=_barriers(ckpt, loop_cfg))
+        on_window=_step_counter(prof), barriers=_barriers(ckpt, loop_cfg),
+        scope=scope_plane)
     return state

@@ -270,14 +270,21 @@ def test_commit_verifier_refuses_to_rewind_a_one_shot_iterator(
 
 
 def test_commit_verifier_digest_path_waits_for_scope(verifier_setup):
+    """The digest first pass (ZP-Scope's slice): a drained digest that
+    misses the expected one falls through to the row compare; one that
+    matches skips it and the oracle still steps."""
     cfg, model, step, state, batches, recs = verifier_setup
-    with pytest.raises(NotImplementedError, match="ZP-Scope"):
-        CommitStreamVerifier(step, state, batches, layers=cfg.num_layers,
-                             expected_digests={0: 1})
     ver = CommitStreamVerifier(step, tree_clone(state), batches,
-                               layers=cfg.num_layers)
-    with pytest.raises(NotImplementedError, match="ZP-Scope"):
-        ver(recs[0][0], recs[0][1], digest=7, window=0)
+                               layers=cfg.num_layers,
+                               expected_digests={0: 1, 1: 7})
+    ver(recs[0][0], recs[0][1], digest=7, window=0)
+    assert ver.digest_hits == 0 and ver.step == 2
+    tampered = {**recs[1][1], "fifos": {"commits": {
+        **recs[1][1]["fifos"]["commits"],
+        "data": recs[1][1]["fifos"]["commits"]["data"] + 99.0}}}
+    ver(recs[1][0], tampered, digest=7, window=1)
+    assert ver.digest_hits == 1 and ver.step == 4
+    assert int(ver.state["step"]) == 4
 
 
 # ----------------------------------------------- against the reference ----

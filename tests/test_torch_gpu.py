@@ -2,8 +2,9 @@
 decode-attention (K2), selective-scan (K3), RG-LRU scan (K4) and grouped
 expert GEMM (K5) kernels against their plain versions on the card, and
 the serve slice and the commit-tapped forward with its Scale-Down replay
-on the card against the same on the host, and the co-emulator's
-group-locked windows. They skip where CUDA is absent.
+on the card against the same on the host, the co-emulator's
+group-locked windows, the ZP-Scope plane inside the decode window graphs
+and remat inside the train window graphs. They skip where CUDA is absent.
 On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -44,6 +45,7 @@ from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
 from repro_torch.models import Runtime, build_model  # noqa: E402
 from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  TAPS, assert_records_equal,
+                                 assert_serve_equal,
                                  assert_trees_equal,
                                  check_decode_attention,
                                  check_decode_graph,
@@ -852,3 +854,58 @@ def test_kernel_forward_step_verifies_on_the_card(cuda):
             inject_fault(params, cfg, 1), params, batches, group_size=group)
         assert (rep.first.step, rep.first.layer) == (0, 1)
         assert KERNELS["k1"].launches == 2 * L * 8
+
+
+# ------------------------------------------------ ZP-Scope and remat -----
+@pytest.mark.parametrize("fuse", [False, True])
+def test_scope_rides_the_decode_window_graphs_bitwise(cuda, fuse):
+    """serve() with the plane on (its update captured into each window's
+    graph with ``fuse``, else run after the replay) equals the plane-off
+    run to the bit, every window one replay under sync-debug "error", the
+    same K2 launches; each sample's digests equal the host twin of the
+    drained tokens."""
+    from repro_torch.core.scope import ScopeSpec
+    from repro_torch.testing import check_scope_digests, serve_window_digests
+    cfg = get_smoke_config("glm4-9b")
+    params = build_model(cfg).init(0, device="cuda")
+    runs = {}
+    for name, spec in (("off", None),
+                       ("on", ScopeSpec(every_n_windows=2, fuse=fuse))):
+        timer = NoSyncInWindow()
+        before = ops.decode_attention.launches
+        out = serve(cfg, 2, 16, 11, sample_interval=3, device="cuda",
+                    params=params, timer=timer, return_cache=True,
+                    scope=spec)
+        out["k2"] = ops.decode_attention.launches - before
+        assert timer.windows == 4
+        assert out["windows_by_engine"] == {"graph": 4, "eager": 0}
+        runs[name] = out
+    assert_serve_equal(runs["on"], runs["off"], f"scope fuse={fuse}")
+    assert runs["on"]["k2"] == runs["off"]["k2"] == cfg.num_layers * 10
+    rep = runs["on"]["scope"]
+    assert rep["windows"] == 4 and rep["steps"] == 10
+    assert check_scope_digests(
+        rep, serve_window_digests(runs["on"]["tokens"], 3)) == 2
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_remat_is_bitwise_in_the_train_window_graphs(cuda, arch):
+    """run_grouped of each family's smoke config under remat none, dots
+    and full (the first window eager, the second a graph replay with the
+    recompute inside its backward): states and drained records equal to
+    the bit."""
+    cfg = get_smoke_config(arch)
+    fn = make_batch_fn(cfg, 2, 16, 0)
+    batches = [fn(i) for i in range(6)]
+    runs = {}
+    with deterministic():
+        for remat in ("none", "dots", "full"):
+            rt = Runtime(attention_impl="xla", taps=TAPS, remat=remat)
+            runs[remat] = train_run(cfg, rt, batches, 3)
+            assert runs[remat]["windows"] == {"graph": 1, "eager": 1}
+    for remat in ("dots", "full"):
+        assert_trees_equal(runs["none"]["state"], runs[remat]["state"],
+                           f"{arch} state, remat {remat}")
+        assert_records_equal(runs["none"]["records"],
+                             runs[remat]["records"],
+                             f"{arch} records, remat {remat}")

@@ -21,6 +21,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import (Profiler, StallStack,  # noqa: E402
                               WindowScheduler)
 from repro_torch.core.coemu import CommitDivergence  # noqa: E402
+from repro_torch.core.scope import ScopeSpec  # noqa: E402
 from repro_torch.data import make_batch_fn  # noqa: E402
 from repro_torch.models import Runtime, build_model  # noqa: E402
 from repro_torch.testing import assert_trees_equal  # noqa: E402
@@ -222,7 +223,13 @@ def test_train_loop_checkpoint_resume(tmp_path):
 
 
 def test_train_loop_waits_for_its_slices():
-    with pytest.raises(NotImplementedError, match="ZP-Scope"):
+    """The ZP-Scope plane has its slice (a report under "scope"; anything
+    but a ScopeSpec or ScopePlane refused); the roofline still waits for
+    its own: no "roofline" key."""
+    out = train_loop(_model(), _lc(scope=ScopeSpec()), device="cpu")
+    assert out["scope"]["steps"] == len(out["losses"])
+    assert "roofline" not in out
+    with pytest.raises(TypeError, match="ScopeSpec"):
         train_loop(_model(), _lc(scope=object()), device="cpu")
 
 
