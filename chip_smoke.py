@@ -313,8 +313,56 @@ after phase 39):
  examples — the five examples/torch_*.py with --device cuda at their
                smoke budgets, each in a subprocess that must exit 0.
 
+The last four archs run after the examples, each at full width and
+depth from random weights drawn on the card from seed 0, with every
+earlier model's weights freed and the peak-memory counter reset before
+each (``last_four_phases``; internlm2-20b 48 layers of 48 heads on 8 kv
+heads, command-r-35b 40 of 64 on 8, both head_dim 128; whisper-small's
+12-layer encoder over 1,500 frames and 12-layer decoder, 12 heads,
+head_dim 64; internvl2-1b 24 layers of 14 heads on 2, head_dim 64, 256
+patches of 1024 wide):
+
+ 43. kernels — K2 at the four decode shapes (B=8, the serve rings: 2,120
+               slots, 2,376 for internvl2-1b's patch prefix) with pos on
+               the edges of the first split chunk and inside the decode,
+               K1 at the four forward shapes (B=2, S=4096, causal) and
+               ragged (S=4000) at head_dim 64, f32 at 2e-5, bf16 at 2e-2
+               and 6e-3 normwise; K1 and K2 at the head_dim-64 shapes
+               bitwise over two launches and a CUDA-graph replay; and
+               both at head_dim 8 (command-r-35b's smoke config, which
+               phase 45 serves on the card): K2 on a 32-slot ring, K1
+               causal, non-causal with S != T, windowed and soft-capped,
+               and bitwise;
+ 44. serve   — the serve cell of phase 3 per arch, eager and graph
+               engines bitwise, under sync-debug mode "error", traced
+               from window 3: K2 exactly layers x 63 (3,024 / 2,520 /
+               756 / 1,512), K1 0 (the prefill attention is plain, as in
+               the reference); the frames and patches go to the card in
+               the model's dtype;
+ 45. parity  — the four smoke configs in f32 through serve() on the card
+               and on the host: the same greedy tokens;
+ 46. forward — the tapped Model.loss at B=2, S=4096 (the pipeline's
+               f32 frames and patches): K1 exactly 48 / 40 / 12 / 24, as
+               many commit rows, none dropped; wall time and peak memory;
+ 47. scale-down — verify_extraction at layers 0/24/47 of internlm2-20b
+               and 0/12/23 of internvl2-1b, bitwise, each with its exact
+               launches, and scanned_vs_unrolled (0.0);
+ 48. verify  — CoEmulator.verify at the full width and depth of
+               whisper-small and internvl2-1b, B=2, S=1024 (whisper's
+               1,500 f32 frames), 4 steps, step-locked, the bf16 "xla"
+               train step with the commit tap under deterministic mode:
+               the self-verify exactly 0.0, faults at internvl2-1b's
+               layers 0 and 23 named (0, k), and the bf16 DUT against the
+               f32 oracle (gated finite); verified steps/s, peak memory;
+ 49. k1/k2 time at hd 64 — K1 at whisper-small's and internvl2-1b's
+               forward shapes and K2 at their serve shapes, one input
+               set a layer, timed as in phases 10 and 5, beside the
+               bound, the plain version and F.scaled_dot_product_attention.
+
 K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
-head_dim 256 numbers under "hd256", K2 its qwen3 numbers under "qwen3".
+head_dim 256 numbers under "hd256", their head_dim 64 numbers under
+"hd64" (by arch) and the last four archs' launches, K2 its qwen3
+numbers under "qwen3".
 The last line is {"ok": true,
 "device": {...}}. The full record is also written to
 chiprun_out/chip_smoke.json.
@@ -398,6 +446,20 @@ COEMU_BF16_RTOL = 0.3
 LOOP_LAYERS, LOOP_STEPS, LOOP_INTERVAL, LOOP_EVERY = 2, 8, 2, 4
 # the ZP-Scope plane's read rate in the scoped serve (phase 40)
 SCOPE_EVERY = 2
+# the last four archs (phases 43-49), each at full width and depth, in
+# this order, at the forward's B=2 (command-r-35b's 60.6 GB of weights,
+# its 8.4 GB of f32 logits and a logsumexp temporary as large peaked at
+# 77.45 GB, under the card's 85 GB, once ``free_device_memory`` clears
+# what the earlier phases leave)
+NEW_ARCHS = ("internlm2-20b", "command-r-35b", "whisper-small",
+             "internvl2-1b")
+NEW_SCALE_DOWN_LAYERS = {"internlm2-20b": (0, 24, 47),
+                         "internvl2-1b": (0, 12, 23)}
+# the verify at full width and depth (phase 48): B=2, S=1024, 4 steps;
+# internvl2-1b's faults at its first and last layer
+VERIFY_ARCHS = ("whisper-small", "internvl2-1b")
+VERIFY_BATCH, VERIFY_SEQ, VERIFY_STEPS = 2, 1024, 4
+VERIFY_FAULT_LAYERS = (0, 23)
 # the examples and their smoke budgets, run on the card last
 EXAMPLES = (("torch_quickstart.py", ["--steps", "4"]),
             ("torch_coemu_verify.py", ["--steps", "2"]),
@@ -469,7 +531,12 @@ def expect_counts(got, want, what):
     assert got == full, (what, got, full)
 
 
+T0 = time.perf_counter()
+
+
 def log(**kw):
+    """One JSON line, with the seconds since the script started."""
+    kw["t_s"] = time.perf_counter() - T0
     print(json.dumps(kw, default=float), flush=True)
 
 
@@ -715,6 +782,7 @@ def serve_phase(cfg, params):
     run's record (the eager run's under "eager") and its trace (the
     eager one under "eager")."""
     from repro_torch.testing import assert_serve_equal, serve_kernels
+    from repro_torch.utils import tree_map
 
     steps = GEN - 1
     n_windows = -(-steps // INTERVAL)
@@ -723,6 +791,9 @@ def serve_phase(cfg, params):
     for engine in ("eager", "graph"):
         out, timer, got, peak, trace = _serve_run(cfg, params,
                                                   engine == "graph")
+        # the final cache waits for the comparison on the host, so the
+        # next run's prefill has its memory (2.6 GB at command-r-35b)
+        out["cache"] = tree_map(lambda t: t.cpu(), out["cache"])
         toks = out["tokens"]
         expect_counts(timer.counts_at_decode, prefill_counts,
                       f"serve prefill ({engine})")
@@ -2048,6 +2119,283 @@ def examples_phase():
     return rec
 
 
+def new_kernel_check_phase(sms):
+    """K1 and K2 against their plain versions at the last four archs'
+    shapes (phase 43): K2 at each decode shape (B=8, the serve ring) with
+    pos on the edges of the first split chunk and inside the decode, K1
+    at each forward shape (B=2, S=4096) and ragged (S=4000), f32 at 2e-5
+    and bf16 at 2e-2 and 6e-3 normwise; then K1 and K2 at the head_dim-64
+    shapes bitwise over two launches and a CUDA-graph replay. Returns the
+    errors by case group."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.testing import (check_decode_attention,
+                                     check_decode_determinism,
+                                     check_flash_attention,
+                                     check_flash_attention_bitwise)
+
+    errs: dict = {}
+
+    def case(key, check, *a, **kw):
+        got = check(*a, **kw)
+        errs[key] = [max(x, y) for x, y in zip(errs.get(key, got), got)]
+
+    for arch in NEW_ARCHS:
+        c = get_config(arch)
+        H, K, hd = c.num_heads, c.num_kv_heads, c.head_dim
+        P = c.num_patches if c.family == "vlm" else 0
+        W = PROMPT + P + GEN + 8
+        chunk = da_ops.split_plan(BATCH * K, W, sms)[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            for pos in (chunk - 1, chunk, PROMPT + P + GEN - 2):
+                case(f"k2_{arch}_{dname}", check_decode_attention, B=BATCH,
+                     H=H, K=K, W=W, hd=hd, pos=pos, dtype=dtype)
+            case(f"k1_{arch}_{dname}", check_flash_attention, FWD_BATCH,
+                 FWD_SEQ, H, K, hd, dtype)
+            if hd == 64:
+                case(f"k1_ragged_{arch}_{dname}", check_flash_attention,
+                     FWD_BATCH, 4000, H, K, hd, dtype)
+        torch.cuda.empty_cache()
+        if hd == 64:
+            check_flash_attention_bitwise(FWD_BATCH, FWD_SEQ, H, K, hd,
+                                          seed=3)
+            check_decode_determinism(BATCH, H, K, W, hd,
+                                     (PROMPT + P, PROMPT + P + GEN - 2),
+                                     seed=3)
+    # head_dim 8 (command-r-35b's smoke config, served in phase 45): its
+    # decode and forward shapes, the mask cases, bitwise
+    sc = get_smoke_config("command-r-35b")
+    H, K, hd = sc.num_heads, sc.num_kv_heads, sc.head_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for pos in (5, 23, 31, 40):
+            case(f"k2_hd8_{dname}", check_decode_attention, B=2, H=H, K=K,
+                 W=32, hd=hd, pos=pos, dtype=dtype)
+        for S, T, causal, window, softcap in ((24, 24, True, 0, 0.0),
+                                              (77, 77, True, 0, 0.0),
+                                              (77, 130, False, 0, 0.0),
+                                              (200, 200, True, 33, 30.0)):
+            case(f"k1_hd8_{dname}", check_flash_attention, 2, S, H, K, hd,
+                 dtype, T=T, causal=causal, window=window, softcap=softcap)
+    check_flash_attention_bitwise(2, 200, H, K, hd, seed=4)
+    check_decode_determinism(2, H, K, 32, hd, (20, 40), seed=4)
+    errs["bitwise_over_launches_and_graph_replay"] = [
+        "whisper-small", "internvl2-1b", "command-r-35b smoke (hd 8)"]
+    return errs
+
+
+def new_arch_phase(arch):
+    """One of the last four archs at full width and depth (phases 44-47):
+    random weights drawn on the card from seed 0, the serve cell through
+    ``serve_phase`` (eager and graph engines, bitwise; K2 exactly layers
+    x 63 and nothing else, K1 0; traced from window TRACED), the tapped
+    forward at B=2, S=4096 (K1 exactly once a decoder
+    layer, one commit row each), and Scale-Down at three layers where
+    NEW_SCALE_DOWN_LAYERS names them. The weights are freed and the
+    peak-memory counter reset before returning the record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config(arch)
+    before = free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = build_model(cfg).init(0, device="cuda")
+    torch.cuda.synchronize()
+    rec: dict = {"memory_before": before,
+                 "init_s": time.perf_counter() - t,
+                 "params": sum(p.numel() for p in tree_leaves(params)),
+                 "param_bytes": _nbytes(params)}
+    serve_rec, trace = serve_phase(cfg, params)
+    assert serve_rec["launches"]["k2"] == cfg.num_layers * (GEN - 1)
+    assert serve_rec["launches"]["k1"] == 0
+    log(phase=f"{arch}_serve", **serve_rec)
+    log(phase=f"{arch}_trace", **trace)
+    rec.update(serve=serve_rec, trace=trace,
+               memory_after_serve=free_device_memory())
+    fwd, model, batch = forward_phase(cfg, params)
+    assert fwd["k1_launches"] == cfg.num_layers
+    log(phase=f"{arch}_forward", **fwd)
+    rec["forward"] = fwd
+    if arch in NEW_SCALE_DOWN_LAYERS:
+        sd = scale_down_phase(cfg, params, model, batch,
+                              NEW_SCALE_DOWN_LAYERS[arch])
+        log(phase=f"{arch}_scale_down", **sd)
+        rec["scale_down"] = sd
+    del params, model, batch
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    return rec
+
+
+def free_device_memory():
+    """Collect what only reference cycles keep alive, drop cuBLAS's
+    per-stream workspaces (a workspace first used inside a capture lies in
+    that graph's private pool for as long as its stream's handle keeps
+    it) and return the allocator's free blocks to the card. Returns the
+    allocator's allocated and reserved bytes after, and the bytes still
+    allocated in CUDA-graph private pools. Without the workspaces'
+    release command-r-35b's forward ran out of memory after the earlier
+    phases with 5.47 GiB allocated in such pools; with it nothing is
+    left allocated before each of the last four archs."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    pooled = sum(b["size"] for seg in torch.cuda.memory_snapshot()
+                 if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)
+                 for b in seg["blocks"] if b["state"] == "active_allocated")
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "allocated_in_private_pools": pooled}
+
+
+def full_verify_phase(arch):
+    """CoEmulator.verify at ``arch``'s full width and depth (phase 48),
+    B=2, S=1024, 4 steps, step-locked, the bf16 train step on the "xla"
+    path with the commit tap, under deterministic mode, TF32 off: the
+    DUT against itself (max_rel_err and the loss difference exactly 0),
+    faults at VERIFY_FAULT_LAYERS named (0, k) for a decoder-only stack
+    (the enc-dec refusal of inject_fault is held on the host), and the
+    bf16 DUT against the f32 oracle from the same seed (gated finite).
+    Verified steps/s and peak memory of each."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CoEmulator
+    from repro_torch.core.coemu import inject_fault
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.testing import deterministic
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.utils import tree_leaves
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    free_device_memory()
+    cfg = get_config(arch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    commits = frozenset({"commits"})
+    model = build_model(cfg, Runtime(attention_impl="xla", taps=commits))
+    model32 = build_model(cfg32, Runtime(attention_impl="xla", taps=commits))
+    step, step32 = make_train_step(model), make_train_step(model32)
+    fn = make_batch_fn(cfg, VERIFY_BATCH, VERIFY_SEQ, 0)
+    batches = [fn(i) for i in range(VERIFY_STEPS)]
+    rec: dict = {"arch": arch, "layers": cfg.num_layers,
+                 "batch": VERIFY_BATCH, "seq": VERIFY_SEQ,
+                 "steps": VERIFY_STEPS,
+                 "inputs": {k: [list(v.shape), str(v.dtype)]
+                            for k, v in batches[0].items()}}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with deterministic():
+        state = init_state(model, 0, device="cuda")
+        rec["params"] = sum(t.numel() for t in tree_leaves(state["params"]))
+        emu = CoEmulator(step, step, rtol=1e-6)
+        rep, t = _timed_verify(emu, state, state, batches)
+        assert rep.steps == VERIFY_STEPS and not rep.diverged, rep
+        assert rep.max_rel_err == 0.0 and rep.loss_max_abs_diff == 0.0, rep
+        rec["self_verify"] = {**t, "summary": rep.summary(),
+                              "max_memory_allocated":
+                                  torch.cuda.max_memory_allocated()}
+        if cfg.family != "encdec":
+            faults = {}
+            for k in VERIFY_FAULT_LAYERS:
+                bad = {**state,
+                       "params": inject_fault(state["params"], cfg, k)}
+                rep = emu.verify(bad, state, batches)
+                del bad
+                assert rep.diverged and \
+                    (rep.first.step, rep.first.layer) == (0, k), (k, rep)
+                faults[k] = rep.summary()
+            rec["faults"] = faults
+        del emu
+        torch.cuda.empty_cache()
+        state32 = init_state(model32, 0, device="cuda")
+        rec["state_bytes"] = {"dut": _nbytes(state), "orc": _nbytes(state32)}
+        sink, on = [], [True]
+        emu = CoEmulator(_recording(step, sink, on),
+                         _recording(step32, sink, on), rtol=COEMU_BF16_RTOL)
+        torch.cuda.reset_peak_memory_stats()
+        rep, t = _timed_verify(emu, state, state32, batches)
+        errs = _layer_errors(sink)
+        assert np.isfinite(errs).all() and \
+            np.isfinite(rep.loss_max_abs_diff), (errs, rep)
+        rec["bf16_vs_f32"] = {
+            **t, "rtol": COEMU_BF16_RTOL, "summary": rep.summary(),
+            "diverged_at_rtol": rep.diverged, "max_rel_err": rep.max_rel_err,
+            "max_rel_err_per_layer_mean_absmean": errs.tolist(),
+            "loss_max_abs_diff": rep.loss_max_abs_diff,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del emu, sink, state, state32
+    expect_counts(counts(), {}, f"{arch} verify (the xla path)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return rec
+
+
+def last_four_phases(sms):
+    """Phases 43-49 (the module docstring), with every earlier model's
+    weights freed: the K1/K2 checks, then each of NEW_ARCHS at full width
+    and depth (serve, forward, Scale-Down), the smoke parity, the verify
+    at full depth and K1/K2 timed at head_dim 64. Returns {"record": the
+    phases' records, "k1": / "k2": the entries they add to the kernels
+    line}."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    # ----------------------------------------------------------- 43. k1/k2
+    errs = new_kernel_check_phase(sms)
+    log(phase="new_arch_kernels", max_abs_err_and_normwise_err=errs)
+    torch.cuda.empty_cache()
+    # ------------------------------- 44, 46, 47. serve, forward, Scale-Down
+    archs = {arch: new_arch_phase(arch) for arch in NEW_ARCHS}
+    # ------------------------------------------------------- 45. parity
+    parity = serve_parity(NEW_ARCHS)
+    log(phase="new_arch_parity", tokens_equal=True, tokens=parity)
+    # ------------------------------------------------ 48. verify, full depth
+    verify = {}
+    for arch in VERIFY_ARCHS:
+        verify[arch] = full_verify_phase(arch)
+        log(phase=f"{arch}_verify", **verify[arch])
+    # ------------------------------------------------ 49. k1, k2 at hd 64
+    k1 = {"hd64": {}, "launches_new_arch_forwards": {
+        a: r["forward"]["k1_launches"] for a, r in archs.items()}}
+    k2 = {"hd64": {}, "launches_new_arch_serves": {
+        a: r["serve"]["launches"]["k2"] for a, r in archs.items()}}
+    for arch in VERIFY_ARCHS:
+        c = get_config(arch)
+        P = c.num_patches if c.family == "vlm" else 0
+        # one q/k/v set and one cache set per decoder layer; pos inside
+        # the serve run's decode (2048 + P + 2 to + 62)
+        k1["hd64"][arch] = {
+            "launches": archs[arch]["forward"]["k1_launches"],
+            "max_abs_err": errs[f"k1_{arch}_bfloat16"][0],
+            **k1_time(FWD_BATCH, FWD_SEQ, c.num_heads, c.num_kv_heads,
+                      c.head_dim, 0, c.num_layers, seed=8)}
+        log(phase=f"k1_time_{arch}", **k1["hd64"][arch])
+        k2["hd64"][arch] = {
+            "launches": archs[arch]["serve"]["launches"]["k2"],
+            "max_abs_err": errs[f"k2_{arch}_bfloat16"][0],
+            **k2_time(BATCH, c.num_heads, c.num_kv_heads,
+                      PROMPT + P + GEN + 8, c.head_dim, PROMPT + P + 52,
+                      c.num_layers, seed=9)}
+        log(phase=f"k2_time_{arch}", **k2["hd64"][arch])
+    return {"record": {"new_arch_kernel_errors": errs, "new_archs": archs,
+                       "new_arch_parity": parity, "full_verify": verify},
+            "k1": k1, "k2": k2}
+
+
 def host_us(torch, fn, calls=200, repeats=5):
     """A kernel wrapper's host time a call (its checks, the path choice,
     the outputs' allocation and the launch): ``calls`` calls of fn()
@@ -2573,6 +2921,12 @@ def main() -> int:
     examples = examples_phase()
     log(phase="examples", **examples)
     record["examples"] = examples
+
+    # ------------------------------------------ 43-49. the last four archs --
+    new = last_four_phases(sms)
+    record.update(new["record"])
+    for kern, part in ((k1, new["k1"]), (k2, new["k2"])):
+        kern.update(part)
 
     kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels

@@ -456,7 +456,12 @@ def inject_fault(params, cfg, layer: int, scale: float = 100.0):
     layer's period. Returns new params that share no tensor with
     ``params``, which is left as it was (the port's steps update their
     state in place, so a shared leaf would carry one run's updates into
-    the other)."""
+    the other). An enc-dec config raises ValueError."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"inject_fault perturbs a block of the decoder-only layer "
+            f"stack; {cfg.name!r} is of the encdec family (no "
+            f"params['stack']), where the reference fails with a KeyError")
     P_len = len(cfg.layer_pattern)
     period, pos = divmod(layer, P_len)
     params = tree_clone(params)

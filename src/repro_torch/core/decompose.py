@@ -7,6 +7,10 @@ behind a preserved interface behaves exactly as in situ (strict
 non-interference of the DUT). On the card the replay runs the same
 kernels on the same inputs as the in-situ run, so it must reproduce it
 bit for bit.
+
+Blocks come from a decoder-only layer stack (``params["stack"]``), the
+dense, SSM, hybrid, MoE and VLM families; an enc-dec model has none, and
+every entry point raises ValueError for it.
 """
 from __future__ import annotations
 
@@ -20,10 +24,24 @@ from repro_torch.models.runtime import Runtime
 from repro_torch.utils import dtype_of, tree_map
 
 
+def _decoder_stack(params, cfg):
+    """The decoder-only layer stack. An enc-dec model has none: the
+    reference reads ``params["stack"]`` and fails with a KeyError; the
+    port names the family."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"Scale-Down extracts blocks of a decoder-only layer stack; "
+            f"{cfg.name!r} is of the encdec family (encoder and decoder "
+            f"stacks, no params['stack']), which the reference's "
+            f"decomposition does not reach either")
+    return params["stack"]
+
+
 def iter_layer_params(params, cfg):
     """Yield (layer_idx, spec, per-layer param tree) from the stacked stack,
-    in period-major layer order. The trees are views, not copies."""
-    stack = params["stack"]
+    in period-major layer order. The trees are views, not copies. An
+    enc-dec config raises ValueError."""
+    stack = _decoder_stack(params, cfg)
     P_len = len(cfg.layer_pattern)
     n_periods = cfg.num_layers // P_len
     for period in range(n_periods):
@@ -120,7 +138,8 @@ def verify_extraction(params, cfg, batch_x, positions, rt: Runtime,
 def scanned_vs_unrolled(params, cfg, x, positions, rt: Runtime) -> float:
     """The production forward (periods of stacked params) against the
     unrolled composition of extracted blocks: max relative difference."""
-    x_scan, _ = tfm.stack_apply(params["stack"], cfg, x, positions, rt)
+    x_scan, _ = tfm.stack_apply(_decoder_stack(params, cfg), cfg, x,
+                                positions, rt)
     x_unroll, _ = unrolled_capture(params, cfg, x, positions, rt)
     a, b = x_scan.float(), x_unroll.float()
     return float((a - b).abs().max() / (b.abs().max() + 1e-6))

@@ -40,7 +40,8 @@
 //     through device memory, cost more than the rest of the kernel at
 //     recurrentgemma-2b's shape on an H100: one SM read every partial;
 //   * the bf16 instance (the model's) runs QK^T and PV on the tensor cores
-//     (mma.sync.m16n8k16, the G <= 16 heads padded to 16 rows): at
+//     (mma.sync.m16n8k16, the G <= 16 heads padded to 16 rows; head_dim 8
+//     pads its k-step of 16 with zeros): at
 //     glm4-9b's G = 16 the f32 FMAs alone would take about as long as the
 //     bytes. The f32 instance stays on FMAs, exact to 2e-5;
 //   * `pos` is read from device memory (the TPU kernel's SMEM scalar
@@ -216,10 +217,16 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // two warps take part). f32: scores lane = slot, four heads a warp;
     // the weights go through shared memory, and each thread owns (head, 4
     // dims) items tid + j * kThreads.
-    constexpr int kPVWarps = HD / 16 < kWarps ? HD / 16 : kWarps;
+    // (head_dim 8: one warp, one n8 tile of dims)
+    constexpr int kPVWarps =
+        HD < 16 ? 1 : (HD / 16 < kWarps ? HD / 16 : kWarps);
     constexpr int kWarpDims = HD / kPVWarps;
     constexpr int kDTiles = kWarpDims / 8;
-    static_assert(kDTiles % 2 == 0, "V is read two n8 tiles at a time");
+    static_assert(kDTiles % 2 == 0 || kDTiles == 1,
+                  "V is read two n8 tiles at a time");
+    // QK^T's k-steps of 16 dims; head_dim 8 pads its one k-step with
+    // zeros (q's and k's dims 8-15 enter as 0, not as shared memory)
+    constexpr int kKSteps = (HD + 15) / 16;
     constexpr int kItems = (kMaxG * HD / 4 + kThreads - 1) / kThreads;
     float o[kBf16 ? kDTiles : kItems][4];
 #pragma unroll
@@ -229,7 +236,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int g = lane / 4, tig = lane % 4;  // mma fragment coordinates
     // bf16: rows g and g + 8; m is the row's, l this lane's share of it
     float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-    uint32_t qa[kBf16 ? HD / 16 : 1][4];
+    uint32_t qa[kBf16 ? kKSteps : 1][4];
 
     for (int i = 0; i < n_tiles; ++i) {
       cp_async_wait<kStages - 2>();   // tile i has landed
@@ -242,12 +249,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if constexpr (kBf16) {
         if (i == 0) {
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk) {
+          for (int kk = 0; kk < kKSteps; ++kk) {
             const bf16* r0 = q_s + g * L::kQRow + kk * 16 + tig * 2;
             qa[kk][0] = lds32(r0);
             qa[kk][1] = lds32(r0 + 8 * L::kQRow);
-            qa[kk][2] = lds32(r0 + 8);
-            qa[kk][3] = lds32(r0 + 8 * L::kQRow + 8);
+            qa[kk][2] = HD >= 16 ? lds32(r0 + 8) : 0u;
+            qa[kk][3] = HD >= 16 ? lds32(r0 + 8 * L::kQRow + 8) : 0u;
           }
         }
         // S = Q K^T: warp w scores n8 tile w (slots t0 + 8 w ..) for the
@@ -271,7 +278,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
           } else {
             const bf16* kr = ks + (warp * 8 + g) * kRow + tig * 2;
-            mma_bf16(cw, qa[0], lds32(kr), lds32(kr + 8));
+            mma_bf16(cw, qa[0], lds32(kr), HD >= 16 ? lds32(kr + 8) : 0u);
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -341,9 +348,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int dt = 0; dt < kDTiles; dt += 2) {
               uint32_t vb4[4];
+              // (head_dim 8: matrices 2 and 3 lie in the rows' padding,
+              // read and left unused)
               ldmatrix_x4_trans(vb4, vrow + dt * 8);
               mma_bf16(o[dt], pa, vb4[0], vb4[1]);
-              mma_bf16(o[dt + 1], pa, vb4[2], vb4[3]);
+              if constexpr (kDTiles > 1)
+                mma_bf16(o[dt + 1], pa, vb4[2], vb4[3]);
             }
           }
         }
@@ -579,6 +589,8 @@ int launch_typed(const void* q, const void* k, const void* v,
   launch_hd<T, HD>(q, k, v, pos, out, B, W, K, G, window, chunk, n_split, \
                    scale, softcap, stream)
   switch (hd) {
+    case 8:
+      return DA_LAUNCH(8);
     case 16:
       return DA_LAUNCH(16);
     case 32:

@@ -39,10 +39,12 @@
 //     Tiles are 128 keys at hd 128 (160 KB of shared memory) and 64 at hd
 //     256 (192 KB). The TMA maps are encoded on the host at each call,
 //     through the runtime's driver entry point (no -lcuda);
-//   * bf16 at head_dim 16 to 64 (the reference's test grid and the smoke
-//     configs) stays on mma.sync.m16n8k16 with 64-row tiles, S and P in
-//     registers, and the next k/v tile copied with cp.async under this
-//     one's products;
+//   * bf16 at head_dim 8 to 64 (the reference's test grid, the smoke
+//     configs, and whisper-small's and internvl2-1b's head_dim 64) stays
+//     on mma.sync.m16n8k16 with 64-row tiles, S and P in registers, and
+//     the next k/v tile copied with cp.async under this one's products
+//     (head_dim 8, command-r-35b's smoke config, pads its k-step of 16
+//     with zeros);
 //   * the f32 instance stays on the CUDA cores' f32 FMAs, which keeps it
 //     exact to 2e-5 (a 4x4 block of scores per thread, float4
 //     shared-memory reads, the next tile's 16-byte loads in flight in
@@ -142,7 +144,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   using L = Layout<HD>;
   constexpr int kBK = L::kBK;
   constexpr int kKJ = L::kKJ;
-  constexpr int kDPT = HD / kCG;                 // output dims per thread
+  // output dims per thread; at head_dim 8 the first 8 column groups own
+  // one dim each and the other 8 none
+  constexpr int kDPT = HD >= kCG ? HD / kCG : 1;
   constexpr int kPerVec = 4;                     // floats per 16 bytes
   constexpr int kVecsPerRow = HD / kPerVec;
   constexpr int kTileVecs = kBK * kVecsPerRow;
@@ -159,6 +163,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const int q_lo = qt * kBQ;
   const int tid = threadIdx.x, rg = tid / kCG, cg = tid % kCG;
   const int row0 = rg * 4;                       // this thread's 4 rows
+  const bool owns = HD >= kCG || cg < HD;        // an output dim
 
   // q tile, rows past S zero-filled
   const size_t q_row = (size_t)H * HD;           // elements between rows
@@ -299,7 +304,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         }
       } else {
 #pragma unroll
-        for (int dd = 0; dd < kDPT; ++dd) vx[dd] = v_s[t * HD + cg + kCG * dd];
+        for (int dd = 0; dd < kDPT; ++dd)
+          vx[dd] = owns ? v_s[t * HD + cg + kCG * dd] : 0.f;
       }
 #pragma unroll
       for (int dd = 0; dd < kDPT; ++dd) {
@@ -315,7 +321,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q_lo + row0 + i;
-    if (r < S) {
+    if (r < S && owns) {
       const float l = fmaxf(l_r[i], 1e-30f);
       float* o = ob + (size_t)r * q_row;
 #pragma unroll
@@ -325,7 +331,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// ------------------------------- bf16 at head_dim 16 to 64: mma.sync ----
+// -------------------------------- bf16 at head_dim 8 to 64: mma.sync ----
 //
 // The bf16 instance below head_dim 128 runs QK^T and PV on the tensor
 // cores with
@@ -366,7 +372,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   using L = MmaLayout<HD>;
   constexpr int kRow = L::kRow;
   constexpr int kBK = L::kBK;
-  constexpr int kKSteps = HD / 16;        // k-steps of QK^T
+  // k-steps of QK^T; head_dim 8 pads its one k-step with zeros (q's and
+  // k's dims 8-15 enter as 0, not as shared memory)
+  constexpr int kKSteps = (HD + 15) / 16;
   static_assert(HD <= 64, "head_dim 128 and 256 take the wgmma kernel");
   constexpr int kNTiles = kBK / 8;        // 8-key n-tiles of S
   constexpr int kDTiles = HD / 8;         // 8-dim n-tiles of O
@@ -431,8 +439,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* r0 = q_s + (wrow + g) * kRow + ks * 16 + tig * 2;
     a[0] = *reinterpret_cast<const uint32_t*>(r0);
     a[1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow);
-    a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow + 8);
+    a[2] = HD >= 16 ? *reinterpret_cast<const uint32_t*>(r0 + 8) : 0u;
+    a[3] = HD >= 16 ? *reinterpret_cast<const uint32_t*>(r0 + 8 * kRow + 8)
+                    : 0u;
   };
 
   int stage = 0;
@@ -462,7 +471,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int nt = 0; nt < kNTiles; ++nt) {
         const __nv_bfloat16* kr = ks_ + (nt * 8 + g) * kRow + ks * 16 + tig * 2;
         mma_bf16(sc[nt], a, *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+                 HD >= 16 ? *reinterpret_cast<const uint32_t*>(kr + 8) : 0u);
       }
     }
 
@@ -525,9 +534,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dt = 0; dt < kDTiles; dt += 2) {
         uint32_t vb4[4];
+        // (head_dim 8: matrices 2 and 3 lie in the rows' padding, read
+        // and left unused)
         ldmatrix_x4_trans(vb4, vrow + dt * 8);
         mma_bf16(o[dt], pa, vb4[0], vb4[1]);
-        mma_bf16(o[dt + 1], pa, vb4[2], vb4[3]);
+        if constexpr (kDTiles > 1) mma_bf16(o[dt + 1], pa, vb4[2], vb4[3]);
       }
     }
     __syncthreads();  // this stage is read; the next prefetch may reuse it
@@ -980,6 +991,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 8:
+      return launch_hd<8>(q, k, v, out, B, S, T, H, K, causal, window,
+                          scale, softcap, dtype, s);
     case 16:
       return launch_hd<16>(q, k, v, out, B, S, T, H, K, causal, window,
                            scale, softcap, dtype, s);

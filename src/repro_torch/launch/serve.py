@@ -12,6 +12,12 @@ steps eagerly. The scheduler double-buffers the shell, so the host drain
 of window *i* (where the tokens and the per-window latency sample land)
 overlaps window *i+1* queued on the device.
 
+Every architecture of the registry serves. A VLM's cache holds its patch
+prefix too (``max_len`` counts ``num_patches``, as in the reference). The
+one difference from the reference: a batch's frame or patch embeddings
+go to the device in the model's dtype before the prefill; the
+reference's enc-dec prefill fails on the pipeline's f32 frames.
+
 ``scope=`` (or ``--scope N``) runs the decode with the ZP-Scope plane
 (``core/scope.py``): device counters over each window's tokens, read every
 N drains, reported under "scope". The tokens, the drained shell and the
@@ -24,6 +30,8 @@ replay.
       --smoke --batch 4 --prompt-len 32 --gen 16 --sample-interval 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --no-smoke --batch 8 --prompt-len 2048 --gen 64 --sample-interval 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --no-smoke
 """
 from __future__ import annotations
 
@@ -43,7 +51,13 @@ from repro_torch.core.scope import ScopeSpec, as_plane, unwrap
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.models import build_model
 from repro_torch.serve import make_prefill_step
-from repro_torch.utils import resolve_device, sync, tree_leaves, tree_map
+from repro_torch.utils import (dtype_of, resolve_device, sync, tree_leaves,
+                               tree_map)
+
+
+# a batch's stubbed modality-frontend outputs (whisper's frame embeddings,
+# internvl2's patch embeddings)
+_FRONTEND_INPUTS = ("frames", "patches")
 
 
 def decode_shell_config(sample_interval: int) -> ShellConfig:
@@ -132,9 +146,14 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
     if params is None:
         params = model.init(seed, device=device)
     bf = make_batch_fn(cfg, batch, prompt_len, seed)
-    b = {k: torch.from_numpy(v).to(device) for k, v in bf(0).items()
-         if k != "labels"}
-    max_len = prompt_len + gen + 8
+    # the stubbed frontends' embeddings go in the model's dtype: the
+    # reference passes the pipeline's f32 frames on, and its enc-dec
+    # prefill then fails (models/encdec.py::encdec_prefill)
+    b = {k: torch.from_numpy(v).to(device, dtype_of(cfg.dtype)
+                                   if k in _FRONTEND_INPUTS else None)
+         for k, v in bf(0).items() if k != "labels"}
+    max_len = prompt_len + (cfg.num_patches if cfg.family == "vlm" else 0) \
+        + gen + 8
     prefill = make_prefill_step(model, max_len)
     wd = Watchdog(timeout_s=120.0)
 

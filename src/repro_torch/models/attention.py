@@ -1,5 +1,5 @@
 """GQA attention: full / sliding-window / local; forward, prefill and
-decode paths.
+decode paths, and the enc-dec decoder's cross-attention.
 
 The forward (``attention_apply``, the path the commit-tapped model
 forward and the Scale-Down replay run) goes through the K1 wrapper under
@@ -27,7 +27,9 @@ NEG_INF = -1e30
 _Q_CHUNK = 1024  # q-block size for the chunked path
 
 
-def init_attention(g, cfg, device):
+def init_attention(g, cfg, device, cross: bool = False):
+    """q, k, v, o projections, and the qk-norm scales where the config
+    asks for them, except on a cross-attention (``cross=True``)."""
     dt = dtype_of(cfg.dtype)
     D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
@@ -37,7 +39,7 @@ def init_attention(g, cfg, device):
         "o": init_dense(g, H * hd, D, dt, device, cfg.use_bias,
                         scale=(H * hd) ** -0.5),
     }
-    if cfg.use_qk_norm:
+    if cfg.use_qk_norm and not cross:
         p["q_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32,
                                            device=device)}
         p["k_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32,
@@ -70,21 +72,28 @@ def _project_qkv(p, cfg, xq, xkv, q_positions, kv_positions, rope: bool):
 def _attend(cfg, q, k, v, mask):
     """q: (B,Sq,H,hd) k/v: (B,T,K,hd) mask: (Sq,T) or (B,Sq,T) or None.
     Scores and softmax in f32; the weights are cast to v's dtype before
-    the PV product, as in the reference."""
+    the PV product, as in the reference. q and k/v may differ in dtype
+    (a cross-attention over f32 encoder states): the scores take both in
+    f32 and the PV product runs in v's dtype, as JAX's promotion does."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     qg = q.reshape(B, Sq, K, G, hd)
+    # the scale and the mask go in place on the fresh f32 scores (the same
+    # values as out of place): at command-r-35b's serve prefill a 1024-row
+    # chunk's scores are 4 GiB, and each out-of-place copy would be
+    # another 4 GiB beside 56 GiB of weights
     scores = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), k.float())
-    scores = scores * (hd ** -0.5)
+    scores.mul_(hd ** -0.5)
     if cfg.attn_logit_softcap > 0:
         c = cfg.attn_logit_softcap
         scores = torch.tanh(scores / c) * c
     if mask is not None:
         if mask.dim() == 2:
             mask = mask[None]
-        scores = torch.where(mask[:, None, None], scores, NEG_INF)
+        scores.masked_fill_(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1)
+    del scores
     out = torch.einsum("bkgqt,btkh->bqkgh", w.to(v.dtype), v)
     return out.reshape(B, Sq, H * hd)
 
@@ -132,6 +141,27 @@ def attention_apply(p, cfg, x, positions, *, window: int = 0,
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=cfg.attn_logit_softcap)
     return dense_apply(p["o"], out.reshape(B, S, -1))
+
+
+# ------------------------------------------------------ cross-attention ----
+def cross_attention_apply(p, cfg, x, kv_cache):
+    """Decoder cross-attention over precomputed encoder k/v
+    (``make_cross_kv``): no RoPE, no mask, plain (the reference calls no
+    kernel here). x: (B,S,D)."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q = dense_apply(p["q"], x).reshape(B, S, H, hd)
+    out = _attend(cfg, q, kv_cache["ck"], kv_cache["cv"], None)
+    return dense_apply(p["o"], out)
+
+
+def make_cross_kv(p, cfg, enc_out):
+    """The cross-attention's k/v of the encoder output enc_out (B,T,D):
+    {"ck", "cv"}, each (B,T,K,hd)."""
+    B, T, _ = enc_out.shape
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"ck": dense_apply(p["k"], enc_out).reshape(B, T, K, hd),
+            "cv": dense_apply(p["v"], enc_out).reshape(B, T, K, hd)}
 
 
 # ----------------------------------------------------------- decode path ----

@@ -34,7 +34,14 @@ def init_dense(g, d_in: int, d_out: int, dtype, device, use_bias=False,
 
 
 def dense_apply(p, x):
-    y = x @ p["w"]
+    """x @ w (+ b). Where x and w differ in dtype, both go to the wider
+    one first, as JAX promotes (bf16 with f32 gives f32): torch's
+    matmul refuses mixed dtypes."""
+    w = p["w"]
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y

@@ -1,5 +1,6 @@
-"""Model facade of the port: the dense decoder, Mamba-1 SSM, RG-LRU hybrid
-and MoE decoder families.
+"""Model facade of the port: one interface over the ten architectures of
+the JAX package (the dense, Mamba-1 SSM, RG-LRU hybrid, MoE, enc-dec and
+VLM families).
 
 ``build_model(cfg, rt)`` returns a Model with:
   init(seed, device) -> params
@@ -11,18 +12,25 @@ and MoE decoder families.
 
 ``aux`` carries the P-Shell taps that ``rt.taps`` asks for, and each MoE
 layer's load-balance loss. ``loss`` is differentiable under
-``rt.attention_impl="xla"`` (the train step, ``repro_torch.train``); the
-other families (encdec, vlm) come with later slices of the port.
+``rt.attention_impl="xla"`` (the train step, ``repro_torch.train``).
+Modality frontends are stubs, as in the reference: whisper-small's batch
+carries frame embeddings ("frames", (B, encoder_seq, d_model)),
+internvl2-1b's patch embeddings ("patches", (B, num_patches,
+patch_embed_dim)), projected by ``patch_proj`` and prepended to the text.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_apply, logits_apply, norm_apply
+from repro_torch.models.layers import (dense_apply, embed_apply, init_dense,
+                                       logits_apply, norm_apply)
 from repro_torch.models.runtime import Runtime
-from repro_torch.utils import resolve_device
+from repro_torch.utils import dtype_of, resolve_device
+
+_FAMILIES = ("dense", "ssm", "hybrid", "moe", "encdec", "vlm")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -61,11 +69,10 @@ def _on_device(batch, params):
 
 class Model:
     def __init__(self, cfg: ModelConfig, rt: Runtime = Runtime()):
-        if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (a later slice "
-                "of the port); the dense, ssm, hybrid and moe families "
-                "are ported")
+        if cfg.family not in _FAMILIES:
+            raise ValueError(
+                f"unknown family {cfg.family!r}; the port has "
+                f"{list(_FAMILIES)}")
         self.cfg = cfg
         self.rt = rt
 
@@ -74,23 +81,47 @@ class Model:
         """Random params drawn on ``device`` from a generator seeded with
         ``seed``. They do not equal the JAX package's draw for the same
         seed: carry weights across with ``repro_torch.interop``."""
+        cfg = self.cfg
         device = resolve_device(device)
         g = None if device.type == "meta" \
             else torch.Generator(device=device).manual_seed(seed)
-        return tfm.init_lm(g, self.cfg, device)
+        if cfg.family == "encdec":
+            return ed.init_encdec(g, cfg, device)
+        params = tfm.init_lm(g, cfg, device)
+        if cfg.family == "vlm":
+            params["patch_proj"] = init_dense(
+                g, cfg.patch_embed_dim, cfg.d_model, dtype_of(cfg.dtype),
+                device)
+        return params
 
     # ---------------------------------------------------------- forward ---
+    def _prefix(self, params, batch):
+        """A VLM's patch embeddings projected to d_model (promoted with the
+        projection's dtype, as in the reference), or None."""
+        if self.cfg.family == "vlm" and "patches" in batch:
+            return dense_apply(params["patch_proj"], batch["patches"])
+        return None
+
     def logits(self, params, batch):
-        """Commit-tapped forward: f32 logits (B,S,V) and the aux tree."""
+        """Commit-tapped forward: f32 logits (B,S,V) and the aux tree; a
+        VLM's S counts its patch prefix."""
+        cfg, rt = self.cfg, self.rt
         batch = _on_device(batch, params)
-        return tfm.lm_logits(params, self.cfg, batch["tokens"], self.rt)
+        if cfg.family == "encdec":
+            return ed.encdec_logits(params, cfg, batch, rt)
+        return tfm.lm_logits(params, cfg, batch["tokens"], rt,
+                             prefix_embeds=self._prefix(params, batch))
 
     def loss(self, params, batch):
-        """Mean next-token cross-entropy plus ``rt.aux_loss_coef`` times
-        the MoE load-balance loss (``moe_aux``, a 0-d f32 zero for the
-        families without MoE layers)."""
+        """Mean next-token cross-entropy (a VLM's over its text positions)
+        plus ``rt.aux_loss_coef`` times the MoE load-balance loss
+        (``moe_aux``, a 0-d f32 zero for the families without MoE
+        layers)."""
         batch = _on_device(batch, params)
         logits, aux = self.logits(params, batch)
+        if self.cfg.family == "vlm":
+            P = logits.shape[1] - batch["labels"].shape[1]
+            logits = logits[:, P:]
         ce = cross_entropy(logits, batch["labels"])
         moe_aux = _collect_moe_aux(aux, ce.device)
         loss = ce + self.rt.aux_loss_coef * moe_aux
@@ -99,16 +130,28 @@ class Model:
 
     # ------------------------------------------------------------ serve ---
     def cache_spec(self, batch: int, max_len: int):
+        if self.cfg.family == "encdec":
+            return ed.encdec_cache_spec(self.cfg, batch, max_len)
         return tfm.stack_cache_spec(self.cfg, batch, max_len)
 
     def prefill(self, params, batch, max_len: int):
+        """The prompt (after a VLM's patch prefix; over an enc-dec's
+        encoded frames) -> (cache, f32 logits of the last position)."""
         cfg = self.cfg
+        if cfg.family == "encdec":
+            return ed.encdec_prefill(params, cfg, batch, max_len, self.rt)
         tokens = batch["tokens"]
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
         x = embed_apply(params["embed"], tokens,
-                        positions if cfg.learned_pos else None)
+                        torch.arange(tokens.shape[1], dtype=torch.int32,
+                                     device=tokens.device).expand(
+                                         tokens.shape)
+                        if cfg.learned_pos else None)
+        prefix = self._prefix(params, batch)
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
         x, cache = tfm.stack_prefill(params["stack"], cfg, x, positions,
                                      max_len, self.rt)
         x = norm_apply(cfg, params["final_norm"], x)
@@ -118,6 +161,9 @@ class Model:
         """serve_step: one new token against the standing cache, which is
         updated in place."""
         cfg = self.cfg
+        if cfg.family == "encdec":
+            return ed.encdec_decode_step(params, cfg, cache, tokens1,
+                                         self.rt)
         pos = cache["pos"]
         B = tokens1.shape[0]
         x = embed_apply(params["embed"], tokens1,

@@ -209,24 +209,29 @@ def _period(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def init_stacked(init_fn, n: int, g, device):
+    """``n`` draws of ``init_fn(g, device)`` stacked on a leading axis,
+    each drawn and copied into its slot, so init holds one block beyond
+    the stack."""
+    stacked = tree_map(lambda t: torch.empty(
+        (n,) + tuple(t.shape), dtype=t.dtype, device=device),
+        init_fn(None, "meta"))
+    for i in range(n):
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked,
+                 init_fn(g, device))
+    return stacked
+
+
 def init_stack(g, cfg, device):
-    """Stacked period params + unrolled tail. Each period is drawn and
-    copied into its slot, so init holds one block beyond the stack."""
+    """Stacked period params + unrolled tail."""
     P_len, n_periods, remainder = _partition(cfg)
     pattern = cfg.layer_pattern
-    blocks = []
-    for j in range(P_len):
-        spec = init_block(None, cfg, pattern[j], "meta")
-        stacked = tree_map(lambda t: torch.empty(
-            (n_periods,) + tuple(t.shape), dtype=t.dtype, device=device),
-            spec)
-        for i in range(n_periods):
-            tree_map(lambda dst, src: dst[i].copy_(src), stacked,
-                     init_block(g, cfg, pattern[j], device))
-        blocks.append(stacked)
+    blocks = tuple(init_stacked(
+        lambda g_, dev, spec=pattern[j]: init_block(g_, cfg, spec, dev),
+        n_periods, g, device) for j in range(P_len))
     tail = [init_block(g, cfg, pattern[i % P_len], device)
             for i in range(remainder)]
-    return {"blocks": tuple(blocks), "tail": tail}
+    return {"blocks": blocks, "tail": tail}
 
 
 def _period_apply(blocks, i, x, cfg, positions, rt):
@@ -347,20 +352,26 @@ def init_lm(g, cfg, device):
     return params
 
 
-
-def lm_hidden(params, cfg, tokens, rt: Runtime):
-    """tokens (B,S) -> final hidden (B,S,D), aux, at positions 0..S-1. As
-    in the reference's forward without explicit positions, a learned
-    position table is not added (only RoPE reads the positions)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    x = embed_apply(params["embed"], tokens)
+def lm_hidden(params, cfg, tokens, rt: Runtime, prefix_embeds=None,
+              positions=None):
+    """tokens (B,S) -> final hidden (B,S',D), aux. ``prefix_embeds`` (a
+    VLM's projected patches, (B,P,D)) is prepended before the stack, so
+    S' = P + S. Without ``positions`` the stack runs at 0..S'-1 and, as in
+    the reference, a learned position table is not added (only RoPE
+    reads the positions)."""
+    x = embed_apply(params["embed"], tokens,
+                    positions if cfg.learned_pos else None)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
     x, aux = stack_apply(params["stack"], cfg, x, positions, rt)
     return norm_apply(cfg, params["final_norm"], x), aux
 
 
-def lm_logits(params, cfg, tokens, rt: Runtime):
-    """tokens (B,S) -> f32 logits (B,S,V), aux."""
-    h, aux = lm_hidden(params, cfg, tokens, rt)
+def lm_logits(params, cfg, tokens, rt: Runtime, **kw):
+    """tokens (B,S) -> f32 logits (B,S',V), aux; ``kw`` as ``lm_hidden``."""
+    h, aux = lm_hidden(params, cfg, tokens, rt, **kw)
     return logits_apply(params, cfg, h), aux

@@ -70,7 +70,10 @@ MIXER_KERNEL = {"attn": "k1", "swa": "k1", "local": "k1", "mamba": "k3",
 def layer_kernels(cfg):
     """Per layer, in period-major order, the kernels its full-sequence
     forward launches and how often: the mixer's kernel once and, for a
-    MoE FFN, K5 three times (the gate, up and down products)."""
+    MoE FFN, K5 three times (the gate, up and down products). An enc-dec
+    config's layers are its decoder's (K1 once each, in the
+    self-attention); its encoder and cross-attention are plain, as in the
+    reference. A VLM's are its decoder stack's."""
     out = []
     for mixer, ffn in cfg.layer_specs:
         t = {MIXER_KERNEL[mixer]: 1}
@@ -94,7 +97,9 @@ def serve_kernels(cfg, steps: int):
     decode steps. The prefill runs K3 or K4 once a mamba or RG-LRU layer
     (its attention is plain, as in the reference) and K5 three times a
     MoE layer; each decode step runs K2 once an attention layer and K5
-    three times a MoE layer (the mamba and RG-LRU steps are plain). A
+    three times a MoE layer (the mamba and RG-LRU steps are plain; an
+    enc-dec decoder layer's K2 is its self-attention's, its encoder and
+    cross-attention plain). A
     decode window run as a CUDA-graph replay counts the launches it
     executes (``core.graphs.WindowGraphs``), so the tallies hold for both
     engines."""
@@ -371,6 +376,18 @@ def check_bitwise(call, counter, replays=3):
             "a graph replay differs from the eager launch"
 
 
+def check_flash_attention_bitwise(B, S, H, K, hd, seed=0):
+    """K1 in bf16, causal, on random inputs drawn on the card from
+    ``seed``, bitwise over launches and a CUDA-graph replay
+    (``check_bitwise``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, S, K, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, S, K, hd, generator=g, device="cuda").bfloat16()
+    check_bitwise(lambda: fa_ops.flash_attention(q, k, v),
+                  fa_ops.flash_attention)
+
+
 def check_grouped_gemm_bitwise(E, M, K, N, dtype, seed=0, path=None):
     """K5 through ``path`` bitwise over launches and a CUDA-graph replay
     (``check_bitwise``)."""
@@ -485,8 +502,12 @@ def check_forward_parity(cfg, B=2, S=24, seed=0):
         with torch.inference_mode():
             with record:
                 loss, (_, aux) = model.loss(params, b)
+            # the replay's input is the text's embedding (a VLM's tokens
+            # are S less its patches)
             x = embed_apply(params["embed"], b["tokens"])
-            pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+            St = b["tokens"].shape[1]
+            pos = torch.arange(St, dtype=torch.int32,
+                               device=dev).expand(B, St)
             bitwise = [verify_extraction(params, cfg, x, pos, model.rt,
                                          i)["bitwise_identical"]
                        for i in range(cfg.num_layers)]

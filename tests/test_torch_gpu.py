@@ -54,6 +54,7 @@ from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  train_run,
                                  check_decode_determinism,
                                  check_flash_attention,
+                                 check_flash_attention_bitwise,
                                  check_forward_parity, check_grouped_gemm,
                                  check_grouped_gemm_bitwise,
                                  check_moe_ffn, check_rglru_scan,
@@ -65,7 +66,11 @@ from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 ARCHS = ["glm4-9b", "granite-8b", "falcon-mamba-7b", "recurrentgemma-2b",
-         "qwen3-moe-30b-a3b", "mixtral-8x7b"]
+         "qwen3-moe-30b-a3b", "mixtral-8x7b", "internlm2-20b",
+         "command-r-35b", "internvl2-1b"]
+# the enc-dec serves, but has no decoder-only stack to replay (Scale-Down
+# refuses it), so it is not in the forward parity
+SERVE_ARCHS = ARCHS + ["whisper-small"]
 KERNELS = {"k1": fa_ops.flash_attention, "k2": ops.decode_attention,
            "k3": ssm_ops.ssm_scan, "k4": lru_ops.rglru_scan,
            "k5": gg_ops.grouped_gemm}
@@ -121,7 +126,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                              pos=pos.to("meta"), window=8)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_serve_on_card_matches_host(cuda, arch):
     """f32 smoke config on the card (kernels) and on the host (plain), from
     the same weights: identical greedy tokens, no sync inside a window.
@@ -185,7 +190,8 @@ def test_flash_kernel_matches_plain_at_the_slice_shapes(cuda, S, K, window,
 
 
 @pytest.mark.parametrize("hd,H,K,T", [(16, 16, 1, 77), (64, 16, 1, 77),
-                                      (128, 16, 16, 130), (32, 6, 3, 300)])
+                                      (128, 16, 16, 130), (32, 6, 3, 300),
+                                      (8, 8, 2, 77), (8, 16, 1, 200)])
 def test_flash_kernel_head_dims_groups_and_lengths(cuda, hd, H, K, T):
     """G from 1 to 16, and S != T in both directions."""
     _check_fa(2, 77, H, K, hd, torch.float32, T=T)
@@ -254,13 +260,54 @@ def test_decode_split_at_chunk_edges_of_the_serve_shapes(cuda, shape, edge,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128, 256])
 @pytest.mark.parametrize("G", [1, 8, 10, 16])
 def test_decode_split_at_every_group_and_head_dim(cuda, G, hd, dtype):
     """G query heads per kv head (1, 8, 10, 16) at every head_dim, two
     kv heads, a 1000-slot ring at pos 517 and wrapped at 1400."""
     for pos in (517, 1400):
         _check(2, 2 * G, 2, 1000, hd, pos, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 12, 12, 2120, 64), (8, 14, 2, 2376, 64)],
+                         ids=["whisper-small", "internvl2-1b"])
+@pytest.mark.parametrize("edge", ["first", "chunk_end", "next_chunk", "full",
+                                  "wrapped"])
+def test_decode_at_head_dim_64_and_groups_1_and_7(cuda, shape, edge, dtype):
+    """whisper-small's decode (G = 1, MHA) and internvl2-1b's (G = 7) at
+    head_dim 64 and their serve rings, pos on the split edges."""
+    B, H, K, W, hd = shape
+    chunk, _ = ops.split_plan(B * K, W, ops.sm_count(cuda))
+    pos = {"first": 3, "chunk_end": chunk - 1, "next_chunk": chunk,
+           "full": W - 1, "wrapped": W + 70}[edge]
+    _check(B, H, K, W, hd, pos, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,K", [(4096, 12, 12), (4096, 14, 2),
+                                   (4000, 14, 2)],
+                         ids=["whisper-small", "internvl2-1b", "ragged"])
+def test_flash_at_head_dim_64_and_groups_1_and_7(cuda, S, H, K, dtype):
+    """K1's mma.sync instance at the head_dim-64 forward shapes (B=2):
+    whisper-small's decoder (G = 1), internvl2-1b's (G = 7), ragged."""
+    _check_fa(2, S, H, K, 64, dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 12, 12, 64), (2, 4096, 14, 2, 64),
+                                   (8, 12, 12, 2120, 64),
+                                   (8, 14, 2, 2376, 64)],
+                         ids=["k1-whisper", "k1-internvl2", "k2-whisper",
+                              "k2-internvl2"])
+def test_head_dim_64_kernels_are_bitwise_over_launches_and_a_replay(cuda,
+                                                                    shape):
+    """K1 and K2 at the head_dim-64 model shapes give the same bits from
+    launch to launch and in a CUDA-graph replay."""
+    if shape[1] == 4096:
+        check_flash_attention_bitwise(*shape, seed=3)
+    else:
+        B, H, K, W, hd = shape
+        check_decode_determinism(B, H, K, W, hd, (W - 300, W + 5), seed=3)
 
 
 @pytest.mark.parametrize("pos", [700, 2100])
@@ -652,7 +699,7 @@ def test_ssm_kernel_each_lane_group_matches_plain(cuda, S, N, G):
 
 # ------------------------------------------------- CUDA-graph windows ----
 FAMILIES = ["glm4-9b", "falcon-mamba-7b", "recurrentgemma-2b",
-            "qwen3-moe-30b-a3b"]
+            "qwen3-moe-30b-a3b", "whisper-small", "internvl2-1b"]
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

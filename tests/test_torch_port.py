@@ -49,7 +49,9 @@ def test_import_guard_covers_every_module_of_the_port():
                 "models/recurrent.py", "configs/recurrentgemma_2b.py",
                 "kernels/grouped_gemm/ops.py", "kernels/grouped_gemm/ref.py",
                 "models/moe.py", "configs/qwen3_moe_30b_a3b.py",
-                "configs/mixtral_8x7b.py"):
+                "configs/mixtral_8x7b.py", "models/encdec.py",
+                "configs/internlm2_20b.py", "configs/command_r_35b.py",
+                "configs/whisper_small.py", "configs/internvl2_1b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
 
@@ -101,9 +103,12 @@ def test_forward_raises_without_a_card_unless_given_host_tensors(
 
 
 def test_registry_ports_two_archs_and_names_the_rest():
-    assert tconfigs.ARCH_IDS == ("glm4-9b", "granite-8b", "falcon-mamba-7b",
-                                 "recurrentgemma-2b", "qwen3-moe-30b-a3b",
-                                 "mixtral-8x7b")
+    """All ten archs of the reference, in its order; the full configs'
+    shapes and parameter counts; an unknown name raises."""
+    assert tconfigs.ARCH_IDS == (
+        "qwen3-moe-30b-a3b", "mixtral-8x7b", "internlm2-20b", "glm4-9b",
+        "command-r-35b", "granite-8b", "whisper-small", "recurrentgemma-2b",
+        "internvl2-1b", "falcon-mamba-7b")
     full = tconfigs.get_config("glm4-9b")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.vocab_size) == (40, 4096, 32, 2, 128, 151552)
@@ -136,17 +141,42 @@ def test_registry_ports_two_archs_and_names_the_rest():
             mix.moe_d_ff, mix.window, mix.layer_pattern) == (
         32, 8, 2, 14336, 4096, (("swa", "moe"),))
     assert mix.param_count() == 46_702_792_704
-    with pytest.raises(KeyError, match="later slice"):
-        tconfigs.get_config("internvl2-1b")
-    with pytest.raises(KeyError, match="later slice"):
-        tconfigs.get_config("internlm2-20b")
+    lm2 = tconfigs.get_config("internlm2-20b")
+    assert (lm2.family, lm2.num_layers, lm2.d_model, lm2.num_heads,
+            lm2.num_kv_heads, lm2.head_dim, lm2.d_ff, lm2.vocab_size,
+            lm2.tie_embeddings) == (
+        "dense", 48, 6144, 48, 8, 128, 16384, 92544, False)
+    assert lm2.param_count() == 19_861_149_696
+    cmr = tconfigs.get_config("command-r-35b")
+    assert (cmr.family, cmr.num_layers, cmr.d_model, cmr.num_heads,
+            cmr.num_kv_heads, cmr.head_dim, cmr.d_ff, cmr.vocab_size,
+            cmr.tie_embeddings, cmr.rope_theta) == (
+        "dense", 40, 8192, 64, 8, 128, 22528, 256000, True, 8e6)
+    assert cmr.param_count() == 30_283_538_432
+    wsp = tconfigs.get_config("whisper-small")
+    assert (wsp.family, wsp.num_layers, wsp.encoder_layers,
+            wsp.encoder_seq, wsp.d_model, wsp.num_heads, wsp.num_kv_heads,
+            wsp.head_dim, wsp.d_ff, wsp.vocab_size, wsp.use_rope,
+            wsp.learned_pos, wsp.use_bias, wsp.tie_embeddings) == (
+        "encdec", 12, 12, 1500, 768, 12, 12, 64, 3072, 51865, False, True,
+        True, True)
+    assert wsp.param_count() == 319_848_960
+    vl = tconfigs.get_config("internvl2-1b")
+    assert (vl.family, vl.num_layers, vl.d_model, vl.num_heads,
+            vl.num_kv_heads, vl.head_dim, vl.d_ff, vl.vocab_size,
+            vl.num_patches, vl.patch_embed_dim) == (
+        "vlm", 24, 896, 14, 2, 64, 4864, 151655, 256, 1024)
+    assert vl.param_count() == 630_553_728
+    for arch in tconfigs.ARCH_IDS:
+        assert tconfigs.get_smoke_config(arch).family \
+            == tconfigs.get_config(arch).family
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_smoke_config("gpt-2")
+    with pytest.raises(KeyError, match="unknown"):
+        tconfigs.get_config("whisper-large")
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "granite-8b", "falcon-mamba-7b",
-                                  "recurrentgemma-2b", "qwen3-moe-30b-a3b",
-                                  "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", list(tconfigs.ARCH_IDS))
 def test_configs_and_prompts_equal_the_reference(arch):
     pytest.importorskip("jax")
     from repro.configs import get_config, get_smoke_config
@@ -157,9 +187,11 @@ def test_configs_and_prompts_equal_the_reference(arch):
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
         assert mine.param_count() == ref.param_count()
     cfg = tconfigs.get_config(arch)
+    # a VLM's sequence holds its patch prefix
+    seq = 64 + (cfg.num_patches if cfg.family == "vlm" else 0)
     for step in (0, 3):
-        a = make_batch_fn(cfg, 4, 64, seed=7)(step)
-        b = jax_batch_fn(get_config(arch), 4, 64, seed=7)(step)
+        a = make_batch_fn(cfg, 4, seq, seed=7)(step)
+        b = jax_batch_fn(get_config(arch), 4, seq, seed=7)(step)
         assert set(a) == set(b)
         for k in a:
             assert np.array_equal(a[k], b[k])
@@ -191,19 +223,50 @@ def test_cli_reaches_the_full_config(monkeypatch, capsys):
         and seen["cfg"].num_layers == 48
     tserve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
     assert seen["cfg"].name == "mixtral-smoke"
+    for arch, layers in (("internlm2-20b", 48), ("command-r-35b", 40),
+                         ("whisper-small", 12), ("internvl2-1b", 24)):
+        tserve.main(["--arch", arch, "--no-smoke", "--device", "cpu"])
+        assert seen["cfg"].name == arch \
+            and seen["cfg"].num_layers == layers
+        tserve.main(["--arch", arch, "--device", "cpu"])
+        assert seen["cfg"] == tconfigs.get_smoke_config(arch)
     assert '"ok": true' in capsys.readouterr().out
+    from repro_torch.launch import train as ttrain
+    with pytest.raises(SystemExit):
+        ttrain.main(["--arch", "gpt-2"])
 
 
 def test_unported_families_raise_naming_the_later_slice():
+    """Every family of the registry builds, the enc-dec and VLM trees
+    included; an unknown family or block spec still raises."""
     from repro_torch.models import build_model
     from repro_torch.models import transformer as ttfm
     cfg = tconfigs.get_smoke_config("glm4-9b")
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model(dataclasses.replace(cfg, family=family))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="diffusion"))
     for spec in (("attn", "ffn2"), ("cross", "mlp")):
         with pytest.raises(ValueError, match="unknown"):
             ttfm.init_block(None, cfg, spec, "meta")
+    wsp = tconfigs.get_smoke_config("whisper-small")
+    tree = build_model(wsp).init(device="meta")
+    assert set(tree) == {"embed", "enc_pos", "encoder", "enc_norm",
+                         "decoder", "final_norm"}
+    assert set(tree["decoder"]) == {"norm1", "self", "norm_x", "cross",
+                                    "norm2", "mlp"}
+    assert tree["decoder"]["cross"]["q"]["w"].shape == (
+        wsp.num_layers, wsp.d_model, wsp.num_heads * wsp.head_dim)
+    assert tree["encoder"]["attn"]["k"]["b"].shape == (
+        wsp.encoder_layers, wsp.num_kv_heads * wsp.head_dim)
+    assert tree["embed"]["pos"].shape == (wsp.max_position, wsp.d_model)
+    vlm = tconfigs.get_smoke_config("internvl2-1b")
+    tree = build_model(vlm).init(device="meta")
+    assert tree["patch_proj"]["w"].shape == (vlm.patch_embed_dim,
+                                             vlm.d_model)
+    qk = dataclasses.replace(wsp, use_qk_norm=True)
+    from repro_torch.models import attention as tattn
+    assert "q_norm" in tattn.init_attention(None, qk, "meta")
+    assert "q_norm" not in tattn.init_attention(None, qk, "meta",
+                                                cross=True)
     moe = tconfigs.get_smoke_config("qwen3-moe-30b-a3b")
     build_model(moe)
     block = ttfm.init_block(None, moe, ("attn", "moe"), "meta")
