@@ -287,7 +287,12 @@ after phase 39):
                sample's cumulative digest and digest ring equal
                ``digest_tree`` of the same windows' host tokens. Decode
                tok/s of each run, and the device operations and time of
-               one eager counter update (profiled);
+               one eager counter update (profiled). The bytes allocated
+               in CUDA-graph private pools after each run
+               (``memory_after_serve``) must not grow after the second
+               (every capture runs on the card's one capture stream, so
+               cuBLAS keeps one workspace there however many pools the
+               process makes);
  41. scope-loop — phase 39's train_loop cell (granite-8b, 2 of 36 layers,
                8 steps, windows of 2, checkpoints every 4) with the plane
                off and on (ScopeSpec()), fused and per step, under
@@ -312,6 +317,35 @@ after phase 39):
                the backward and its forward and backward peaks;
  examples — the five examples/torch_*.py with --device cuda at their
                smoke budgets, each in a subprocess that must exit 0.
+
+The ZP-Farm (right after phase 40, on phase 3's weights, before they are
+freed):
+
+ 50. farm    — verify_subsystems at glm4-9b's full width and depth: 4
+               steps of B=2, S=1024 bf16 activations drawn on the card
+               from seed 0, windows of 2, every one of the 40 layers a
+               board of a lockstep FarmManager on the one card: (a) solo,
+               8 virtual slots; (b) lanes, lane capacity 8 (5 fused runs
+               of 8 same-spec layers, torch.func.vmap of the shared
+               engine, K1 through its vmap rule). The farm pass's launch
+               counts are set to 0 just before mgr.run() and must read K1
+               exactly 160 solo and 20 with lanes, nothing else. Gates:
+               no divergence in either self-verify; each layer's lane
+               checksums within the verifier's rtol of its solo ones
+               (bitwise-ness reported; rtol 1e-3, FARM_RTOL: 50x tighter
+               than the default, which a fault in the last layer passes);
+               inject_fault at layer 0 and
+               at layer 39 named (0, k) in both modes on layers 0, 1, 38,
+               39 (one fused run of 4). Board-steps/s (host clock after a
+               sync), window dispatches, the farm telemetry and the peak;
+ 51. mixed   — one run_many pass: phase 3's graphed decode engine (its
+               WindowGraphs, captured before the pass, with its P-Shell
+               drain) as one client beside 8 of phase 50's boards as
+               shell-less clients. The counts are set to 0 just before:
+               K2 exactly phase 3's 40 x 63, K1 exactly 8 x 4. The greedy
+               tokens equal phase 3's to the bit and each board's
+               checksums equal phase 50's solo ones to the bit. Decode
+               tok/s beside phase 3's.
 
 The last four archs run after the examples, each at full width and
 depth from random weights drawn on the card from seed 0, with every
@@ -460,6 +494,23 @@ NEW_SCALE_DOWN_LAYERS = {"internlm2-20b": (0, 24, 47),
 VERIFY_ARCHS = ("whisper-small", "internvl2-1b")
 VERIFY_BATCH, VERIFY_SEQ, VERIFY_STEPS = 2, 1024, 4
 VERIFY_FAULT_LAYERS = (0, 23)
+# the ZP-Farm cell (phases 50-51): verify_subsystems on glm4-9b's 40
+# layers, FARM_STEPS steps of B=FARM_BATCH, S=FARM_SEQ activations in
+# windows of FARM_GROUP; FARM_SLOTS virtual slots solo, lane capacity
+# FARM_LANES; faults at the first and the last layer on FARM_FAULT_LAYERS
+# (inject_fault clones the 18.8 GB tree, so those runs take 4 boards);
+# FARM_MIXED boards beside the decode client in phase 51
+FARM_STEPS, FARM_BATCH, FARM_SEQ, FARM_GROUP = 4, 2, 1024, 2
+FARM_SLOTS, FARM_LANES = 8, 8
+FARM_FAULT_LAYERS = (0, 1, 38, 39)
+FARM_MIXED = 8
+# the verifier's rtol in phases 50-51, 50x tighter than verify_subsystems'
+# default 5e-2: the port replays a captured block bitwise solo and within
+# ~2e-7 with lanes (H100), while at 5e-2 a fault in the last layer passes
+# unseen (its k projection scaled 100x moves that block's checksums by
+# 9.6e-3: the residual stream dominates the output there)
+FARM_RTOL = 1e-3
+
 # the examples and their smoke budgets, run on the card last
 EXAMPLES = (("torch_quickstart.py", ["--steps", "4"]),
             ("torch_coemu_verify.py", ["--steps", "2"]),
@@ -814,7 +865,7 @@ def serve_phase(cfg, params):
         rec = {k: out[k] for k in ("prefill_s", "decode_s",
                                    "decode_tok_per_s", "decode_window_ms",
                                    "decode_fifo_rows", "generated",
-                                   "engine", "windows_by_engine",
+                                   "tokens", "engine", "windows_by_engine",
                                    "capture_s")}
         rec.update(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                    sample_interval=INTERVAL, layers=cfg.num_layers,
@@ -1819,7 +1870,9 @@ def scope_serve_phase(cfg, params):
     from repro_torch.launch.serve import serve
     from repro_torch.testing import (NoSyncInWindow, assert_serve_equal,
                                      check_scope_digests,
+                                     private_pool_bytes,
                                      serve_window_digests, serve_kernels)
+    from repro_torch.utils import tree_map
 
     steps = GEN - 1
     n_windows = -(-steps // INTERVAL)
@@ -1853,8 +1906,19 @@ def scope_serve_phase(cfg, params):
             r.update(samples=check_scope_digests(
                 rep, serve_window_digests(out["tokens"], INTERVAL)),
                 gates=rep["gates"], digest=rep["digest"])
+        # the final cache waits on the host: its ``pos`` leaf is the last
+        # replay's output, which lies in the graph's private pool
+        out["cache"] = tree_map(lambda t: t.cpu(), out["cache"])
         runs[name] = out
+        r["memory_after_serve"] = private_pool_bytes()
         rec[name] = r
+    pools = [rec[n]["memory_after_serve"]
+             for n in ("off", "unfused", "fused", "eager")]
+    rec["memory_after_serve"] = pools
+    print(f"scope serve: bytes in CUDA-graph private pools after each "
+          f"run: {pools}", flush=True)
+    assert max(pools[1:]) <= pools[1], \
+        f"graph private pools grew across serves: {pools}"
     for name in ("unfused", "fused", "eager"):
         assert_serve_equal(runs[name], runs["off"],
                            f"scope serve, {name} vs off")
@@ -1866,6 +1930,252 @@ def scope_serve_phase(cfg, params):
     rec["unfused_update_per_window"] = _unfused_update_ops(spec, ys)
     rec["bitwise_vs_off"] = True
     return rec
+
+
+def _farm_inputs(cfg):
+    """Phase 50's activations and positions, drawn on the card from seed
+    0 (phase 51 draws the same)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(FARM_BATCH, FARM_SEQ, cfg.d_model, generator=g,
+                      device="cuda").to(torch.bfloat16)
+          for _ in range(FARM_STEPS)]
+    pos = torch.arange(FARM_SEQ, dtype=torch.int32, device="cuda")[
+        None].expand(FARM_BATCH, FARM_SEQ).contiguous()
+    return xs, pos
+
+
+def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None):
+    """One verify_subsystems pass (``submit_subsystem_jobs`` + the farm's
+    run + finalize, so the counts can be set to 0 just before the farm
+    pass, after the in-situ capture) on a lockstep FarmManager: 8 virtual
+    slots, lane capacity FARM_LANES with ``lanes``. Returns (reports,
+    {layer name: (steps, 2) host checksums}, launch counts, seconds,
+    telemetry report, memory: the bytes allocated before the capture,
+    before the farm pass and after the farm and its results are dropped,
+    and the farm pass's peak)."""
+    import torch
+
+    from repro_torch.core.coemu import submit_subsystem_jobs
+    from repro_torch.farm import FarmManager
+    from repro_torch.models import Runtime
+
+    mem = {"before_capture": torch.cuda.memory_allocated()}
+    mgr = FarmManager(slots=FARM_SLOTS, lanes=FARM_LANES if lanes else 1,
+                      evict_stragglers=False)
+    with torch.inference_mode():
+        finalize = submit_subsystem_jobs(
+            mgr, params, cfg, Runtime(), xs, pos, layers,
+            group_size=FARM_GROUP, rtol=FARM_RTOL, dut_params=dut,
+            lanes=lanes)
+        torch.cuda.synchronize()
+        mem["before_run"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        rep = mgr.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = counts()
+        mem["peak_in_run"] = torch.cuda.max_memory_allocated()
+    cks = {name: torch.cat([y for _, _, y in outs])
+           for name, outs in mgr.outputs.items()}
+    assert all(j["status"] == "done" for j in rep["jobs"].values()), rep
+    tele = rep["telemetry"]
+    reports = finalize()
+    del mgr, finalize, rep
+    mem["after_run"] = torch.cuda.memory_allocated()
+    # nothing of the pass outlives it: the captures, the boards and the
+    # lane stacks are freed by reference counting alone
+    assert mem["after_run"] - mem["before_capture"] < 2**30, mem
+    return reports, cks, got, secs, tele, mem
+
+
+def _board_timing(cfg, params, xs, pos, reps=3):
+    """One board of phase 50 outside the farm, timed with CUDA events:
+    its engine on one window (FARM_GROUP steps of layer 0) and the replay
+    copy the farm makes of its state at each admission (and, on the host
+    clock, FARM_SLOTS such copies into fresh memory); ms each."""
+    import torch
+
+    from repro_torch.core.coemu import _stack_on_device, subsystem_boards
+    from repro_torch.farm.manager import _replay_copy
+    from repro_torch.models import Runtime
+
+    with torch.inference_mode():
+        engine, state, x_ins, _, _ = subsystem_boards(
+            params, cfg, Runtime(), xs[:1], pos, [0])[0]
+        stack = _stack_on_device(x_ins * FARM_GROUP)
+        out: dict = {}
+        # the admission of a wave of FARM_SLOTS boards: each a replay
+        # copy into fresh device memory (the copies are kept, as the
+        # farm's results keep them), host clock after a sync
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kept = [_replay_copy(state) for _ in range(FARM_SLOTS)]
+        torch.cuda.synchronize()
+        out["fresh_replay_copy_ms"] = \
+            (time.perf_counter() - t) * 1e3 / FARM_SLOTS
+        del kept
+        for name, fn in (("window", lambda: engine(state, {}, stack)),
+                         ("replay_copy", lambda: _replay_copy(state))):
+            fn()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            out[f"{name}_ms"] = start.elapsed_time(end) / reps
+    out["board_step_ms"] = out["window_ms"] / FARM_GROUP
+    return out
+
+
+def farm_phase(cfg, params):
+    """verify_subsystems on every layer of ``cfg`` at full width (phase
+    50; see the module docstring). Returns the record."""
+    import torch
+
+    from repro_torch.core.coemu import inject_fault
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    xs, pos = _farm_inputs(cfg)
+    layers = list(range(cfg.num_layers))
+    L = cfg.num_layers
+    rec: dict = {"steps": FARM_STEPS, "batch": FARM_BATCH, "seq": FARM_SEQ,
+                 "group": FARM_GROUP, "slots": FARM_SLOTS,
+                 "lane_capacity": FARM_LANES, "layers": L, "rtol": FARM_RTOL}
+    cks = {}
+    for mode in ("solo", "lanes"):
+        reports, cks[mode], got, secs, tele, mem = _farm_run(
+            cfg, params, xs, pos, layers, lanes=mode == "lanes")
+        bad = {k: r.summary() for k, r in reports.items() if r.diverged}
+        assert not bad, (mode, bad)
+        runs = L // FARM_LANES if mode == "lanes" else L
+        expect_counts(got, {"k1": runs * FARM_STEPS}, f"farm ({mode})")
+        dispatches = sum(d["dispatch_ms"]["n"]
+                         for d in tele["devices"].values())
+        assert dispatches == runs * -(-FARM_STEPS // FARM_GROUP), \
+            (mode, dispatches)
+        rec[mode] = {
+            "k1_launches": got["k1"], "seconds": secs,
+            "board_steps_per_s": L * FARM_STEPS / secs,
+            "window_dispatches": dispatches,
+            "max_rel_err": max(r.max_rel_err for r in reports.values()),
+            "lanes_per_dispatch_max": tele["lanes_per_dispatch_max"],
+            "occupancy_peak": tele["occupancy_peak"],
+            "dispatch_ms_p50": {s: d["dispatch_ms"].get("p50")
+                                for s, d in tele["devices"].items()},
+            "window_ms_p50": {s: d["window_ms"].get("p50")
+                              for s, d in tele["devices"].items()},
+            "memory": mem,
+        }
+        print(f"farm {mode}: {L * FARM_STEPS / secs:.2f} board-steps/s, "
+              f"{dispatches} window dispatches, K1 {got['k1']}, "
+              f"memory {mem}", flush=True)
+    rec["board"] = _board_timing(cfg, params, xs, pos)
+    print(f"farm board: {rec['board']}", flush=True)
+    errs = {n: float(((cks["lanes"][n].double() - cks["solo"][n].double())
+                      .abs() / cks["solo"][n].double().abs()).max())
+            for n in cks["solo"]}
+    rec["lanes_vs_solo"] = {
+        "max_rel_err": max(errs.values()),
+        "bitwise": all(torch.equal(cks["lanes"][n], cks["solo"][n])
+                       for n in cks["solo"]),
+        "bitwise_layers": sum(torch.equal(cks["lanes"][n], cks["solo"][n])
+                              for n in cks["solo"])}
+    assert rec["lanes_vs_solo"]["max_rel_err"] <= FARM_RTOL, \
+        rec["lanes_vs_solo"]
+    faults = {}
+    for layer in (FARM_FAULT_LAYERS[0], FARM_FAULT_LAYERS[-1]):
+        bad = inject_fault(params, cfg, layer)
+        for mode in ("solo", "lanes"):
+            reports, _, got, _, tele, mem = _farm_run(
+                cfg, params, xs, pos, FARM_FAULT_LAYERS,
+                lanes=mode == "lanes", dut=bad)
+            named = {k: (r.first.step, r.first.layer)
+                     for k, r in reports.items() if r.diverged}
+            print(f"farm fault at layer {layer} ({mode}): " + ", ".join(
+                f"{k} max_rel_err {r.max_rel_err:.4g} first {r.first}"
+                for k, r in reports.items()), flush=True)
+            assert named == {f"layer{layer}": (0, layer)}, (mode, named)
+            if mode == "lanes":
+                assert tele["lanes_per_dispatch_max"] == \
+                    len(FARM_FAULT_LAYERS), tele["lanes_per_dispatch_max"]
+            faults[f"layer{layer}_{mode}"] = {
+                "named": named[f"layer{layer}"],
+                "rel_err": reports[f"layer{layer}"].first.rel_err,
+                "k1_launches": got["k1"], "memory": mem}
+        del bad
+        torch.cuda.empty_cache()
+    rec["faults"] = faults
+    rec["peak_memory_allocated"] = max(
+        r["memory"]["peak_in_run"]
+        for r in [rec["solo"], rec["lanes"], *faults.values()])
+    rec["solo_checksums"] = {n: cks["solo"][n].tolist()
+                             for n in cks["solo"]}
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mixed_pass_phase(cfg, params, serve_rec, farm_rec):
+    """Phase 51: one run_many pass of phase 3's graphed decode engine
+    beside FARM_MIXED of phase 50's subsystem boards (see the module
+    docstring). Returns the record."""
+    import torch
+
+    from repro_torch.core.coemu import _stack_on_device, subsystem_boards
+    from repro_torch.core.schedule import (Client, WindowScheduler,
+                                           iter_windows)
+    from repro_torch.models import Runtime
+    from repro_torch.testing import serve_decode_client
+
+    torch.cuda.empty_cache()
+    xs, pos = _farm_inputs(cfg)
+    layers = list(range(FARM_MIXED))
+    ys = {li: [] for li in layers}
+    with torch.inference_mode():
+        boards = subsystem_boards(params, cfg, Runtime(), xs, pos, layers)
+        decode, on_decode, tokens = serve_decode_client(
+            cfg, params, BATCH, PROMPT, GEN, seed=0,
+            sample_interval=INTERVAL, device="cuda")
+        clients = [decode] + [
+            Client(engine, list(iter_windows(x_ins, FARM_GROUP)), state, {},
+                   drain_fn=None, stack_fn=_stack_on_device, reset=None)
+            for engine, state, x_ins, _, _ in boards]
+
+        def on_drain(k, plan, records, y):
+            if k == 0:
+                on_decode(plan, records, y)
+            else:
+                ys[layers[k - 1]].append(y)
+
+        sched = WindowScheduler(interval=INTERVAL, overlap=True,
+                                drain_fn=None, stack_fn=None)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        sched.run_many(clients, on_drain=on_drain)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = counts()
+    expect_counts(got, {"k2": serve_rec["launches"]["k2"],
+                        "k1": FARM_MIXED * FARM_STEPS}, "mixed pass")
+    assert tokens() == serve_rec["tokens"], "mixed pass tokens differ"
+    for li in layers:
+        got_cks = torch.cat(ys[li]).tolist()
+        assert got_cks == farm_rec["solo_checksums"][f"layer{li}"], li
+    tok_s = BATCH * (GEN - 1) / secs
+    print(f"mixed pass: {tok_s:.1f} decode tok/s beside {FARM_MIXED} "
+          f"boards (phase 3: {serve_rec['decode_tok_per_s']:.1f})",
+          flush=True)
+    return {"boards": FARM_MIXED, "k1_launches": got["k1"],
+            "k2_launches": got["k2"], "seconds": secs,
+            "decode_tok_per_s": tok_s,
+            "serve_decode_tok_per_s": serve_rec["decode_tok_per_s"],
+            "tokens_equal_serve": True, "checksums_equal_solo": True}
 
 
 def scope_loop_phase():
@@ -2229,33 +2539,30 @@ def new_arch_phase(arch):
         log(phase=f"{arch}_scale_down", **sd)
         rec["scale_down"] = sd
     del params, model, batch
-    free_device_memory()
+    rec["memory_after"] = free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     return rec
 
 
 def free_device_memory():
-    """Collect what only reference cycles keep alive, drop cuBLAS's
-    per-stream workspaces (a workspace first used inside a capture lies in
-    that graph's private pool for as long as its stream's handle keeps
-    it) and return the allocator's free blocks to the card. Returns the
-    allocator's allocated and reserved bytes after, and the bytes still
-    allocated in CUDA-graph private pools. Without the workspaces'
-    release command-r-35b's forward ran out of memory after the earlier
-    phases with 5.47 GiB allocated in such pools; with it nothing is
-    left allocated before each of the last four archs."""
+    """Collect what only reference cycles keep alive and return the
+    allocator's free blocks to the card. Returns the allocator's
+    allocated and reserved bytes after, and the bytes still allocated in
+    CUDA-graph private pools: cuBLAS's workspace of the card's one
+    capture stream (32 MiB), first used inside a capture. While every
+    capture ran on a new side stream, each left its workspace in a pool:
+    5.34-5.47 GiB after the earlier phases, and command-r-35b's forward
+    ran out of memory until they were released here."""
     import gc
 
     import torch
+
+    from repro_torch.testing import private_pool_bytes
     gc.collect()
-    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
-    pooled = sum(b["size"] for seg in torch.cuda.memory_snapshot()
-                 if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)
-                 for b in seg["blocks"] if b["state"] == "active_allocated")
     return {"allocated": torch.cuda.memory_allocated(),
             "reserved": torch.cuda.memory_reserved(),
-            "allocated_in_private_pools": pooled}
+            "allocated_in_private_pools": private_pool_bytes()}
 
 
 def full_verify_phase(arch):
@@ -2352,7 +2659,8 @@ def last_four_phases(sms):
 
     from repro_torch.configs import get_config
 
-    free_device_memory()
+    first = free_device_memory()
+    log(phase="memory_before_last_four", **first)
     torch.cuda.reset_peak_memory_stats()
     # ----------------------------------------------------------- 43. k1/k2
     errs = new_kernel_check_phase(sms)
@@ -2392,7 +2700,8 @@ def last_four_phases(sms):
                       c.num_layers, seed=9)}
         log(phase=f"k2_time_{arch}", **k2["hd64"][arch])
     return {"record": {"new_arch_kernel_errors": errs, "new_archs": archs,
-                       "new_arch_parity": parity, "full_verify": verify},
+                       "new_arch_parity": parity, "full_verify": verify,
+                       "memory_before_last_four": first},
             "k1": k1, "k2": k2}
 
 
@@ -2631,6 +2940,21 @@ def main() -> int:
     assert scope_serve["fused"]["k2_launches"] == launches, \
         (scope_serve["fused"]["k2_launches"], launches)
     k2["launches_scope_serve"] = scope_serve["fused"]["k2_launches"]
+
+    # ---------------------------------------------------------- 50. farm --
+    farm = farm_phase(cfg, params)
+    log(phase="farm", **{k: v for k, v in farm.items()
+                         if k != "solo_checksums"})
+    record["farm"] = farm
+    k1["launches_farm"] = {"solo": farm["solo"]["k1_launches"],
+                           "lanes": farm["lanes"]["k1_launches"]}
+
+    # --------------------------------------------------------- 51. mixed --
+    mixed = mixed_pass_phase(cfg, params, serve_rec, farm)
+    log(phase="mixed", **mixed)
+    record["mixed"] = mixed
+    k1["launches_mixed"] = mixed["k1_launches"]
+    k2["launches_mixed"] = mixed["k2_launches"]
     del params, model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

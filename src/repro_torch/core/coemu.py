@@ -35,15 +35,18 @@ deterministic batch stream through the oracle and compares the drained
 commit FIFO rows window by window — a diverging commit stream raises at
 the drain, which vetoes the checkpoint before it can publish.
 
-Not ported yet: the multi-DUT farm mode (``subsystem_boards``,
-``submit_subsystem_jobs``, ``verify_subsystems``), which waits for the
-farm.
+Multi-DUT mode (``subsystem_boards``, ``submit_subsystem_jobs``,
+``verify_subsystems``): every Scale-Down subsystem becomes one board of a
+ZP-Farm pass (``repro_torch.farm``), checked against the in-situ
+capture's checksums; with ``lanes=True`` same-spec boards fuse into one
+vmapped dispatch stream. An enc-dec model has no decoder-only layer stack
+to decompose and raises ValueError, as Scale-Down does.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,7 +54,7 @@ import torch
 from repro_torch.core.commit import layer_checksums
 from repro_torch.core.graphs import GraphPool, WindowGraphs
 from repro_torch.core.pshell import stack_batches
-from repro_torch.core.schedule import WindowScheduler
+from repro_torch.core.schedule import WindowScheduler, iter_windows
 from repro_torch.utils import (tree_clone, tree_leaves, tree_map,
                                tree_paths_sorted)
 
@@ -446,6 +449,179 @@ class CommitStreamVerifier:
         self._consumed = int(snap["consumed"])
         self.batches = itertools.islice(self._iter_batches(),
                                         self._consumed, None)
+
+
+# ------------------------------------------------------------- multi-DUT ---
+def _activation_checksum(x):
+    """(abs-mean, rms) in f32 — both O(activation-scale) positive
+    statistics, so the relative comparison is stable (a raw mean sits
+    near zero for normalized activations and would amplify low-bit
+    jitter)."""
+    x = x.float()
+    return torch.stack([x.abs().mean(), x.square().mean().sqrt()])
+
+
+def _stack_on_device(items):
+    """A window's per-step activations stacked into one (g, ...) tensor on
+    their own device (no host round trip for resident captures)."""
+    return torch.stack(list(items))
+
+
+def subsystem_boards(params, cfg, rt, xs: Sequence, positions,
+                     layer_idxs: Sequence[int], dut_params=None):
+    """Build the multi-DUT farm boards: for each activation batch in ``xs``
+    (the "steps"), an in-situ unrolled run over ``params`` captures every
+    block's boundary traffic (the oracle); each layer in ``layer_idxs``
+    becomes one DUT board — its extracted subsystem (from ``dut_params``,
+    defaulting to the oracle's params) replayed standalone over its
+    captured inputs, one window of steps per dispatch.
+
+    Returns one ``(engine, state, x_ins, oracle_cks, lane_key)`` tuple per
+    layer. Boards sharing a block spec share ONE engine whose block params
+    ride as the board's STATE (not a per-engine closure): same-spec boards
+    are lane-batchable under ``lane_key`` (``subsys:<mixer>+<ffn>``), the
+    farm's identity-aware lane packing broadcasts any params shared
+    across boards instead of replicating them per board, and extraction
+    is a single ``extract_blocks`` walk instead of one full-stack re-walk
+    per board. The engine never writes its state. An enc-dec config
+    raises ValueError."""
+    from repro_torch.core.decompose import extract_blocks, unrolled_capture
+    from repro_torch.models import transformer as tfm
+
+    captures = [unrolled_capture(params, cfg, x, positions, rt)[1]
+                for x in xs]                       # [step][layer] records
+    batch, seq = xs[0].shape[0], xs[0].shape[1]
+    subs = extract_blocks(dut_params if dut_params is not None else params,
+                          cfg, layer_idxs, rt, batch, seq)
+
+    engines = {}                    # spec -> ONE engine for all its boards
+
+    def shared_engine(spec):
+        if spec not in engines:
+            def engine(state, shell, stack):
+                pos = positions.to(stack.device)
+                cks = []
+                for i in range(stack.shape[0]):
+                    y, _ = tfm.block_apply(state, cfg, spec, stack[i], pos,
+                                           rt)
+                    cks.append(_activation_checksum(y))
+                return state, shell, torch.stack(cks)
+
+            engines[spec] = engine
+        return engines[spec]
+
+    boards = []
+    for li in layer_idxs:
+        sub = subs[li]
+        x_ins = [captures[s][li]["x_in"] for s in range(len(xs))]
+        oracle_cks = np.stack([
+            _f64(_activation_checksum(captures[s][li]["x_out"]))
+            for s in range(len(xs))])              # (steps, 2)
+        boards.append((shared_engine(sub.spec), sub.params, x_ins,
+                       oracle_cks, f"subsys:{sub.spec[0]}+{sub.spec[1]}"))
+    return boards
+
+
+def submit_subsystem_jobs(farm, params, cfg, rt, xs: Sequence, positions,
+                          layer_idxs: Sequence[int], group_size: int = 2,
+                          rtol: float = 5e-2, dut_params=None,
+                          lanes: bool = False):
+    """Submit one verification FarmJob per extracted subsystem to ``farm``
+    (a ``repro_torch.farm.FarmManager``) and return a zero-arg
+    ``finalize`` producing the per-subsystem ``CoEmuReport``\\ s once the
+    farm ran.
+
+    Checksum ingestion rides the job's exactly-once ``on_drain`` sink, so
+    an evicted + requeued board's replayed windows are never
+    double-counted. A divergence localizes a fault to the exact (step,
+    subsystem) — it is RECORDED in the report, not raised, so a diverging
+    board never takes down the farm pass.
+
+    ``lanes=True`` tags each job with its block-spec ``lane_key`` so a
+    lane-capable farm coalesces same-spec subsystem boards into one
+    vmapped dispatch stream (they already share one engine, and the lane
+    packer broadcasts any param leaves shared across boards)."""
+    from repro_torch.farm.manager import FarmJob
+
+    boards = subsystem_boards(params, cfg, rt, xs, positions, layer_idxs,
+                              dut_params=dut_params)
+    accs = []
+    for li, (engine, state, x_ins, oracle_cks, lane_key) in zip(layer_idxs,
+                                                                boards):
+        acc = _CompareAccumulator(rtol)
+        accs.append(acc)
+
+        def sink(plan, records, ys, acc=acc, oracle_cks=oracle_cks):
+            cks_d = _f64(ys)[:, None, :]                      # (g, 1, 2)
+            cks_o = oracle_cks[plan.start:plan.start
+                               + plan.size][:, None, :]
+            acc._compare(cks_d, cks_o, plan.start)
+            acc.steps += cks_d.shape[0]
+
+        farm.submit(FarmJob(
+            name=f"layer{li}", engine=engine, state=state,
+            windows=list(iter_windows(x_ins, group_size)), shell={},
+            stack_fn=_stack_on_device, on_drain=sink,
+            lane_key=lane_key if lanes else None))
+
+    def finalize() -> Dict[str, CoEmuReport]:
+        out = {}
+        for k, li in enumerate(layer_idxs):
+            rep = accs[k].report()
+            if rep.first is not None:
+                # the board sees a single "layer" (itself); report true id
+                rep.first = Divergence(step=rep.first.step, layer=li,
+                                       rel_err=rep.first.rel_err)
+            out[f"layer{li}"] = rep
+        return out
+
+    return finalize
+
+
+def verify_subsystems(params, cfg, rt, xs: Sequence, positions,
+                      layer_idxs: Sequence[int], group_size: int = 2,
+                      rtol: float = 5e-2, dut_params=None,
+                      farm=None, lanes: bool = False,
+                      device=None) -> Dict[str, CoEmuReport]:
+    """Multi-DUT (ZP-Farm) mode: verify several extracted subsystems as
+    independent boards of one farm pass (see ``submit_subsystem_jobs``).
+    ``farm=None`` builds a dedicated ``FarmManager`` with one slot per
+    subsystem on ``device`` (the card by default, which must exist;
+    ``"cpu"``: the host) — every board dispatches before any board's
+    previous window is fetched, exactly the paper's board-farm shape.
+    The whole pass runs under ``torch.inference_mode()``.
+
+    Note on tolerance: a window's replay may differ from the in-situ
+    capture in low mantissa bits (a lane-batched product rounds as a
+    batched product), so comparison is at ``rtol`` — the BITWISE
+    non-interference contract is the eager ``decompose.verify_extraction``
+    path.
+
+    Blind spot of the default ``rtol`` (5e-2, the reference's): a
+    block's output is its input plus the residual update, so the
+    checksums move much less than the fault. At glm4-9b's full width on
+    an H100, ``inject_fault``'s 100x fault in layer 39 moved its
+    checksums by 8.33e-3 and passed unseen. There a solo board's
+    checksums equal the capture's (max_rel_err 0.0) and lane-batched
+    boards lie within 2.05e-7 of them, so ``rtol=1e-3`` names that fault
+    (``chip_smoke.py`` phase 50). Pass the tightest tolerance that the
+    DUT's own rounding allows."""
+    from repro_torch.farm.manager import FarmManager
+
+    # the internal farm disables straggler eviction: a library
+    # verification call must be timing-independent (heterogeneous blocks
+    # legitimately differ in window cost); callers who want eviction pass
+    # their own farm
+    mgr = farm if farm is not None else FarmManager(
+        slots=len(layer_idxs), evict_stragglers=False,
+        lanes=len(layer_idxs) if lanes else 1, device=device)
+    with torch.inference_mode():
+        finalize = submit_subsystem_jobs(
+            mgr, params, cfg, rt, xs, positions, layer_idxs,
+            group_size=group_size, rtol=rtol, dut_params=dut_params,
+            lanes=lanes)
+        mgr.run()
+    return finalize()
 
 
 def inject_fault(params, cfg, layer: int, scale: float = 100.0):

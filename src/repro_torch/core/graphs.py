@@ -12,8 +12,9 @@ each window length and then runs each window as one replay:
     its state in place (the KV cache, the train state), so the state's
     tensors are the graph's own static buffers: a state leaf that is not
     one of them (e.g. the previous replay's ``pos`` output) is copied in;
-  * one memory pool (``GraphPool``: the pool and the side stream its
-    captures run on) for every capture of a ``WindowGraphs``: the full
+  * one memory pool (``GraphPool``; every capture on a card runs on
+    the card's one capture stream) for every capture of a
+    ``WindowGraphs``: the full
     window and the tail window share it and reuse each other's freed
     memory, and are replayed in the order they were captured (all full
     windows, then the tail). ``pool=`` hands several ``WindowGraphs`` one
@@ -77,30 +78,50 @@ def _diff(after, before):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+# device index -> the one side stream every capture on that card runs on
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream() -> "torch.cuda.Stream":
+    """The side stream of every capture on the current card, made at its
+    first use and kept for the process.
+
+    cuBLAS keeps one workspace per (handle, stream), allocated at the
+    stream's first product; inside a capture that allocation lands in
+    the graph's private pool and stays there for the life of the process.
+    A new stream per capture left one workspace per capture in such pools
+    (5.34-5.47 GiB after chip_smoke.py's earlier phases); on one stream
+    per card there is one workspace, however many pools a process makes.
+    Pools sharing the stream is safe: each graph allocates only in its
+    own private pool, so two pools never hand each other blocks."""
+    index = torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _CAPTURE_STREAMS[index]
+
+
 class GraphPool:
-    """A CUDA-graph memory pool and the one side stream that every capture
-    into it runs on: the caching allocator hands a freed block only to a
-    later allocation on the block's own stream, so captures that are to
-    reuse each other's freed memory share the stream as well as the
-    pool. Created on the card at the first capture."""
+    """A CUDA-graph memory pool; every capture into it runs on the card's
+    capture stream (``capture_stream``): the caching allocator hands a
+    freed block only to a later allocation on the block's own stream, so
+    captures that are to reuse each other's freed memory share the stream
+    as well as the pool. Created on the card at the first capture."""
 
     def __init__(self):
         self._handle = None
-        self._stream = None
 
     def handle_and_stream(self):
         if self._handle is None:
             self._handle = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream()
-        return self._handle, self._stream
+        return self._handle, capture_stream()
 
 
 def capture_graph(fn, pool=None, stream=None):
     """fn() recorded once in a CUDA graph on a side stream (``stream``, or
-    a new one); returns the graph and fn's result, whose storage each
-    replay writes anew. The launches fn counts while it is recorded are
-    taken back (a capture executes nothing)."""
-    stream = stream if stream is not None else torch.cuda.Stream()
+    the card's capture stream); returns the graph and fn's result, whose
+    storage each replay writes anew. The launches fn counts while it is
+    recorded are taken back (a capture executes nothing)."""
+    stream = stream if stream is not None else capture_stream()
     stream.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()

@@ -94,6 +94,10 @@ def csr_accum(state, name: str, value, op: str = "or"):
     return {**state, "csr": {**state["csr"], name: new}}
 
 
+def csr_read(state, name: str):
+    return state["csr"][name]
+
+
 def fifo_push(state, name: str, payload):
     """Non-blocking single push (credit/valid: full => dropped += 1)."""
     f = state["fifo"][name]

@@ -24,6 +24,45 @@ def refuse_grad(name: str, *tensors) -> None:
             "differentiates)")
 
 
+def is_lane_batched(*tensors) -> bool:
+    """True where a tensor is a ``torch.func.vmap`` batched tensor: one
+    whose storage a ctypes launch cannot read."""
+    return any(torch.is_tensor(t) and torch._C._functorch.is_batchedtensor(t)
+               for t in tensors)
+
+
+def refuse_vmap(name: str, what: str, *tensors) -> None:
+    """Raise where a kernel without a vmap rule is reached under
+    ``torch.func.vmap`` on CUDA tensors (a lane-batched board): its
+    launcher reads raw pointers, which batched tensors do not have, and
+    running the lanes one after another is not a fused launch."""
+    if is_lane_batched(*tensors):
+        raise NotImplementedError(
+            f"{name} under torch.func.vmap on CUDA tensors waits for the "
+            f"lane-batched {what} slice of the port, which adds its vmap "
+            "rule (ROADMAP.md Queue 1); on host tensors its plain version "
+            "vmaps")
+
+
+def fold_lane_axis(fn, lanes: int, in_dims, *tensors):
+    """The body of a kernel's vmap rule: each tensor's lane axis (its
+    ``in_dims`` entry; None = shared by every lane) moves to the front
+    and folds into the kernel's batch axis, (L, B, ...) -> (L*B, ...),
+    ``fn`` runs ONCE on the folded tensors, and its output unfolds to
+    (L, B, ...) with the lane axis first. Right for a kernel whose rows
+    of the batch axis are independent (attention: each (batch, head)
+    attends alone), where each lane's output then equals its solo
+    launch's."""
+    folded = []
+    for t, d in zip(tensors, in_dims):
+        t = (t.unsqueeze(0).expand(lanes, *t.shape) if d is None
+             else t.movedim(d, 0))
+        folded.append(t.reshape(lanes * t.shape[1], *t.shape[2:])
+                      .contiguous())
+    out = fn(*folded)
+    return out.reshape(lanes, out.shape[0] // lanes, *out.shape[1:])
+
+
 def sm_count(device) -> int:
     """The streaming multiprocessors of the card ``device`` names, read
     once per device (a host int: a grid sized from it stays fixed

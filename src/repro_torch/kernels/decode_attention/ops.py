@@ -19,7 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad, sm_count
+from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
+                                  sm_count)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
@@ -109,6 +110,7 @@ def decode_attention(q, k, v, *, pos, window: int, softcap: float = 0.0):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
+    refuse_vmap("decode_attention", "decode", q, k, v, pos)
     refuse_grad("decode_attention", q, k, v)
     _check(q, k, v, pos, window)
     B, K, W = q.shape[0], k.shape[2], k.shape[1]

@@ -4,6 +4,21 @@ On CUDA tensors it launches the hand-written kernel of
 ``repro_torch/csrc/flash_attention.cu`` on the current stream, or raises;
 on host tensors it runs the plain version of ``ref.py``. Nothing is
 padded: the kernel masks the ragged last q and k tiles itself.
+
+Under ``torch.func.vmap`` (a lane-batched board: ``core/schedule.py::
+LaneBatch`` vmaps a solo engine) the wrapper calls the custom op
+``repro_torch::flash_attention`` (``torch.library.custom_op``), whose
+vmap rule (``register_vmap``) folds the lane axis into the batch axis,
+(L, B, S, H, hd) -> (L*B, S, H, hd), and launches the kernel ONCE for all
+lanes. Each (batch row, head) attends alone, so each lane's rows are its
+solo launch's to the bit. A custom op rather than an ``autograd.Function``
+with a ``vmap`` staticmethod: the op boundary unwraps the batched tensors
+before the launcher reads their pointers, the rule is registered once
+beside the op, and an op with no autograd kernel cannot silently join a
+graph (``refuse_grad`` still refuses first). Unbatched calls launch
+directly: a direct call of a custom op leaves its arguments in a
+reference cycle (torch's argument flattening) until the garbage
+collector runs. The launch counter counts one launch per fused call.
 """
 from __future__ import annotations
 
@@ -11,7 +26,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, fold_lane_axis,
+                                  is_lane_batched, refuse_grad)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
@@ -81,15 +97,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
     refuse_grad("flash_attention", q, k, v)
+    args = (bool(causal), int(window), float(softcap))
+    if is_lane_batched(q, k, v):
+        return _flash_attention_op(q, k, v, *args)
+    return _launch(q, k, v, *args)
+
+
+def _launch(q, k, v, causal: bool, window: int, softcap: float):
+    """One launch of the kernel on CUDA tensors, counted."""
     _check(q, k, v, window)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     rc = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T,
-        H, K, hd, int(bool(causal)), int(window), hd ** -0.5,
-        float(softcap), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        H, K, hd, int(causal), window, hd ** -0.5, softcap,
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc == -2:
         raise RuntimeError("flash_attention: the TMA maps of q, k and v "
                            "could not be encoded")
@@ -97,6 +120,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention.launches += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: int,
+                        softcap: float) -> torch.Tensor:
+    return _launch(q, k, v, causal, window, softcap)
+
+
+@torch.library.register_vmap("repro_torch::flash_attention")
+def _flash_attention_vmap(info, in_dims, q, k, v, causal, window, softcap):
+    """The lanes of a vmapped call as one launch over L*B batch rows."""
+    out = fold_lane_axis(
+        lambda q2, k2, v2: _launch(q2, k2, v2, causal, window, softcap),
+        info.batch_size, in_dims[:3], q, k, v)
+    return out, 0
 
 
 flash_attention.launches = 0

@@ -23,7 +23,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, refuse_grad, sm_count
+from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
+                                  sm_count)
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -120,6 +121,7 @@ def _launch(x, w, path):
     if x.device.type != "cuda":
         raise ValueError(f"grouped_gemm runs on cuda or cpu tensors, not "
                          f"{x.device}")
+    refuse_vmap("grouped_gemm", "MoE", x, w)
     refuse_grad("grouped_gemm", x, w)
     _check(x, w)
     E, M, K = x.shape

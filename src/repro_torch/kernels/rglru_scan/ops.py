@@ -26,7 +26,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad, sm_count
+from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
+                                  sm_count)
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 PATHS = ("tma", "registers")
@@ -123,6 +124,7 @@ def _launch(a, b, h0, path):
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, not "
                          f"{a.device}")
+    refuse_vmap("rglru_scan", "RG-LRU", a, b, h0)
     refuse_grad("rglru_scan", a, b, h0)
     _check(a, b, h0)
     Bsz, S, W = a.shape

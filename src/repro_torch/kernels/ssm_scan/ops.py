@@ -17,7 +17,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad, sm_count
+from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
+                                  sm_count)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16)
@@ -123,6 +124,7 @@ def _launch(dt, A, B_, C_, x, group):
     if dt.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu tensors, not "
                          f"{dt.device}")
+    refuse_vmap("ssm_scan", "Mamba-1", dt, A, B_, C_, x)
     refuse_grad("ssm_scan", dt, A, B_, C_, x)
     _check(dt, A, B_, C_, x)
     Bsz, S, Din = dt.shape

@@ -3,7 +3,9 @@
 timer that forbids host syncs inside a decode window, K1 to K5 held
 against their plain versions, the commit-tapped forward with its
 Scale-Down replay on the card against the same on the host, the train
-windows, and a forward-only step that the co-emulator verifies."""
+windows, a forward-only step that the co-emulator verifies, K1's vmap
+rule, the bytes held in CUDA-graph private pools, and serve's decode as a
+``run_many`` client."""
 from __future__ import annotations
 
 import contextlib
@@ -386,6 +388,100 @@ def check_flash_attention_bitwise(B, S, H, K, hd, seed=0):
     v = torch.randn(B, S, K, hd, generator=g, device="cuda").bfloat16()
     check_bitwise(lambda: fa_ops.flash_attention(q, k, v),
                   fa_ops.flash_attention)
+
+
+def check_flash_attention_vmap(L, B, S, H, K, hd, window=0, causal=True,
+                               seed=0, replays=2):
+    """K1 under ``torch.func.vmap`` over L lanes (its vmap rule: one
+    launch for all lanes, the lane axis folded into the batch axis) in
+    bf16 on random inputs drawn on the card from ``seed``: counted as ONE
+    launch, each lane's output equal to the bit to that lane's solo
+    launch, and a CUDA graph that captured the vmapped call holding one
+    launch (what ``core/graphs.py`` adds back at each replay) and equal
+    to the eager call at each replay. Raises AssertionError otherwise."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(L, B, S, H, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(L, B, S, K, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(L, B, S, K, hd, generator=g, device="cuda").bfloat16()
+    kw = dict(causal=causal, window=window)
+
+    def fused():
+        return torch.func.vmap(
+            lambda a, b, c: fa_ops.flash_attention(a, b, c, **kw))(q, k, v)
+
+    counter = fa_ops.flash_attention
+    before = counter.launches
+    out = fused()
+    assert counter.launches == before + 1, "one launch for every lane"
+    for lane in range(L):
+        solo = fa_ops.flash_attention(q[lane], k[lane], v[lane], **kw)
+        assert torch.equal(out[lane], solo), \
+            f"lane {lane} differs from its solo launch"
+    before = counter.launches
+    graph, c = capture_graph(fused)
+    assert counter.launches == before, "a capture counts no launch"
+    # what core/graphs.py re-adds to the counts at each replay
+    assert graph.launches == {"k1": 1}, graph.launches
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(c, out), "a replay differs from the eager call"
+
+
+def private_pool_bytes() -> int:
+    """Bytes the caching allocator holds allocated in CUDA-graph private
+    pools (the pools of captured graphs, and whatever a capture left in
+    them), after a garbage collection."""
+    import gc
+    gc.collect()
+    return sum(b["size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)
+               for b in seg["blocks"] if b["state"] == "active_allocated")
+
+
+def serve_decode_client(cfg, params, batch, prompt_len, gen, *, seed=0,
+                        sample_interval=4, device="cuda", graph=None):
+    """``serve()``'s prefill of ``cfg`` on ``params``, then its decode as a
+    ``run_many`` client: the engine of ``make_decode_engine`` (on a card a
+    ``WindowGraphs``, every window length captured here, before the pass,
+    as serve does) with its P-Shell decode shell and drain. Returns
+    ``(client, on_drain, tokens)``: ``on_drain(plan, records, toks)`` is
+    the client's sink and ``tokens()`` the (batch, gen) greedy tokens
+    drained so far, as serve's ``out["tokens"]``. Call it, and run the
+    pass, under ``torch.inference_mode()``."""
+    from repro_torch.core.graphs import WindowGraphs
+    from repro_torch.core.pshell import drain, shell_init, stack_batches
+    from repro_torch.core.schedule import Client, iter_windows, plan_windows
+    from repro_torch.launch.serve import (_FRONTEND_INPUTS,
+                                          decode_shell_config,
+                                          make_decode_engine)
+    from repro_torch.serve import make_prefill_step
+    from repro_torch.utils import dtype_of
+    device = torch.device(device)
+    model = build_model(cfg)
+    bf = make_batch_fn(cfg, batch, prompt_len, seed)
+    b = {k: torch.from_numpy(v).to(device, dtype_of(cfg.dtype)
+                                   if k in _FRONTEND_INPUTS else None)
+         for k, v in bf(0).items() if k != "labels"}
+    max_len = prompt_len + (cfg.num_patches if cfg.family == "vlm" else 0) \
+        + gen + 8
+    cache, logits = make_prefill_step(model, max_len)(params, b)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    engine = make_decode_engine(model, params, graph=graph)
+    shell = shell_init(decode_shell_config(sample_interval), device)
+    if isinstance(engine, WindowGraphs):
+        for g in dict.fromkeys(p.size for p in plan_windows(
+                gen - 1, sample_interval)):
+            engine.prepare((cache, tok), shell, np.arange(g))
+    out = [tok.cpu().numpy()]
+
+    def on_drain(plan, records, toks):
+        out.append(toks.numpy()[:, :, 0].T)
+
+    client = Client(engine, iter_windows(range(gen - 1), sample_interval),
+                    (cache, tok), shell, drain_fn=drain,
+                    stack_fn=stack_batches)
+    return client, on_drain, lambda: np.concatenate(out, axis=1).tolist()
 
 
 def check_grouped_gemm_bitwise(E, M, K, N, dtype, seed=0, path=None):

@@ -115,6 +115,19 @@ def tree_unflatten_sorted(tree: Any, leaves) -> Any:
     return _rebuild(tree, (), dict(zip(paths, leaves)))
 
 
+def tree_structure(tree: Any) -> Any:
+    """A hashable description of ``tree``'s containers (types, keys and
+    nesting, not the leaves): two trees with equal structures pair leaf
+    for leaf in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, tree_structure(v))
+                                 for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__,) + tuple(tree_structure(v)
+                                              for v in tree)
+    return "*"
+
+
 def tree_unflatten(tree: Any, leaves) -> Any:
     """``tree``'s containers with its leaves replaced, in ``tree_leaves``
     order, by ``leaves``."""

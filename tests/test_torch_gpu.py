@@ -3,8 +3,11 @@ decode-attention (K2), selective-scan (K3), RG-LRU scan (K4) and grouped
 expert GEMM (K5) kernels against their plain versions on the card, and
 the serve slice and the commit-tapped forward with its Scale-Down replay
 on the card against the same on the host, the co-emulator's
-group-locked windows, the ZP-Scope plane inside the decode window graphs
-and remat inside the train window graphs. They skip where CUDA is absent.
+group-locked windows, the ZP-Scope plane inside the decode window graphs,
+remat inside the train window graphs, K1's vmap rule (and K2-K5's refusal
+under vmap), a lane-batched smoke farm against its solo run, and the bytes
+CUDA-graph private pools hold across serves. They skip where CUDA is
+absent.
 On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -55,6 +58,8 @@ from repro_torch.testing import (NoSyncInWindow,  # noqa: E402
                                  check_decode_determinism,
                                  check_flash_attention,
                                  check_flash_attention_bitwise,
+                                 check_flash_attention_vmap,
+                                 private_pool_bytes,
                                  check_forward_parity, check_grouped_gemm,
                                  check_grouped_gemm_bitwise,
                                  check_moe_ffn, check_rglru_scan,
@@ -956,3 +961,151 @@ def test_remat_is_bitwise_in_the_train_window_graphs(cuda, arch):
         assert_records_equal(runs["none"]["records"],
                              runs[remat]["records"],
                              f"{arch} records, remat {remat}")
+
+
+# --------------------------------------------- lanes, the farm, the pools --
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_attention_vmap_rule_is_one_launch_bitwise_per_lane(
+        cuda, hd, window):
+    """K1's vmap rule: 3 lanes of B=2 fold into one launch over 6 batch
+    rows, each lane's output equal to the bit to its solo launch, causal
+    and windowed; a CUDA graph of the vmapped call counts one launch a
+    replay."""
+    check_flash_attention_vmap(3, 2, 160, 4, 2, hd, window=window)
+
+
+def test_flash_attention_call_leaves_no_reference_cycle(cuda):
+    """A K1 call outside vmap frees its inputs by reference counting
+    alone: a direct call of a custom op keeps its arguments in a
+    reference cycle until the garbage collector runs, so only vmapped
+    calls go through ``repro_torch::flash_attention``."""
+    import gc
+    import weakref
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(2, 64, 4, 64, generator=g, device="cuda").bfloat16()
+    kv = torch.randn(2, 64, 2, 64, generator=g, device="cuda").bfloat16()
+    ref = weakref.ref(q)
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.inference_mode():
+            fa_ops.flash_attention(q, kv, kv)
+        del q
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def _vmapped_calls():
+    """One call of each kernel without a vmap rule, at a small shape on
+    the card, taking lane-batched (L=2) inputs."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    pos = torch.tensor(5, dtype=torch.int32, device=dev)
+    A, B_, C_ = -torch.ones(32, 16, device=dev), r(2, 8, 16), r(2, 8, 16)
+    h0 = torch.zeros(2, 32, device=dev)
+    return {
+        "decode_attention": (lambda q, k, v: ops.decode_attention(
+            q, k, v, pos=pos, window=64),
+            (r(2, 2, 4, 32), r(2, 2, 64, 2, 32), r(2, 2, 64, 2, 32))),
+        "ssm_scan": (lambda dt, x: ssm_ops.ssm_scan(dt, A, B_, C_, x),
+                     (r(2, 2, 8, 32).abs(), r(2, 2, 8, 32))),
+        "rglru_scan": (lambda a, b: lru_ops.rglru_scan(a, b, h0),
+                       (r(2, 2, 8, 32).sigmoid(), r(2, 2, 8, 32))),
+        "grouped_gemm": (lambda x, w: gg_ops.grouped_gemm(x, w),
+                         (r(2, 2, 8, 64, dtype=torch.bfloat16),
+                          r(2, 2, 64, 64, dtype=torch.bfloat16))),
+    }
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "ssm_scan",
+                                  "rglru_scan", "grouped_gemm"])
+def test_kernels_without_a_vmap_rule_raise_under_vmap(cuda, name):
+    """K2-K5 have no vmap rule yet: under torch.func.vmap on CUDA tensors
+    each raises NotImplementedError naming the slice that adds it, and
+    launches nothing (nothing runs the lanes one after another)."""
+    fn, args = _vmapped_calls()[name]
+    counter = KERNELS[{"decode_attention": "k2", "ssm_scan": "k3",
+                       "rglru_scan": "k4", "grouped_gemm": "k5"}[name]]
+    before = counter.launches
+    with torch.inference_mode(), pytest.raises(NotImplementedError,
+                                                match="vmap rule"):
+        torch.func.vmap(fn)(*args)
+    assert counter.launches == before
+
+
+FARM_RTOL = 1e-3
+
+
+def test_lane_batched_smoke_farm_equals_its_solo_run(cuda):
+    """verify_subsystems on glm4-9b's smoke config (bf16) on the card,
+    solo and lane-batched (one fused run of both layers, K1 through its
+    vmap rule), verified at FARM_RTOL (chip_smoke.py's phase-50 rtol,
+    50x tighter than verify_subsystems' default): no divergence, and each
+    layer's delivered checksums within FARM_RTOL of its solo run's (a
+    fan-out that handed one lane another's checksums moves a
+    residual-dominated checksum by less than the default); K1 one launch
+    a step with lanes, one a step a layer solo; a fault at layer 1 named
+    (0, 1) in both modes."""
+    from repro_torch.core.coemu import (inject_fault,
+                                        submit_subsystem_jobs)
+    from repro_torch.farm import FarmManager
+
+    cfg = get_smoke_config("glm4-9b")
+    params = build_model(cfg).init(0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn(2, 32, cfg.d_model, generator=g,
+                      device="cuda").bfloat16() for _ in range(4)]
+    pos = torch.arange(32, dtype=torch.int32,
+                       device="cuda")[None].expand(2, 32).contiguous()
+    out = {}
+    for lanes in (False, True):
+        for dut in (None, inject_fault(params, cfg, 1)):
+            mgr = FarmManager(slots=2, lanes=2 if lanes else 1,
+                              evict_stragglers=False)
+            with torch.inference_mode():
+                fin = submit_subsystem_jobs(mgr, params, cfg, Runtime(), xs,
+                                            pos, [0, 1], rtol=FARM_RTOL,
+                                            dut_params=dut, lanes=lanes)
+                before = fa_ops.flash_attention.launches
+                rep = mgr.run()
+                k1 = fa_ops.flash_attention.launches - before
+            assert k1 == (4 if lanes else 8), (lanes, k1)
+            assert rep["telemetry"]["lanes_per_dispatch_max"] == \
+                (2 if lanes else 1)
+            reps = fin()
+            if dut is None:
+                assert not any(r.diverged for r in reps.values())
+                out[lanes] = {n: torch.cat([y for _, _, y in o])
+                              for n, o in mgr.outputs.items()}
+            else:
+                assert not reps["layer0"].diverged
+                assert (reps["layer1"].first.step,
+                        reps["layer1"].first.layer) == (0, 1)
+    for n, solo in out[False].items():
+        err = ((out[True][n].double() - solo.double()).abs()
+               / solo.double().abs()).max()
+        assert err <= FARM_RTOL, (n, float(err))
+
+
+def test_graph_private_pools_do_not_grow_across_serves(cuda):
+    """Six graphed smoke serves in one process: every capture runs on the
+    card's one capture stream, so cuBLAS keeps one workspace there and
+    the bytes allocated in CUDA-graph private pools after each serve stop
+    growing after the second (one new stream a capture left one more
+    workspace in a pool each time)."""
+    cfg = get_smoke_config("glm4-9b")
+    params = build_model(cfg).init(0, device="cuda")
+    pools = []
+    for _ in range(6):
+        out = serve(cfg, 2, 16, 8, sample_interval=3, device="cuda",
+                    params=params)
+        assert out["engine"] == "graph"
+        del out
+        pools.append(private_pool_bytes())
+    assert max(pools[1:]) <= pools[1], pools
