@@ -347,6 +347,46 @@ freed):
                checksums equal phase 50's solo ones to the bit. Decode
                tok/s beside phase 3's.
 
+The async ZP-Farm (after phase 51, on phase 3's weights, before they are
+freed): one dispatcher thread and one CUDA stream per slot.
+
+ 52. farm-async — phase 50's cell with mode="async": solo (8 slots) and
+               lanes (capacity 8); the counts set to 0 just before
+               mgr.run() read K1 exactly 160 solo and 20 with lanes,
+               nothing else. Gates: each board's solo checksums equal
+               phase 50's lockstep ones to the bit; lanes within the
+               verifier's rtol of solo; faults at layers 0 and 39 named
+               (0, k) on layers 0, 1, 38, 39 in both; each pass leaves
+               the bytes it found. Board-steps/s of lockstep and async
+               solo passes in turns (lockstep, async, async, lockstep);
+               queue-wait, idle and depth telemetry; peak memory; one
+               lockstep and one async pass traced (torch.profiler, CUDA
+               activity) for the card's idle share (busy = the union of
+               the kernels' and copies' intervals over all streams);
+ 53. farm-mixed — run_farm's workload at full width, from the CLI's own
+               submit_decode_job (phase 3's cell and weights, graphed,
+               captured by prewarm), submit_train_job (glm4-9b at full
+               width on 2 of 40 layers, B=2, S=1024, 8 steps in windows
+               of 2, the "xla" path, lr 3e-5) and submit_subsystem_jobs
+               (layers 0-7 of the decode's weights), on 4 slots, async
+               then lockstep, under deterministic mode. Gates: K2 exactly
+               phase 3's 2,520 and K1 exactly 32; the tokens equal phase
+               3's to the bit; the losses equal between the modes to the
+               bit; the boards clean and equal to phase 50's solo
+               checksums. Then async with submit_soak_straggler beside
+               the decode and the boards (no train board): the soak
+               board is evicted as "straggler" on wall time alone,
+               requeued, its outputs preserved. Decode tok/s (the decode
+               job's own span) beside phase 3's, s a train step, peak;
+ 54. farm-cli — the CLI's gates in-process on the card, both modes:
+               run_restart_smoke, run_lanes_smoke(8, chaos_lane=True),
+               run_scope_smoke (lanes 1 and 8) and run_chaos_smoke(7)
+               (every injected fault fired and recovered, the poisoned
+               board quarantined); then `python -m
+               repro_torch.launch.farm --steps 8` in a subprocess (exit
+               0), and one with --synthetic-straggler sent SIGINT once
+               its farm runs (exit 130 with a partial report).
+
 The last four archs run after the examples, each at full width and
 depth from random weights drawn on the card from seed 0, with every
 earlier model's weights freed and the peak-memory counter reset before
@@ -510,6 +550,16 @@ FARM_MIXED = 8
 # unseen (its k projection scaled 100x moves that block's checksums by
 # 9.6e-3: the residual stream dominates the output there)
 FARM_RTOL = 1e-3
+# the mixed async farm (phase 53): MIXED_SLOTS virtual slots; the train
+# board on MIXED_TRAIN_LAYERS of glm4-9b's 40 layers (1.65e9 parameters,
+# 16.5 GB of bf16 params and f32 moments, drawn at admission: alone on
+# an H100 beside the weights it peaked at 72.6 GB with a second, initial
+# copy kept as the replay source) for MIXED_TRAIN_STEPS
+# steps; the soak board (MIXED_SOAK_WINDOWS
+# windows, MIXED_SOAK_DELAY s a window on its first seat) against a
+# straggler floor of MIXED_MIN_S s
+MIXED_SLOTS, MIXED_TRAIN_LAYERS, MIXED_TRAIN_STEPS = 4, 2, 8
+MIXED_SOAK_WINDOWS, MIXED_SOAK_DELAY, MIXED_MIN_S = 30, 1.0, 0.5
 
 # the examples and their smoke budgets, run on the card last
 EXAMPLES = (("torch_quickstart.py", ["--steps", "4"]),
@@ -623,14 +673,22 @@ def tracing_timer(first):
 
 
 def device_trace(prof, steps):
-    """Device activity of the traced windows: busy time (the sum of their
-    kernels and copies) over their span (first start to last end on the
-    card), operations, and the kernels that take the most device time."""
+    """Device activity of the traced windows: busy time (the union of
+    their kernels' and copies' intervals, over all streams: on one stream
+    the sum of their times) over their span (first start to last end on
+    the card), operations, and the kernels that take the most device
+    time."""
     from torch.autograd import DeviceType
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     span_us = max(e.time_range.end for e in evs) \
         - min(e.time_range.start for e in evs)
-    busy_us = sum(e.time_range.elapsed_us() for e in evs)
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in evs):
+        if end is None or a > end:
+            busy_us, end = busy_us + b - a, b
+        elif b > end:
+            busy_us, end = busy_us + b - end, b
     by_name: dict = {}
     for e in evs:
         row = by_name.setdefault(e.name, [0.0, 0])
@@ -1945,15 +2003,18 @@ def _farm_inputs(cfg):
     return xs, pos
 
 
-def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None):
+def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None,
+              mode="lockstep", trace=None, switch_interval=None):
     """One verify_subsystems pass (``submit_subsystem_jobs`` + the farm's
     run + finalize, so the counts can be set to 0 just before the farm
-    pass, after the in-situ capture) on a lockstep FarmManager: 8 virtual
-    slots, lane capacity FARM_LANES with ``lanes``. Returns (reports,
-    {layer name: (steps, 2) host checksums}, launch counts, seconds,
-    telemetry report, memory: the bytes allocated before the capture,
-    before the farm pass and after the farm and its results are dropped,
-    and the farm pass's peak)."""
+    pass, after the in-situ capture) on a FarmManager in ``mode``: 8
+    virtual slots, lane capacity FARM_LANES with ``lanes``. ``trace`` (a
+    dict) receives the device trace of the pass (``device_trace``).
+    Returns (reports, {layer name: (steps, 2) host checksums}, launch
+    counts, seconds, telemetry report, memory: the bytes allocated before
+    the capture, before the farm pass and after the farm and its results
+    are dropped, and the farm pass's peak). ``switch_interval`` sets the
+    interpreter's thread switch interval for the pass."""
     import torch
 
     from repro_torch.core.coemu import submit_subsystem_jobs
@@ -1962,7 +2023,7 @@ def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None):
 
     mem = {"before_capture": torch.cuda.memory_allocated()}
     mgr = FarmManager(slots=FARM_SLOTS, lanes=FARM_LANES if lanes else 1,
-                      evict_stragglers=False)
+                      evict_stragglers=False, mode=mode)
     with torch.inference_mode():
         finalize = submit_subsystem_jobs(
             mgr, params, cfg, Runtime(), xs, pos, layers,
@@ -1971,13 +2032,25 @@ def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None):
         torch.cuda.synchronize()
         mem["before_run"] = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        prof = None
+        if trace is not None:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
         reset_counts()
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(switch_interval or interval)
         t = time.perf_counter()
         rep = mgr.run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        sys.setswitchinterval(interval)
         got = counts()
         mem["peak_in_run"] = torch.cuda.max_memory_allocated()
+        if prof is not None:
+            prof.stop()
+            trace.update(device_trace(prof, len(layers) * len(xs)),
+                         seconds=secs)
     cks = {name: torch.cat([y for _, _, y in outs])
            for name, outs in mgr.outputs.items()}
     assert all(j["status"] == "done" for j in rep["jobs"].values()), rep
@@ -2176,6 +2249,297 @@ def mixed_pass_phase(cfg, params, serve_rec, farm_rec):
             "decode_tok_per_s": tok_s,
             "serve_decode_tok_per_s": serve_rec["decode_tok_per_s"],
             "tokens_equal_serve": True, "checksums_equal_solo": True}
+
+
+def _tele_p50(tele, channel):
+    return {s: d[channel].get("p50") for s, d in tele["devices"].items()}
+
+
+def farm_async_phase(cfg, params, farm_rec):
+    """Phase 52: phase 50's cell on an async FarmManager (see the module
+    docstring). Returns the record."""
+    import torch
+
+    from repro_torch.core.coemu import inject_fault
+
+    torch.cuda.empty_cache()
+    xs, pos = _farm_inputs(cfg)
+    layers = list(range(cfg.num_layers))
+    L = cfg.num_layers
+    rec: dict = {"steps": FARM_STEPS, "layers": L, "slots": FARM_SLOTS,
+                 "lane_capacity": FARM_LANES, "rtol": FARM_RTOL}
+    cks = {}
+    for mode in ("solo", "lanes"):
+        reports, cks[mode], got, secs, tele, mem = _farm_run(
+            cfg, params, xs, pos, layers, lanes=mode == "lanes",
+            mode="async")
+        bad = {k: r.summary() for k, r in reports.items() if r.diverged}
+        assert not bad, (mode, bad)
+        runs = L // FARM_LANES if mode == "lanes" else L
+        expect_counts(got, {"k1": runs * FARM_STEPS}, f"async ({mode})")
+        rec[mode] = {
+            "k1_launches": got["k1"], "seconds": secs,
+            "board_steps_per_s": L * FARM_STEPS / secs,
+            "max_rel_err": max(r.max_rel_err for r in reports.values()),
+            "lanes_per_dispatch_max": tele["lanes_per_dispatch_max"],
+            "occupancy_peak": tele["occupancy_peak"],
+            "queue_wait_ms_p50": _tele_p50(tele, "queue_wait_ms"),
+            "idle_ms_p50": _tele_p50(tele, "idle_ms"),
+            "depth_max": {s: d["queue_depth_max"]
+                          for s, d in tele["devices"].items()},
+            "dispatch_ms_p50": _tele_p50(tele, "dispatch_ms"),
+            "window_ms_p50": _tele_p50(tele, "window_ms"),
+            "memory": mem,
+        }
+        print(f"farm-async {mode}: {L * FARM_STEPS / secs:.2f} "
+              f"board-steps/s, K1 {got['k1']}, memory {mem}", flush=True)
+    # the async contract: lockstep's outputs byte for byte
+    for n, want in farm_rec["solo_checksums"].items():
+        assert cks["solo"][n].tolist() == want, n
+    rec["solo_bitwise_vs_lockstep"] = True
+    errs = {n: float(((cks["lanes"][n].double() - cks["solo"][n].double())
+                      .abs() / cks["solo"][n].double().abs()).max())
+            for n in cks["solo"]}
+    rec["lanes_vs_solo_max_rel_err"] = max(errs.values())
+    assert rec["lanes_vs_solo_max_rel_err"] <= FARM_RTOL, errs
+    faults = {}
+    for layer in (FARM_FAULT_LAYERS[0], FARM_FAULT_LAYERS[-1]):
+        bad = inject_fault(params, cfg, layer)
+        for mode in ("solo", "lanes"):
+            reports, _, got, _, _, mem = _farm_run(
+                cfg, params, xs, pos, FARM_FAULT_LAYERS,
+                lanes=mode == "lanes", dut=bad, mode="async")
+            named = {k: (r.first.step, r.first.layer)
+                     for k, r in reports.items() if r.diverged}
+            assert named == {f"layer{layer}": (0, layer)}, (mode, named)
+            faults[f"layer{layer}_{mode}"] = {
+                "named": named[f"layer{layer}"], "k1_launches": got["k1"],
+                "memory": mem}
+        del bad
+        torch.cuda.empty_cache()
+    rec["faults"] = faults
+    # lockstep and async solo passes in turns, on the same weights
+    turns = []
+    for mode in ("lockstep", "async", "async", "lockstep"):
+        _, _, _, secs, _, _ = _farm_run(cfg, params, xs, pos, layers,
+                                        lanes=False, mode=mode)
+        turns.append({"mode": mode, "seconds": secs,
+                      "board_steps_per_s": L * FARM_STEPS / secs})
+    rec["turns"] = turns
+    # the interpreter's thread switch interval (5 ms by default): a slot
+    # thread back from a call that let the GIL go (a launch through
+    # ctypes, an event sync) waits up to one interval while another
+    # thread holds it; async solo at a tenth of it, beside the default
+    switch = {}
+    for si in (sys.getswitchinterval() / 10, sys.getswitchinterval()):
+        _, _, _, secs, _, _ = _farm_run(cfg, params, xs, pos, layers,
+                                        lanes=False, mode="async",
+                                        switch_interval=si)
+        switch[f"{si:g}"] = L * FARM_STEPS / secs
+    rec["async_board_steps_per_s_by_switch_interval"] = switch
+    traces = {}
+    for mode in ("lockstep", "async"):
+        traces[mode] = {}
+        _farm_run(cfg, params, xs, pos, layers, lanes=False, mode=mode,
+                  trace=traces[mode])
+    rec["traced"] = traces
+    rec["peak_memory_allocated"] = max(
+        r["memory"]["peak_in_run"]
+        for r in [rec["solo"], rec["lanes"], *faults.values()])
+    rates = [round(t["board_steps_per_s"], 2) for t in turns]
+    print(f"farm-async turns: {rates} board-steps/s; by switch interval "
+          f"{switch}; idle share lockstep "
+          f"{traces['lockstep']['device_idle_share']:.3f} async "
+          f"{traces['async']['device_idle_share']:.3f}", flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mixed_run(cfg, params, mode, *, train, soak):
+    """One farm pass of phase 53 (see the module docstring): the decode
+    job first, the train board (``train``), the verify boards, the soak
+    board (``soak``). Returns its record and the decode's tokens, the
+    train losses, the boards' checksums."""
+    import torch
+
+    from repro_torch.core.coemu import submit_subsystem_jobs
+    from repro_torch.farm import FarmManager
+    from repro_torch.launch.farm import (prewarm, submit_decode_job,
+                                         submit_soak_straggler,
+                                         submit_train_job)
+    from repro_torch.models import Runtime
+    from repro_torch.testing import deterministic
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem = {"before": torch.cuda.memory_allocated()}
+    mgr = FarmManager(slots=MIXED_SLOTS, mode=mode, straggler_factor=6.0,
+                      straggler_min_s=MIXED_MIN_S, evict_stragglers=soak)
+    toks = submit_decode_job(mgr, cfg, gen=GEN, interval=INTERVAL,
+                             batch=BATCH, prompt_len=PROMPT, seed=0,
+                             device="cuda", params=params)
+    span = {}
+    decode = mgr.jobs[-1]
+    decode.verify = lambda p, r, y: span.__setitem__(
+        "end", time.perf_counter())
+    losses = None
+    if train:
+        tcfg = dataclasses.replace(cfg, num_layers=MIXED_TRAIN_LAYERS)
+        losses = submit_train_job(mgr, tcfg, MIXED_TRAIN_STEPS, FARM_GROUP,
+                                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+                                  device="cuda", lr=TRAIN_LR)
+    xs, pos = _farm_inputs(cfg)
+    with torch.no_grad():
+        finalize = submit_subsystem_jobs(
+            mgr, params, cfg, Runtime(), xs, pos, list(range(FARM_MIXED)),
+            group_size=FARM_GROUP, rtol=FARM_RTOL)
+    board = (submit_soak_straggler(mgr, n_windows=MIXED_SOAK_WINDOWS,
+                                   delay=MIXED_SOAK_DELAY)
+             if soak else None)
+    prewarm_s = prewarm(mgr)
+    torch.cuda.synchronize()
+    mem["before_run"] = torch.cuda.memory_allocated()
+    reset_counts()
+    # the pass under deterministic mode (the train board's gate): the
+    # decode's windows were captured by prewarm, outside it
+    with deterministic():
+        t = time.perf_counter()
+        rep = mgr.run(strict=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    got = counts()
+    failed = {n: j["error"] for n, j in rep["jobs"].items()
+              if j["status"] != "done"}
+    assert not failed, (mode, failed, rep["telemetry"]["retries"])
+    mem["peak"] = torch.cuda.max_memory_allocated()
+    reports = finalize()
+    bad = {k: r.summary() for k, r in reports.items() if r.diverged}
+    assert not bad, (mode, bad)
+    tele = rep["telemetry"]
+    out = {"mode": mode, "seconds": secs, "prewarm_s": prewarm_s,
+           "k1_launches": got["k1"], "k2_launches": got["k2"],
+           "counts": got,
+           "decode_span_s": span["end"] - t,
+           "decode_tok_per_s": BATCH * (GEN - 1) / (span["end"] - t),
+           "jobs": {n: j["status"] for n, j in rep["jobs"].items()},
+           "evictions": tele["evictions"], "memory": mem,
+           "queue_wait_ms_p50": _tele_p50(tele, "queue_wait_ms"),
+           "idle_ms_p50": _tele_p50(tele, "idle_ms")}
+    if losses is not None:
+        out["s_per_train_step"] = secs / MIXED_TRAIN_STEPS
+    if board is not None:
+        j = rep["jobs"]["soak"]
+        out["soak"] = {"requeues": j["requeues"], "windows": j["windows"],
+                       "preserved": board.preserved()}
+    cks = {n: torch.cat([y for _, _, y in mgr.outputs[n]]).tolist()
+           for n in mgr.outputs if n.startswith("layer")}
+    tokens = np.concatenate(toks, axis=1).tolist()
+    del mgr, finalize, rep
+    torch.cuda.empty_cache()
+    return out, tokens, losses, cks
+
+
+def farm_mixed_phase(cfg, params, serve_rec, farm_rec):
+    """Phase 53 (see the module docstring). Returns the record."""
+    rec: dict = {"slots": MIXED_SLOTS, "train_layers": MIXED_TRAIN_LAYERS,
+                 "train_steps": MIXED_TRAIN_STEPS, "boards": FARM_MIXED,
+                 "serve_decode_tok_per_s": serve_rec["decode_tok_per_s"]}
+    losses = {}
+    for mode, train, soak in (("async", True, False),
+                              ("lockstep", True, False),
+                              ("async", False, True)):
+        out, tokens, loss, cks = _mixed_run(cfg, params, mode,
+                                            train=train, soak=soak)
+        expect_counts(out["counts"], {
+            "k2": serve_rec["launches"]["k2"],
+            "k1": FARM_MIXED * FARM_STEPS}, f"farm-mixed {mode}")
+        assert tokens == serve_rec["tokens"], f"{mode}: tokens differ"
+        for n, got in cks.items():
+            assert got == farm_rec["solo_checksums"][n], (mode, n)
+        assert all(s == "done" for s in out["jobs"].values()), out
+        key = mode + ("_soak" if soak else "")
+        if train:
+            losses[mode] = loss
+            out["losses"] = loss
+        if soak:
+            ev = [e for e in out["evictions"] if e["job"] == "soak"]
+            assert ev and all(e["why"] == "straggler" for e in ev), \
+                out["evictions"]
+            assert out["soak"]["requeues"] >= 1 \
+                and out["soak"]["preserved"], out["soak"]
+        else:
+            assert not out["evictions"], out["evictions"]
+        rec[key] = out
+        print(f"farm-mixed {key}: {out['decode_tok_per_s']:.1f} decode "
+              f"tok/s (phase 3: {serve_rec['decode_tok_per_s']:.1f}), "
+              f"{out['seconds']:.2f} s, peak {out['memory']['peak']}",
+              flush=True)
+    assert losses["async"] == losses["lockstep"], losses
+    rec["losses_equal_across_modes"] = True
+    rec["tokens_equal_serve"] = True
+    return rec
+
+
+def farm_cli_phase():
+    """Phase 54: the farm CLI's gates on the card (see the module
+    docstring). Returns the record."""
+    import signal
+
+    from repro_torch.launch import farm as cli
+
+    rec: dict = {}
+    for mode in ("async", "lockstep"):
+        t = time.perf_counter()
+        gates = {
+            "restart": cli.run_restart_smoke(mode),
+            "lanes": cli.run_lanes_smoke(8, chaos_lane=True, mode=mode),
+            "scope_l1": cli.run_scope_smoke(mode, lanes=1),
+            "scope_l8": cli.run_scope_smoke(mode, lanes=8),
+            "chaos7": cli.run_chaos_smoke(7, mode=mode)}
+        for k, g in gates.items():
+            assert g["ok"], (mode, k, g.get("problems"))
+        chaos = gates["chaos7"]
+        assert chaos["quarantined"] == ["poison"], chaos
+        assert chaos["faults_injected"] == len(chaos["schedule"]), chaos
+        rec[mode] = {"seconds": time.perf_counter() - t,
+                     "chaos_kinds": sorted({i["kind"]
+                                            for i in chaos["schedule"]}),
+                     "chaos_faults_injected": chaos["faults_injected"],
+                     "chaos_retries": chaos["retries"],
+                     "quarantined": chaos["quarantined"]}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.farm", "--steps", "8"]
+    t = time.perf_counter()
+    done = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-3000:]
+    rec["cli"] = {"seconds": time.perf_counter() - t,
+                  "ok": json.loads(done.stdout)["ok"]}
+    proc = subprocess.Popen(cmd + ["--synthetic-straggler"], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        seen = []
+        while True:
+            line = proc.stderr.readline()
+            seen.append(line)
+            if not line or line.startswith("farm: running"):
+                break
+        assert line, "".join(seen)[-3000:]
+        time.sleep(0.5)
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 130, (proc.returncode, err[-3000:])
+    partial = json.loads(out)
+    assert partial["interrupted"] and partial["jobs"], partial
+    rec["sigint"] = {"returncode": proc.returncode,
+                     "jobs": {n: j["status"]
+                              for n, j in partial["jobs"].items()}}
+    return rec
 
 
 def scope_loop_phase():
@@ -2955,9 +3319,28 @@ def main() -> int:
     record["mixed"] = mixed
     k1["launches_mixed"] = mixed["k1_launches"]
     k2["launches_mixed"] = mixed["k2_launches"]
+
+    # ---------------------------------------------------- 52. farm-async --
+    farm_async = farm_async_phase(cfg, params, farm)
+    log(phase="farm_async", **farm_async)
+    record["farm_async"] = farm_async
+    k1["launches_farm_async"] = {"solo": farm_async["solo"]["k1_launches"],
+                                 "lanes": farm_async["lanes"]["k1_launches"]}
+
+    # ---------------------------------------------------- 53. farm-mixed --
+    farm_mixed = farm_mixed_phase(cfg, params, serve_rec, farm)
+    log(phase="farm_mixed", **farm_mixed)
+    record["farm_mixed"] = farm_mixed
+    k1["launches_farm_mixed"] = farm_mixed["async"]["k1_launches"]
+    k2["launches_farm_mixed"] = farm_mixed["async"]["k2_launches"]
     del params, model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+    # ------------------------------------------------------ 54. farm-cli --
+    farm_cli = farm_cli_phase()
+    log(phase="farm_cli", **farm_cli)
+    record["farm_cli"] = farm_cli
 
     # -------------------------------------------------------------- 11. k3 --
     scfg = get_config(SSM_ARCH)

@@ -29,7 +29,16 @@ each window length and then runs each window as one replay:
   * launch counts — the kernel wrappers count launches in Python, which a
     replay does not run. The counts a capture adds are taken back and
     added again on every replay, so each replay counts the launches it
-    executes;
+    executes. The take-back diffs the capturing thread's own tally
+    (``kernels.count_launch``): the launches other threads make
+    meanwhile (the async farm's slot threads) stay counted;
+  * threads — a capture may run on any thread (an async farm's slot
+    thread captures its board's window at first use). Captures take one
+    process-wide lock, so they run one at a time, and each runs under
+    ``capture_error_mode="thread_local"``: another thread's eager work
+    (its launches, the allocator's ``cudaMalloc``) neither breaks the
+    capture nor joins it, and no capture is in progress while a
+    capturing thread synchronises the card or empties the cache;
   * warm-up — a capture must follow an eager run of the engine (lazy
     library loads, cuBLAS workspaces). ``warmup="clone"`` runs it for one
     step on clones of the state and shell and discards it (its launches
@@ -45,11 +54,13 @@ A failed capture raises; nothing falls back to the eager engine.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Dict
 
 import torch
 
+from repro_torch.kernels import count_launch, thread_launches
 from repro_torch.utils import tree_clone, tree_leaves, tree_map
 
 
@@ -66,12 +77,19 @@ def counted_kernels() -> dict:
 
 
 def launch_counts() -> Dict[str, int]:
+    """Every kernel's launches in this process, from all threads."""
     return {k: fn.launches for k, fn in counted_kernels().items()}
+
+
+def thread_counts() -> Dict[str, int]:
+    """Every kernel's launches counted on the calling thread."""
+    return {k: thread_launches(fn) for k, fn in counted_kernels().items()}
 
 
 def _add_counts(delta: Dict[str, int], sign: int = 1) -> None:
     for k, fn in counted_kernels().items():
-        fn.launches += sign * delta.get(k, 0)
+        if delta.get(k):
+            count_launch(fn, sign * delta[k])
 
 
 def _diff(after, before):
@@ -80,6 +98,9 @@ def _diff(after, before):
 
 # device index -> the one side stream every capture on that card runs on
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+# held by every capture (and its warm-up, sync and cache release): one
+# capture at a time in the process, whichever thread makes it
+_CAPTURE_LOCK = threading.RLock()
 
 
 def capture_stream() -> "torch.cuda.Stream":
@@ -95,9 +116,10 @@ def capture_stream() -> "torch.cuda.Stream":
     Pools sharing the stream is safe: each graph allocates only in its
     own private pool, so two pools never hand each other blocks."""
     index = torch.cuda.current_device()
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
-    return _CAPTURE_STREAMS[index]
+    with _CAPTURE_LOCK:
+        if index not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+        return _CAPTURE_STREAMS[index]
 
 
 class GraphPool:
@@ -118,17 +140,25 @@ class GraphPool:
 
 def capture_graph(fn, pool=None, stream=None):
     """fn() recorded once in a CUDA graph on a side stream (``stream``, or
-    the card's capture stream); returns the graph and fn's result, whose
-    storage each replay writes anew. The launches fn counts while it is
-    recorded are taken back (a capture executes nothing)."""
-    stream = stream if stream is not None else capture_stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    graph = torch.cuda.CUDAGraph()
-    before = launch_counts()
-    with torch.cuda.graph(graph, pool=pool, stream=stream):
-        out = fn()
-    delta = _diff(launch_counts(), before)
-    _add_counts(delta, -1)
+    the card's capture stream), under the process's capture lock and in
+    the thread-local capture mode; returns the graph and fn's result,
+    whose storage each replay writes anew. The launches fn counts while
+    it is recorded (on this thread) are taken back: a capture executes
+    nothing."""
+    with _CAPTURE_LOCK:
+        stream = stream if stream is not None else capture_stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        # the calling thread's cuBLAS handle, made now if this thread has
+        # none yet: creating one inside the capture invalidates it (a
+        # slot thread's first product may be the one it captures)
+        torch.cuda.current_blas_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = thread_counts()
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+        delta = _diff(thread_counts(), before)
+        _add_counts(delta, -1)
     graph.launches = delta
     return graph, out
 
@@ -199,29 +229,32 @@ class WindowGraphs:
         raise ValueError("the state holds no tensor")
 
     def _capture(self, state, shell, xs):
-        t0 = time.perf_counter()
-        device = self._device(state)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        shell_in = tree_clone(shell)
-        xs_in = tree_map(lambda x: _static_like(x, device), xs)
-        tree_map(_fill, xs_in, xs)
-        if self.warmup == "clone":
-            before = launch_counts()
-            # one step of the window: every step runs the same operations
-            self.engine(tree_clone(state), tree_clone(shell_in),
-                        tree_map(lambda x: x[:1], xs_in))
-            delta = _diff(launch_counts(), before)
-            _add_counts(delta, -1)
-            for k, n in delta.items():
-                self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
-        handle, stream = self._pool.handle_and_stream()
-        graph, out = capture_graph(
-            lambda: self.engine(state, shell_in, xs_in), pool=handle,
-            stream=stream)
-        self.graphs[_window_len(xs)] = _Captured(graph, state, shell_in,
-                                                 xs_in, out)
-        self.capture_s += time.perf_counter() - t0
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            device = self._device(state)
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            shell_in = tree_clone(shell)
+            xs_in = tree_map(lambda x: _static_like(x, device), xs)
+            tree_map(_fill, xs_in, xs)
+            if self.warmup == "clone":
+                before = thread_counts()
+                # one step of the window: every step runs the same
+                # operations
+                self.engine(tree_clone(state), tree_clone(shell_in),
+                            tree_map(lambda x: x[:1], xs_in))
+                delta = _diff(thread_counts(), before)
+                _add_counts(delta, -1)
+                for k, n in delta.items():
+                    self.warmup_launches[k] = \
+                        self.warmup_launches.get(k, 0) + n
+            handle, stream = self._pool.handle_and_stream()
+            graph, out = capture_graph(
+                lambda: self.engine(state, shell_in, xs_in), pool=handle,
+                stream=stream)
+            self.graphs[_window_len(xs)] = _Captured(graph, state, shell_in,
+                                                     xs_in, out)
+            self.capture_s += time.perf_counter() - t0
 
     def prepare(self, state, shell, xs) -> None:
         """Capture the window length of ``xs`` now (warm-up "clone" only),

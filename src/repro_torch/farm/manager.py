@@ -3,24 +3,51 @@
 The paper's end state is a *farm* of scaled-down DUTs — many independently
 prototyped subsystems co-emulated concurrently behind one host. This
 module is the orchestration layer over the core ``WindowScheduler``
-machinery, in its lockstep host-loop mode:
+machinery, in two host-loop modes:
 
   lockstep (``mode="lockstep"``) — ONE Python thread round-robins every
       slot through ``WindowScheduler.run_many``. Deterministic round
       structure, but one slow board's dispatch delays every other board's
       enqueue, and "straggler" is inferred from per-board dispatch cost
-      because inter-drain gaps are the round time. It is the reference's
-      bit-identity ORACLE for its async mode.
+      because inter-drain gaps are the round time. Kept as the
+      bit-identity ORACLE: the async mode must deliver byte-for-byte the
+      same per-job outputs (tests assert it).
 
-The async mode (one dispatcher thread per slot), the failure-policy layer
-(``policy=FailurePolicy(...)``: retry backoff, quarantine, slot circuit
-breakers), the durable journal (``ledger=``, ``FarmJob.spec``,
-``submit_spec``, ``recover``) and fault injection (``injector``) are the
-next slice of the port's farm; each raises NotImplementedError naming it.
-``certify=True`` waits for ZP-Cert and ``FarmJob.capture`` for the
-roofline slice.
+  async (``mode="async"``) — the paper's non-interference guarantee made
+      real on the host side: each :class:`DeviceSlot` is driven by its own
+      dispatcher thread (:class:`_SlotWorker`) with a bounded work queue,
+      enqueueing on the slot's own CUDA stream
+      (``placement.slot_stream``). The manager becomes an
+      admission/eviction CONTROL PLANE: it feeds job assignments into
+      slot queues, and each slot thread runs its own ``ClientDriver``
+      pipeline (dispatch window *i+1* while draining window *i*), posting
+      completed drains back over a results queue. A slow board slows only
+      itself; the watchdog's straggler signal becomes measured per-window
+      WALL time, and liveness heartbeats become true wall-time liveness
+      (a hung board is abandoned and its job requeued, without taking
+      down the farm).
 
-Semantics:
+Threading invariants:
+
+  * ALL device interactions for a job — state/shell placement, window
+    stacking, engine dispatch, shell reset, drain fetch, ``verify`` — stay
+    on its slot's thread and stream (the ``ClientDriver`` is
+    thread-confined). A slot stream first waits, by an event recorded at
+    assignment, for the control thread's stream, which made the job's
+    inputs (weights, captured activations, lane stacks); the slot thread
+    synchronises its stream before it posts a run's end, so the results
+    it hands over are complete before the control thread reads or frees
+    them. Slot threads run under the control thread's autograd mode
+    (``torch.inference_mode`` and grad mode are thread-local);
+  * the control plane ingests outputs only at results-queue hand-off
+    points, and the user-facing ``on_drain`` sink fires exactly-once, in
+    window order, on the CONTROL thread after the job completes — so a
+    stateful collector never sees concurrent or replayed windows;
+  * eviction is signalled via a per-run flag that the slot thread checks
+    at drain boundaries (between windows, never mid-dispatch), so a
+    cancelled job's in-flight window is discarded, never delivered.
+
+Semantics (both modes):
 
   * a job queue of :class:`FarmJob`\\ s — an engine + a replayable window
     stream + an expected-output verifier + optional per-job checkpoint
@@ -55,6 +82,39 @@ Semantics:
     plane (``core/scope.py``); its samples land in telemetry and in the
     watchdog's device-side work-rate channel.
 
+Failure-policy layer (``FarmManager(policy=FailurePolicy(...))`` — the
+ZP-Chaos hardening; ``policy=None`` keeps the raise-on-failure semantics
+exactly):
+
+  * retry budgets + backoff — a failed attempt re-enters the queue only
+    after an exponential backoff (``FarmJob.not_before``), so a crashing
+    board cannot hot-loop through the farm's admission machinery;
+  * quarantine / dead-letter — a job that exhausts its budget is
+    QUARANTINED, not raised: the farm completes every other job and the
+    report carries the dead-lettered ones;
+  * slot circuit breaker — per-slot health scoring over the last
+    ``breaker_window`` runs; a slot failing ``breaker_threshold`` of them
+    is BENCHED (excluded from placement), then probed with a canary and
+    only re-admitted after the canary passes;
+  * graceful shutdown — ``request_shutdown()`` stops admission, cuts
+    every running job at its next drain boundary (committed prefixes and
+    published snapshots are kept), marks the cut jobs ``interrupted``,
+    and lets ``run()`` return with the report intact (the SIGINT path in
+    ``launch.farm``).
+
+Deterministic fault injection (``repro_torch.farm.chaos``) threads
+through the named points ``slot.dispatch`` / ``slot.drain`` /
+``slot.commit`` (via ``ClientDriver``'s inject hook), ``worker.loop`` /
+``slot.canary`` / ``results.post`` (the slot worker), and
+``snapshot.publish`` — every fault the policy layer absorbs is
+reproducible from a seed.
+
+``FarmJob.spec`` (a ``registry.JobSpec``) and ``submit_spec`` build and
+submit a job from its serializable description. What waits for a later
+slice raises NotImplementedError naming it: the durable journal
+(``ledger=``) and ``recover`` (the ledger slice), ``certify=True``
+(ZP-Cert), ``FarmJob.capture`` (the roofline).
+
 The port's engines may update their state in place, so every attempt
 dispatches from fresh copies of ``FarmJob.state``/``shell`` (or from
 zero-arg factories), and snapshots are host copies: the job's own trees
@@ -62,8 +122,10 @@ stay valid replay sources across requeues.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import queue as queue_mod
 import threading
 import time
 import weakref
@@ -81,16 +143,16 @@ from repro_torch.core.schedule import (Client, ClientPolicy, DrainBarrier,
                                        LaneBatch, WindowScheduler)
 from repro_torch.core.watchdog import Watchdog
 from repro_torch.farm.placement import (DeviceSlot, enumerate_slots,
-                                        pick_slot, place, place_stack)
+                                        pick_slot, place, place_stack,
+                                        slot_stream)
 from repro_torch.farm.telemetry import FarmTelemetry
 from repro_torch.utils import resolve_device, tree_leaves, tree_map, \
     tree_structure
 
-# what the port's lockstep farm refuses, and the slice that adds it
-NEXT_SLICE = ("waits for the next slice of the port's farm (ROADMAP.md "
-              "Queue 1 item 5: the async slot threads, the failure "
-              "policy, the ledger, the registry, recover, ZP-Chaos and "
-              "the farm CLI)")
+# what the port's farm refuses, and the slice that adds it
+NEXT_SLICE = ("waits for the next slice of the port's farm, the ledger "
+              "(ROADMAP.md Queue 1 item 5: the durable journal, "
+              "choose_resume, ledger-mode delivery and recover)")
 
 
 def _refuse(what: str):
@@ -99,6 +161,67 @@ def _refuse(what: str):
 
 class FarmError(RuntimeError):
     pass
+
+
+def _slot_context(slot: DeviceSlot):
+    """The slot's stream as the current stream (its card as the current
+    device); nothing for a host slot."""
+    stream = slot_stream(slot)
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
+
+def _default_canary(slot: DeviceSlot):
+    """The stock circuit-breaker probe: one tiny round trip through the
+    slot's device and stream — placement, compute, fetch — raising if the
+    seat cannot even do that. Jobs only re-land on a benched slot after
+    this (or ``FailurePolicy.canary``) passes."""
+    with _slot_context(slot):
+        x = torch.arange(8, dtype=torch.float32, device=slot.device)
+        y = float((x * 2.0).sum())
+    if y != 56.0:
+        raise FarmError(f"canary miscomputed on {slot.name}: {y}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FailurePolicy:
+    """The farm's failure-handling contract (pass to ``FarmManager``;
+    ``None`` keeps the raise-on-failure semantics).
+
+    ``max_retries``  — per-job retry budget override (``None`` = each
+        job's own ``max_requeues``).
+    ``backoff_base_s`` / ``backoff_factor`` / ``backoff_max_s`` —
+        exponential backoff before a failed attempt re-enters admission:
+        retry *n* waits ``min(base * factor**(n-1), max)`` seconds
+        (``base=0`` disables the wait).
+    ``quarantine``   — dead-letter jobs that exhaust their budget instead
+        of failing the farm: the run completes, the report carries them.
+    ``breaker_window`` / ``breaker_threshold`` — a slot accumulating
+        ``threshold`` failed runs within its last ``window`` runs trips
+        its circuit breaker and is benched.
+    ``breaker_cooldown_s`` — wait before probing a benched slot.
+    ``breaker_max_probes`` — consecutive canary failures after which a
+        benched slot is written off entirely (leaves the pool).
+    ``canary``       — ``fn(slot)`` probe dispatched to a benched slot;
+        raising = still broken. ``None`` = :func:`_default_canary`.
+    """
+    max_retries: Optional[int] = None
+    backoff_base_s: float = 0.0
+    backoff_factor: float = 2.0
+    backoff_max_s: float = 5.0
+    quarantine: bool = True
+    breaker_window: int = 6
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 0.0
+    breaker_max_probes: int = 50
+    canary: Optional[Callable[[DeviceSlot], None]] = None
+
+    def backoff_for(self, attempt: int) -> float:
+        if self.backoff_base_s <= 0:
+            return 0.0
+        return min(self.backoff_max_s,
+                   self.backoff_base_s
+                   * self.backoff_factor ** max(0, attempt - 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,8 +316,9 @@ class FarmJob:
     cannot be materialized) so a requeued attempt can re-read it from its
     resume cursor.
     ``verify(plan, records, ys)`` raises to veto a window (stateless — it
-    re-runs on replay); ``on_drain(plan, records, ys)`` is the
-    exactly-once, in-order sink delivered at completion. ``barriers`` are
+    re-runs on replay; in async mode it runs on the job's slot thread);
+    ``on_drain(plan, records, ys)`` is the exactly-once, in-order sink
+    delivered at completion on the control thread. ``barriers`` are
     per-job :class:`DrainBarrier`\\ s (e.g. checkpoint saves) whose
     actions are skipped while the job has a recorded fault — the
     commit-veto contract; every ACCEPTED commit also publishes a resume
@@ -204,9 +328,9 @@ class FarmJob:
     ``snapshot()``/``restore(snap)`` (the ``CommitStreamVerifier``
     protocol) to ride the same resume point. ``drain_fn`` / ``stack_fn``
     / ``reset`` are the per-client scheduler plumbing (``None`` =
-    shell-less). ``capture`` (the roofline's ``WindowCapture``) and
-    ``spec`` (the registry's ``JobSpec``) are refused at submit until
-    their slices land."""
+    shell-less). ``spec`` is the registry's ``JobSpec`` the job was built
+    from (``submit_spec``); ``capture`` (the roofline's
+    ``WindowCapture``) is refused at submit until the roofline slice."""
     name: str
     engine: Callable
     windows: Any
@@ -225,7 +349,8 @@ class FarmJob:
     # jobs into ONE lane-batched (vmap-fused) run on a lane-capable slot
     scope: Any = None                   # ScopeSpec: opt into the ZP-Scope
     # instrumentation plane (per-attempt counters; restart on requeue)
-    spec: Any = None                    # registry.JobSpec (refused)
+    spec: Any = None                    # registry.JobSpec this job was
+    # built from (journaled for recovery with the ledger slice)
 
     # ----- runtime bookkeeping (owned by the manager) -----
     requeues: int = dataclasses.field(default=0, init=False)
@@ -237,6 +362,8 @@ class FarmJob:
     snapshot: Optional[JobSnapshot] = dataclasses.field(
         default=None, init=False)       # last accepted commit's cursor
     windows_replayed: int = dataclasses.field(default=0, init=False)
+    not_before: float = dataclasses.field(default=0.0, init=False)
+    # ^ backoff gate: a requeued job is not re-admitted before this time
     committed_outputs: List = dataclasses.field(
         default_factory=list, init=False)   # committed windows:
     # committed_outputs[i] is window (_base + i)
@@ -260,14 +387,23 @@ class FarmJob:
 
 
 class _Run:
-    """One admission of a job onto a slot (client index ``idx``)."""
+    """One admission of a job onto a slot (client index ``idx``). In async
+    mode the slot thread owns everything here until it posts a terminal
+    message; after ``closed`` is set by the control plane, late messages
+    and callbacks from a stale (abandoned) thread are ignored."""
 
-    def __init__(self, job: FarmJob, slot: DeviceSlot, idx: int):
+    def __init__(self, job: FarmJob, slot: DeviceSlot, idx: int,
+                 t_assigned: float = 0.0):
         self.job = job
         self.slot = slot
         self.idx = idx
+        self.t_assigned = t_assigned
         self.outputs: List = []
         self.fault: Optional[BaseException] = None
+        self.evict_flag = threading.Event()
+        self.evict_why: Optional[str] = None
+        self.closed = False
+        self.ready = None               # CUDA event: the inputs are made
         self.start_window = 0           # resume cursor this attempt began at
         self.snapshot: Optional[JobSnapshot] = None     # latest commit here
         # ----- ZP-Scope (per-attempt; counters restart on requeue) -----
@@ -286,19 +422,224 @@ class _Run:
         return len(self.lanes) if self.lanes else 1
 
 
+_STOP = object()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Canary:
+    """Circuit-breaker probe task for one benched slot's worker thread."""
+    slot: DeviceSlot
+
+
+class _SlotWorker(threading.Thread):
+    """One device slot's dispatcher thread: pulls job assignments off a
+    bounded work queue and drives each through a thread-confined
+    ``ClientDriver`` pipeline (dispatch window *i+1* while draining window
+    *i*) on the slot's own stream. Every device interaction for the job
+    happens HERE; the control plane only ever sees completed drains and
+    terminal messages on the results queue. The thread runs under the
+    autograd mode ``modes`` = (inference mode, grad mode) of the control
+    thread that started it."""
+
+    def __init__(self, mgr: "FarmManager", slot: DeviceSlot, depth: int,
+                 modes):
+        super().__init__(name=f"farm-{slot.name}", daemon=True)
+        self.mgr = mgr
+        self.slot = slot
+        self.stream = slot_stream(slot)
+        self.modes = modes
+        self.inbox: queue_mod.Queue = queue_mod.Queue(maxsize=max(1, depth))
+        self._idle_since: Optional[float] = None
+
+    def run(self):
+        inference, grad = self.modes
+        try:
+            with torch.inference_mode(inference), \
+                    torch.set_grad_enabled(grad), _slot_context(self.slot):
+                while True:
+                    task = self.inbox.get()
+                    if task is _STOP:
+                        return
+                    if isinstance(task, _Canary):
+                        self._canary()
+                        continue
+                    # worker.loop: an injected raise here kills the THREAD
+                    # itself (no crash message ever posts) — the liveness
+                    # watchdog is the only thing that can notice, exactly
+                    # the failure it exists for
+                    self.mgr._inject("worker.loop", slot=self.slot.name,
+                                     job=task.job.name)
+                    self._drive(task)
+        finally:
+            # a finished worker lets go of its farm: the manager holds its
+            # workers, so the pair would otherwise be a reference cycle
+            # that keeps a pass's results alive until the collector runs
+            self.mgr = None
+
+    def _sync(self):
+        """Wait for the slot's stream: what the thread hands over next
+        (a run's results, or its end) is complete on the card."""
+        if self.stream is not None:
+            self.stream.synchronize()
+
+    def _canary(self):
+        """Run the breaker probe on the slot's own thread (the same thread
+        confinement real jobs get) and post the verdict."""
+        mgr = self.mgr
+        mgr.wd.heartbeat(self.slot.name, gap=False)
+        try:
+            mgr._inject("slot.canary", slot=self.slot.name)
+            fn = ((mgr.policy.canary if mgr.policy else None)
+                  or _default_canary)
+            fn(self.slot)
+            mgr._results.put(("canary", self.slot.name, True, None))
+        except BaseException as e:  # noqa: BLE001 — verdict, not crash
+            mgr._results.put(("canary", self.slot.name, False, e))
+
+    # ------------------------------------------------------------ driving --
+    def _drive(self, run: _Run):
+        mgr = self.mgr
+        job = run.job
+        now = mgr.clock()
+        mgr.telemetry.queue_wait(self.slot.name, now - run.t_assigned)
+        if self._idle_since is not None:
+            mgr.telemetry.idle(self.slot.name, now - self._idle_since)
+        mgr.wd.heartbeat(self.slot.name, gap=False)   # picked up: alive
+        if run.ready is not None:
+            self.stream.wait_event(run.ready)   # the inputs are made
+        t_dispatched: Dict[int, float] = {}           # window idx -> t0
+
+        def on_drain(k, plan, records, ys):
+            if run.closed:
+                return
+            t0 = mgr.clock()
+            # the results are in hand HERE: ys and records are the host
+            # copies whose event the scheduler waited for on this thread
+            # (this window's copies only — a sync of the whole stream
+            # would wait for the next window too and end the overlap)
+            mgr.wd.heartbeat(self.slot.name, gap=False)
+            td = t_dispatched.pop(plan.index, None)
+            if td is not None and plan.index > 0:
+                # measured window WALL (dispatch -> results in hand) is the
+                # async straggler signal; window 0 pays one-off warm-up
+                # (kernel builds, library loads, captures), not slowness; a
+                # lane-batched window is N boards of work, normalized to
+                # per-board cost
+                wall = mgr.clock() - td
+                mgr.wd.observe(self.slot.name, wall,
+                               lanes=run.lane_count)
+                if run.scope_plane is not None:
+                    # accumulate measured walls over the scope interval;
+                    # consumed (and zeroed) when the plane's next sample
+                    # drains (_scope_observe)
+                    run.scope_wall_acc += wall
+            if run.lanes is not None:
+                # per-lane fan-out + verify on the slot thread; a veto
+                # masks ITS lane only (this thread owns lane_faults, so
+                # later commits on this run already skip the lane)
+                delivered, faulted = mgr._lane_ingest(run, plan,
+                                                      records, ys)
+                if faulted and len(run.lane_faults) == len(run.lanes):
+                    run.fault = faulted[-1][1]      # every lane dead
+                mgr.telemetry.drain(self.slot.name, mgr._key(run, plan),
+                                    wall_s=mgr.clock() - t0)
+                mgr._inject("results.post", job=job.name,
+                            slot=self.slot.name)
+                mgr._results.put(("lane_drain", run, plan, delivered,
+                                  faulted))
+                return
+            if job.verify is not None and run.fault is None:
+                try:
+                    job.verify(plan, records, ys)
+                except Exception as e:  # noqa: BLE001 — veto, not crash
+                    mgr.telemetry.veto(self.slot.name)
+                    run.fault = e
+            mgr.telemetry.drain(self.slot.name, mgr._key(run, plan),
+                                wall_s=mgr.clock() - t0)
+            # results.post: an injected stall here models a results-queue
+            # hand-off delay — the control plane simply sees the drain late
+            mgr._inject("results.post", job=job.name, slot=self.slot.name)
+            mgr._results.put(("drain", run, plan, records, ys))
+
+        def on_commit(k, plan, state, shell):
+            # an accepted barrier commit publishes the job's resume point;
+            # a faulted or eviction-marked attempt publishes NOTHING (the
+            # veto contract: resume from the barrier BEFORE the rejection)
+            if run.closed or run.fault is not None \
+                    or run.evict_flag.is_set():
+                return
+            mgr._publish_snapshot(run, plan, state, shell)
+
+        inject = None
+        if mgr.injector is not None:
+            def inject(k, point, plan):
+                mgr._inject("slot." + point, job=job.name,
+                            slot=self.slot.name, window=plan.index)
+        try:
+            client = mgr._client_for(run, self.slot)
+            driver = mgr.sched.driver(
+                client, key=run.idx, on_drain=on_drain,
+                on_commit=on_commit,
+                place_fn=lambda k, stack: place_stack(stack, self.slot),
+                inject=inject)
+            while True:
+                t0 = mgr.clock()
+                plan = driver.dispatch()
+                if plan is None:
+                    driver.flush()        # final window's deferred drain
+                    self._sync()
+                    if run.fault is not None:
+                        mgr._results.put(("fault", run))
+                    else:
+                        mgr._results.put(
+                            ("done", run, driver.state, driver.shell))
+                    break
+                t_dispatched[plan.index] = t0
+                mgr.telemetry.dispatch(self.slot.name, mgr._key(run, plan),
+                                       mgr.clock() - t0)
+                driver.advance()          # drains window i-1 on THIS thread
+                # drain boundary: the only cancellation points — a job is
+                # never cut mid-dispatch, its in-flight window is simply
+                # discarded undelivered
+                if run.fault is not None:
+                    driver.cancel()
+                    self._sync()
+                    mgr._results.put(("fault", run))
+                    break
+                if run.evict_flag.is_set():
+                    driver.cancel()
+                    self._sync()
+                    mgr._results.put(("evicted", run))
+                    break
+        except BaseException as e:  # noqa: BLE001 — report, don't die
+            try:
+                self._sync()
+            except Exception:       # noqa: BLE001 — the crash is the news
+                pass
+            mgr._results.put(("crash", run, e))
+        self._idle_since = mgr.clock()
+
+
 class FarmManager(ClientPolicy):
-    """Job queue + placement + watchdog + eviction over one lockstep
-    ``WindowScheduler.run_many`` pass (see module docstring). ``slots``
-    may be a slot list, an int (minimum concurrency; virtual slots fill in
-    on a single card), or None (``max(min_slots, n_devices)``, capped at
-    the number of submitted jobs); auto-built slots sit on ``device``
-    (the visible CUDA devices by default, which must exist; ``"cpu"``:
-    the host). ``lanes`` sets the lane capacity of auto-built slots: at
-    admission, queued jobs sharing a ``lane_key`` (and
-    :func:`lane_compatible` in engine/plumbing/window shape) are coalesced
-    into ONE vmap-fused run of up to that many boards per dispatch
-    stream. ``clock`` times dispatch costs (the straggler signal) and
-    telemetry; tests inject one."""
+    """Job queue + placement + watchdog + eviction in two host-loop modes
+    (see module docstring). ``slots`` may be a slot list, an int (minimum
+    concurrency; virtual slots fill in on a single card), or None
+    (``max(min_slots, n_devices)``, capped at the number of submitted
+    jobs); auto-built slots sit on ``device`` (the visible CUDA devices by
+    default, which must exist; ``"cpu"``: the host). ``mode`` is
+    ``"lockstep"`` (one round-robin host thread — the bit-identity oracle)
+    or ``"async"`` (one dispatcher thread and one CUDA stream per slot).
+    ``slot_queue_depth`` bounds each slot's async work queue (1 = admit
+    only to idle slots; 2 lets the next job pre-stage behind the current
+    one). ``poll_s`` is the control plane's results-queue poll interval —
+    the cadence of watchdog sweeps when no drains are arriving.
+    ``policy`` is a :class:`FailurePolicy` (``None``: raise-on-failure).
+    ``lanes`` sets the lane capacity of auto-built slots: at admission,
+    queued jobs sharing a ``lane_key`` (and :func:`lane_compatible` in
+    engine/plumbing/window shape) are coalesced into ONE vmap-fused run
+    of up to that many boards per dispatch stream. ``clock`` times
+    dispatch costs and window walls (the straggler signals), backoff
+    gates and telemetry; tests inject one."""
 
     def __init__(self, slots: Any = None, min_slots: int = 3,
                  scheduler: Optional[WindowScheduler] = None,
@@ -308,19 +649,16 @@ class FarmManager(ClientPolicy):
                  evict_stragglers: bool = True,
                  telemetry: Optional[FarmTelemetry] = None,
                  mode: str = "lockstep",
-                 policy: Any = None,
+                 slot_queue_depth: int = 1,
+                 poll_s: float = 0.02,
+                 policy: Optional[FailurePolicy] = None,
                  lanes: int = 1,
                  ledger: Any = None,
                  certify: bool = False,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
-        if mode == "async":
-            _refuse('mode="async" (one dispatcher thread per slot)')
-        if mode != "lockstep":
+        if mode not in ("lockstep", "async"):
             raise ValueError(f"unknown farm mode: {mode!r}")
-        if policy is not None:
-            _refuse("policy=FailurePolicy(...) (retry backoff, quarantine, "
-                    "slot circuit breakers)")
         if ledger is not None:
             _refuse("ledger= (the durable farm journal)")
         if certify:
@@ -341,7 +679,11 @@ class FarmManager(ClientPolicy):
         self.evict_stragglers = evict_stragglers
         self.telemetry = telemetry or FarmTelemetry(clock=clock)
         self.mode = mode
+        self.slot_queue_depth = max(1, slot_queue_depth)
+        self.poll_s = poll_s
+        self.policy = policy
         self.clock = clock
+        self.injector = None        # chaos harness hook (farm/chaos.py)
 
         self.queue: deque = deque()
         self.jobs: List[FarmJob] = []
@@ -357,23 +699,21 @@ class FarmManager(ClientPolicy):
         # control plane reads and clears marks at drain/finish boundaries)
         self._pre: Dict[int, float] = {}        # client idx -> t(place_fn)
         self._next_idx = 0
+        # ----- async control plane state -----
+        self._results: queue_mod.Queue = queue_mod.Queue()
+        self._workers: Dict[str, _SlotWorker] = {}
+        self._slot_load: Dict[str, int] = {}    # assigned-not-finished runs
+        self._lost: set = set()                 # abandoned (hung) slots
+        # ----- failure-policy state -----
+        self._health: Dict[str, deque] = {}     # slot -> recent run bools
+        self._benched: Dict[str, float] = {}    # slot -> benched-at time
+        self._probing: set = set()              # slots with a canary out
+        self._canary_fails: Dict[str, int] = {}  # consecutive probe fails
         self._shutdown = threading.Event()
 
     # ------------------------------------------------------------- intake --
-    @property
-    def injector(self):
-        """The chaos harness hook (``None``: no fault injection)."""
-        return None
-
-    @injector.setter
-    def injector(self, value):
-        if value is not None:
-            _refuse("a fault injector (ZP-Chaos)")
-
     @control_thread_only
     def submit(self, job: FarmJob) -> FarmJob:
-        if job.spec is not None:
-            _refuse("FarmJob.spec (the registry's serializable JobSpec)")
         if job.capture is not None:
             raise NotImplementedError(
                 "FarmJob.capture (a measured-window roofline capture) "
@@ -384,7 +724,10 @@ class FarmManager(ClientPolicy):
         return job
 
     def submit_spec(self, spec, registry: Any = None) -> FarmJob:
-        _refuse("submit_spec (journaled JobSpec intake)")
+        """Build and submit a serializable :class:`~repro_torch.farm.
+        registry.JobSpec` (journaling it for ``recover`` comes with the
+        ledger slice)."""
+        return self.submit(spec.build(registry))
 
     @classmethod
     def recover(cls, ledger, registry: Any = None, **kwargs):
@@ -393,23 +736,81 @@ class FarmManager(ClientPolicy):
     @any_thread
     def force_evict(self, job_name: str):
         """Mark a job for eviction at its next drain boundary (the
-        deterministic test/CLI path — the watchdog path is timing).
+        deterministic test/CLI path — the watchdog path is wall-time).
         Safe from any thread: the mark set is shared with the control
         plane's sweep, so it is mutated under ``_mu``."""
         with self._mu:
             self._force.add(job_name)
 
     def request_shutdown(self):
-        """Graceful stop: no new admissions, every running job is cut at
-        its NEXT drain boundary keeping its committed prefix and published
-        snapshots, queued + cut jobs are marked ``interrupted``, and
-        ``run()`` returns with the report. Safe to call from a signal
-        handler or another thread."""
+        """Graceful stop (the SIGINT path): no new admissions, every
+        running job is cut at its NEXT drain boundary keeping its
+        committed prefix and published snapshots, queued + cut jobs are
+        marked ``interrupted``, and ``run()`` returns with the report.
+        Safe to call from a signal handler or another thread."""
         self._shutdown.set()
 
     @property
     def interrupted(self) -> bool:
         return self._shutdown.is_set()
+
+    def _inject(self, point: str, **ctx):
+        """Named fault-injection point (no-op without a chaos injector —
+        the production fast path is one attribute check)."""
+        if self.injector is not None:
+            self.injector.fire(point, **ctx)
+
+    # -------------------------------------------- slot health / breaker --
+    def _budget(self, job: FarmJob) -> int:
+        if self.policy is not None and self.policy.max_retries is not None:
+            return self.policy.max_retries
+        return job.max_requeues
+
+    @control_thread_only
+    def _slot_result(self, slot_name: str, ok: bool, why: str = ""):
+        """Score one finished run on a slot; trip the breaker when the
+        failure count inside the scoring window crosses the threshold."""
+        p = self.policy
+        if p is None or slot_name in self._lost:
+            return
+        h = self._health.setdefault(
+            slot_name, deque(maxlen=max(1, p.breaker_window)))
+        h.append(ok)
+        if ok or slot_name in self._benched:
+            return
+        fails = sum(1 for r in h if not r)
+        if fails >= p.breaker_threshold:
+            self._benched[slot_name] = self.clock()
+            self.telemetry.breaker(slot_name, "trip",
+                                   f"{fails}/{len(h)} failed: {why}")
+
+    def _unavailable(self) -> set:
+        """Slots placement must skip: lost, benched, or out on a probe."""
+        return self._lost | set(self._benched) | self._probing
+
+    @control_thread_only
+    def _canary_verdict(self, slot_name: str, ok: bool, err):
+        self._probing.discard(slot_name)
+        if ok:
+            self._benched.pop(slot_name, None)
+            self._health.get(slot_name, deque()).clear()
+            self._canary_fails[slot_name] = 0
+            self.telemetry.breaker(slot_name, "canary_pass")
+            self.telemetry.breaker(slot_name, "readmit")
+            return
+        self._benched[slot_name] = self.clock()     # re-arm the cooldown
+        n = self._canary_fails.get(slot_name, 0) + 1
+        self._canary_fails[slot_name] = n
+        self.telemetry.breaker(slot_name, "canary_fail", repr(err))
+        p = self.policy
+        if p is not None and n >= p.breaker_max_probes:
+            # a seat that cannot pass its own canary is not coming back:
+            # write it off so the farm fails loudly instead of probing
+            # forever with jobs stuck behind it
+            self._benched.pop(slot_name, None)
+            self._lost.add(slot_name)
+            self.telemetry.breaker(slot_name, "written_off",
+                                   f"{n} consecutive canary failures")
 
     # ------------------------------------------------------------ running --
     @control_thread_only
@@ -428,21 +829,29 @@ class FarmManager(ClientPolicy):
             self.slots = enumerate_slots(
                 min_slots=min(len(self.queue), max(self.min_slots, n_dev)),
                 lane_capacity=self.lanes, device=self.device)
-        self._free = list(self.slots)
-        # the initial client list MUST be empty: every client enters via
-        # admit(), so the scheduler's positional indices stay in lockstep
-        # with _next_idx and the callbacks route to the right _Run
-        self.sched.run_many([], on_drain=self._on_drain,
-                            on_dispatch=self._on_dispatch,
-                            place_fn=self._place, policy=self,
-                            on_commit=self._on_commit)
-        if self._shutdown.is_set():
-            self._drain_interrupted()
+        if self.mode == "async":
+            self._run_async()
+        else:
+            self._free = list(self.slots)
+            # the initial client list MUST be empty: every client enters
+            # via admit(), so the scheduler's positional indices stay in
+            # lockstep with _next_idx and the callbacks route to the
+            # right _Run
+            self.sched.run_many([], on_drain=self._on_drain,
+                                on_dispatch=self._on_dispatch,
+                                place_fn=self._place, policy=self,
+                                on_commit=self._on_commit,
+                                inject=(self._inject_lockstep
+                                        if self.injector else None))
+            if self._shutdown.is_set():
+                self._drain_interrupted()
         report = self.report()
         if strict:
-            # interrupted jobs are a requested stop, not a farm failure
+            # quarantined jobs are the dead-letter REPORT, interrupted
+            # ones a requested stop — neither is a farm failure
             failed = [n for n, j in report["jobs"].items()
-                      if j["status"] not in ("done", "interrupted")]
+                      if j["status"] not in ("done", "quarantined",
+                                             "interrupted")]
             if failed:
                 raise FarmError(f"farm jobs failed verification: {failed}")
         return report
@@ -459,6 +868,8 @@ class FarmManager(ClientPolicy):
                               "windows_replayed": j.windows_replayed,
                               "windows_delivered": j.windows_delivered,
                               "error": j.error} for j in self.jobs},
+            "quarantined": [j.name for j in self.jobs
+                            if j.status == "quarantined"],
             "interrupted": self._shutdown.is_set(),
             "telemetry": self.telemetry.report(),
         }
@@ -467,6 +878,279 @@ class FarmManager(ClientPolicy):
         """Fleet-wide ZP-Scope counter table (see
         :meth:`FarmTelemetry.scope_report`)."""
         return self.telemetry.scope_report()
+
+    # ================================================== async control plane
+    @control_thread_only
+    def _run_async(self):
+        modes = (torch.is_inference_mode_enabled(), torch.is_grad_enabled())
+        self._workers = {s.name: _SlotWorker(self, s, self.slot_queue_depth,
+                                             modes)
+                         for s in self.slots}
+        self._slot_load = {s.name: 0 for s in self.slots}
+        self._lost = set()
+        for w in self._workers.values():
+            w.start()
+        try:
+            self._assign_async()
+            while self._running or self.queue:
+                if self._shutdown.is_set():
+                    self._shutdown_async()
+                try:
+                    msg = self._results.get(timeout=self.poll_s)
+                except queue_mod.Empty:
+                    msg = None
+                if msg is not None:
+                    self._handle_async(msg)
+                self._sweep_async()
+                self._probe_async()
+                self._assign_async()
+        finally:
+            for w in self._workers.values():
+                try:
+                    w.inbox.put_nowait(_STOP)
+                except queue_mod.Full:
+                    pass
+            for w in self._workers.values():
+                if w.slot.name not in self._lost:
+                    w.join(timeout=10.0)
+
+    @control_thread_only
+    def _assign_async(self):
+        """Admission: feed queued jobs into slot work queues, honoring the
+        requeue avoid-slot preference and each job's backoff gate, with
+        the same progress guarantee as lockstep admit (the preference
+        yields when nothing else can ever free a different slot)."""
+        assigned = 0
+        deferred = []
+        backing_off = False
+        now = self.clock()
+        while self.queue:
+            job = self.queue.popleft()
+            if job.not_before > now:    # backoff: re-admission must wait
+                deferred.append(job)
+                backing_off = True
+                continue
+            slot = self._pick_async_slot(self._avoid.get(job.name))
+            if slot is None:            # only its old slot has capacity:
+                deferred.append(job)    # wait for a DIFFERENT one
+                continue
+            self._avoid.pop(job.name, None)
+            self._dispatch_to_slot(job, slot)
+            assigned += 1
+        self.queue.extendleft(reversed(deferred))
+        if not assigned and not self._running and self.queue \
+                and not backing_off:
+            # nothing running, nothing assigned: no other slot will ever
+            # free, so the avoid preference must yield (progress guarantee)
+            slot = self._pick_async_slot(None)
+            if slot is not None:
+                job = self.queue.popleft()
+                self._avoid.pop(job.name, None)
+                self._dispatch_to_slot(job, slot)
+                assigned += 1
+            elif not (set(self._benched) | self._probing):
+                # no capacity anywhere and no benched slot a canary could
+                # still heal: the farm is genuinely out of seats
+                raise FarmError(
+                    "no live slots left to place queued jobs "
+                    f"(lost: {sorted(self._lost)})")
+        if assigned:
+            self.telemetry.occupancy(len(self._running), len(self.slots))
+
+    @control_thread_only
+    def _pick_async_slot(self, avoid: Optional[str]) -> Optional[DeviceSlot]:
+        # least-loaded first: with slot_queue_depth >= 2 a fixed slot
+        # order would double-book early slots while later ones sit idle
+        out = self._unavailable()
+        candidates = sorted(
+            (s for s in self.slots
+             if s.name not in out
+             and self._slot_load[s.name] < self.slot_queue_depth),
+            key=lambda s: (self._slot_load[s.name], s.index))
+        live = [s for s in self.slots if s.name not in out]
+        return pick_slot(candidates, avoid=avoid,
+                         sole_candidate=len(live) == 1)
+
+    @control_thread_only
+    def _probe_async(self):
+        """Dispatch a canary to every benched slot whose cooldown has
+        elapsed (one probe in flight per slot)."""
+        if self.policy is None or not self._benched:
+            return
+        now = self.clock()
+        for name, t0 in list(self._benched.items()):
+            if name in self._probing or name in self._lost:
+                continue
+            if now - t0 < self.policy.breaker_cooldown_s:
+                continue
+            try:
+                self._workers[name].inbox.put_nowait(
+                    _Canary(next(s for s in self.slots if s.name == name)))
+            except queue_mod.Full:
+                continue                # pre-bench backlog: retry next tick
+            self._probing.add(name)
+            self.telemetry.breaker(name, "probe")
+
+    @control_thread_only
+    def _shutdown_async(self):
+        """Graceful-stop sweep: orphan the queue, cut every running job at
+        its next drain boundary (its committed prefix stays delivered)."""
+        self._orphan_queue()
+        for run in self._running.values():
+            if not run.evict_flag.is_set():
+                run.evict_why = "shutdown"
+                run.evict_flag.set()
+
+    @control_thread_only
+    def _dispatch_to_slot(self, job: FarmJob, slot: DeviceSlot):
+        members = self._gather_lanes(job, slot)
+        run = self._new_run(members, slot, t_assigned=self.clock())
+        with self._mu:
+            forced = bool({m.name for m in members} & self._force)
+        if forced and not (
+                run.lanes is None
+                and run.job.requeues >= self._budget(run.job)):
+            # signal a pre-existing force mark at assignment, not at the
+            # next sweep: the control plane's first sweep runs after a
+            # blocking results poll, and a short job can finish entirely
+            # inside that window — the mark would never land
+            run.evict_why = "forced"
+            run.evict_flag.set()
+        if torch.device(slot.device).type == "cuda":
+            # everything the control thread queued for this job (weights,
+            # captured activations, lane stacks) precedes this event; the
+            # slot stream waits for it before the job's first window
+            run.ready = torch.cuda.Event()
+            run.ready.record(torch.cuda.current_stream(slot.device))
+        self._slot_load[slot.name] += 1
+        self.wd.heartbeat(slot.name, gap=False)   # assigned: alive
+        self.telemetry.depth(slot.name,
+                             self._workers[slot.name].inbox.qsize() + 1)
+        self._workers[slot.name].inbox.put(run)
+
+    @control_thread_only
+    def _handle_async(self, msg):
+        if msg[0] == "canary":
+            _, slot_name, ok, err = msg
+            self._canary_verdict(slot_name, ok, err)
+            return
+        kind, run = msg[0], msg[1]
+        if run.closed:                  # stale message from an abandoned
+            return                      # thread: the run is already gone
+        if kind == "drain":
+            _, _, plan, records, ys = msg
+            run.outputs.append((plan, records, ys))
+            return
+        if kind == "lane_drain":
+            _, _, plan, delivered, faulted = msg
+            for lane, rec, y in delivered:
+                run.lane_outputs[lane].append((plan, rec, y))
+            for lane, exc in faulted:
+                self._detach_lane(run, lane, f"lane veto: {exc}")
+            return
+        run.closed = True
+        self._running.pop(run.idx, None)
+        self._slot_load[run.slot.name] -= 1
+        if kind == "done":
+            self._slot_result(run.slot.name, ok=run.fault is None)
+            self._finish_run(run, msg[2], msg[3])
+        elif kind == "fault":
+            if run.lanes is None:
+                # a lane veto is a job-content fault localized by the
+                # fused verify, not a slot failure — don't score the seat
+                self._slot_result(run.slot.name, ok=False,
+                                  why=f"veto: {run.fault}")
+            self._requeue_or_fail(run, f"drain veto: {run.fault}")
+        elif kind == "evicted":
+            if run.evict_why == "shutdown":
+                self._retire_interrupted(run)
+            else:
+                self._requeue_or_fail(run, run.evict_why or "evicted")
+        else:  # crash: a slot-thread exception is a board fault, not a
+            # farm failure — score the seat, requeue or dead-letter
+            self._slot_result(run.slot.name, ok=False,
+                              why=f"crash: {msg[2]!r}")
+            self._requeue_or_fail(run, f"slot thread crash: {msg[2]!r}")
+        self.telemetry.occupancy(len(self._running), len(self.slots))
+
+    @control_thread_only
+    def _sweep_async(self):
+        """Control-plane sweep: watchdog stragglers (measured window wall)
+        + forced marks are SIGNALLED to the slot thread (honored at its
+        next drain boundary); hung boards (liveness timeout) are abandoned
+        — the slot leaves the pool, the job requeues elsewhere."""
+        marks: Dict[int, str] = {}
+        if self.evict_stragglers and self._running:
+            # unlike the lockstep sweep, async jobs finish at their own
+            # pace: a straggler is often the LAST one running, judged
+            # against the departed fleet's retained samples — the
+            # watchdog's own min_fleet (>= 2 sampled workers) is the gate
+            slow = set(self.wd.stragglers(self.straggler_factor,
+                                          min_s=self.straggler_min_s,
+                                          channel=self._straggler_channel()))
+            for idx, run in self._running.items():
+                if run.slot.name in slow:
+                    marks.setdefault(idx, "straggler")
+        with self._mu:
+            force = set(self._force)
+        for idx, run in self._running.items():
+            names = {run.job.name}
+            if run.lanes is not None:   # force-marking a member cuts the
+                names.update(m.name for m in run.lanes)  # whole fused run
+            if names & force:
+                marks.setdefault(idx, "forced")
+        for idx, why in marks.items():
+            run = self._running[idx]
+            if run.evict_flag.is_set():
+                continue                # already signalled
+            if (run.lanes is None and run.fault is None
+                    and run.job.requeues >= self._budget(run.job)):
+                continue                # budget spent: let it limp home
+                # (lane runs skip the gate: members budget at requeue)
+            run.evict_why = why
+            run.evict_flag.set()
+        dead = set(self.wd.dead_workers())
+        for run in [r for r in self._running.values()
+                    if r.slot.name in dead]:
+            self._abandon_async(run)
+
+    @control_thread_only
+    def _abandon_async(self, run: _Run):
+        """A slot whose thread stopped beating past the watchdog timeout is
+        HUNG mid-dispatch (it cannot even reach an eviction check). The
+        board is written off: its thread is left as a daemon, the slot
+        never returns to the pool, and the job requeues elsewhere."""
+        # ingest everything already posted before writing the run off: the
+        # hung board's last drains may still sit in the results queue, and
+        # the requeue's committed-prefix math needs them in run.outputs
+        while True:
+            try:
+                msg = self._results.get_nowait()
+            except queue_mod.Empty:
+                break
+            self._handle_async(msg)
+        if run.closed:          # the drained backlog finished the run
+            return
+        run.closed = True
+        run.evict_flag.set()            # if the thread ever wakes, stop it
+        self._running.pop(run.idx, None)
+        self._slot_load[run.slot.name] -= 1
+        self._lost.add(run.slot.name)
+        # orphan any pre-staged (not yet started) assignments on the queue
+        w = self._workers[run.slot.name]
+        while True:
+            try:
+                staged = w.inbox.get_nowait()
+            except queue_mod.Empty:
+                break
+            if staged is _STOP or isinstance(staged, _Canary) \
+                    or staged.closed:
+                continue
+            staged.closed = True
+            self._running.pop(staged.idx, None)
+            self._slot_load[staged.slot.name] -= 1
+            self._requeue_or_fail(staged, "slot lost (hung board)")
+        self._requeue_or_fail(run, "hung board (liveness timeout)")
 
     @control_thread_only
     def _orphan_queue(self):
@@ -489,9 +1173,11 @@ class FarmManager(ClientPolicy):
                 or callable(job.state) or callable(job.shell):
             return [job]
         members, skipped = [job], []
+        now = self.clock()
         while self.queue and len(members) < cap:
             cand = self.queue.popleft()
-            if (self._avoid.get(cand.name) != slot.name
+            if (cand.not_before <= now
+                    and self._avoid.get(cand.name) != slot.name
                     and lane_compatible(job, cand) is None):
                 members.append(cand)
             else:
@@ -500,23 +1186,24 @@ class FarmManager(ClientPolicy):
         return members
 
     @control_thread_only
-    def _new_run(self, members: List[FarmJob], slot: DeviceSlot) -> _Run:
+    def _new_run(self, members: List[FarmJob], slot: DeviceSlot,
+                 t_assigned: float = 0.0) -> _Run:
         if len(members) > 1:
-            run = self._make_lane_run(members, slot)
+            run = self._make_lane_run(members, slot, t_assigned)
         else:
             job = members[0]
             job.attempts += 1
             job.status = "running"
             job.last_slot = slot.name
-            run = _Run(job, slot, self._next_idx)
+            run = _Run(job, slot, self._next_idx, t_assigned=t_assigned)
             self._next_idx += 1
         self.telemetry.lanes(slot.name, len(members))
         self._running[run.idx] = run
         return run
 
     @control_thread_only
-    def _make_lane_run(self, members: List[FarmJob],
-                       slot: DeviceSlot) -> _Run:
+    def _make_lane_run(self, members: List[FarmJob], slot: DeviceSlot,
+                       t_assigned: float = 0.0) -> _Run:
         """Fuse N compatible queued jobs into ONE lane-batched run: a
         synthetic fused job (never in ``self.jobs``) carries the vmapped
         engine, zipped windows, and lane-packed state/shell. Member
@@ -539,7 +1226,7 @@ class FarmManager(ClientPolicy):
             scope=members[0].scope)     # spec equality is a coalescing
         # rule, so ONE plane instruments the whole fused run (per-lane
         # counter slices via the lane axis)
-        run = _Run(fused, slot, self._next_idx)
+        run = _Run(fused, slot, self._next_idx, t_assigned=t_assigned)
         self._next_idx += 1
         run.lanes = list(members)
         run.lane_batch = lb
@@ -587,14 +1274,16 @@ class FarmManager(ClientPolicy):
 
     # ------------------------------------------------- checkpointed resume --
     def _publish_snapshot(self, run: _Run, plan, state, shell):
-        """Publish the job's resume point at an accepted barrier commit.
-        The payload is host-copied by the store's save, so it survives
-        in-place updates and slot loss; the cursor handle on the run is
-        what the control plane reads at requeue time."""
+        """Publish the job's resume point at an accepted barrier commit
+        (on the thread that owns the job's device state — the slot thread
+        in async mode). The payload is host-copied by the store's save,
+        so it survives in-place updates and slot loss; the cursor handle
+        on the run is what the control plane reads at requeue time."""
         job = run.job
         # snapshots hold the DUT shell only: scope counters ride BESIDE
         # the DUT and restart on requeue (observability, not progress)
         shell = zp_scope.unwrap(shell)
+        self._inject("snapshot.publish", job=job.name, slot=run.slot.name)
         cursor = {"step": np.int64(plan.boundary),
                   "window": np.int64(plan.index + 1)}
         if run.lanes is not None:
@@ -747,7 +1436,8 @@ class FarmManager(ClientPolicy):
         """Bind a fresh per-attempt :class:`ScopePlane` for a scoped job
         (``None`` otherwise). One plane instruments the whole run — under
         lane batching the counters are per-lane via the lane axis.
-        Drained samples fan into telemetry + the watchdog's device-side
+        Drained samples land on the observing thread (the slot thread in
+        async mode) and fan into telemetry + the watchdog's device-side
         work-rate channel."""
         job = run.job
         if job.scope is None:
@@ -769,10 +1459,15 @@ class FarmManager(ClientPolicy):
         wall) / (device-side work retired this interval). The FIRST
         sample of an attempt spans the warm-up — a known one-off, not
         slowness — and quiet intervals (no work retired) are excluded
-        rather than averaged in."""
+        rather than averaged in. Telemetry records every sample (the
+        counters are true device-side totals even from the finalize tail
+        of a just-closed run); the straggler channel only takes samples
+        from a LIVE attempt."""
         if run is None:                 # the attempt is gone
             return
         self.telemetry.scope(run.slot.name, run.job.name, sample)
+        if run.closed:
+            return
         wall, run.scope_wall_acc = run.scope_wall_acc, 0.0
         if run.scope_first:
             run.scope_first = False
@@ -786,12 +1481,22 @@ class FarmManager(ClientPolicy):
 
     @control_thread_only
     def _on_commit(self, k: int, plan, state, shell):
-        """Snapshot hook: publish unless the attempt is faulted — the veto
+        """Lockstep snapshot hook (the async path is the slot worker's
+        closure): publish unless the attempt is faulted — the veto
         contract keeps the resume point BEFORE a rejected window."""
         run = self._running.get(k)
         if run is None or run.fault is not None:
             return
         self._publish_snapshot(run, plan, state, shell)
+
+    def _inject_lockstep(self, k: int, point: str, plan):
+        """Lockstep route for the ClientDriver injection points (the async
+        route is the slot worker's closure)."""
+        run = self._running.get(k)
+        if run is None:
+            return
+        self._inject("slot." + point, job=run.job.name,
+                     slot=run.slot.name, window=plan.index)
 
     def _gated_barriers(self, run: _Run):
         """Per-attempt barrier wrappers: a barrier action (e.g. a
@@ -805,7 +1510,7 @@ class FarmManager(ClientPolicy):
         collector runs."""
         def gate(action):
             def act(state, boundary):
-                if run.fault is None:
+                if run.fault is None and not run.evict_flag.is_set():
                     action(state, boundary)
             return act
 
@@ -931,16 +1636,24 @@ class FarmManager(ClientPolicy):
 
     @control_thread_only
     def _requeue_member(self, job: FarmJob, slot_name: str, why: str):
-        """The requeue/fail tail shared by solo attempts and detached lane
-        members (budget, avoid preference)."""
+        """The requeue/quarantine/fail tail shared by solo attempts and
+        detached lane members (budget, backoff gate, avoid preference)."""
         with self._mu:
             self._force.discard(job.name)
-        if job.requeues < job.max_requeues:
+        if job.requeues < self._budget(job):
             job.requeues += 1
-            self.telemetry.retry(job.name, job.requeues, 0.0, why)
+            backoff = (self.policy.backoff_for(job.requeues)
+                       if self.policy is not None else 0.0)
+            if backoff > 0:
+                job.not_before = self.clock() + backoff
+            self.telemetry.retry(job.name, job.requeues, backoff, why)
             job.status = "queued"
             self._avoid[job.name] = slot_name
             self.queue.appendleft(job)
+        elif self.policy is not None and self.policy.quarantine:
+            job.status = "quarantined"
+            job.error = why
+            self.telemetry.quarantine(job.name, why)
         else:
             job.status = "failed"
             job.error = why
@@ -978,29 +1691,59 @@ class FarmManager(ClientPolicy):
             self._interrupt_lockstep()
             return ()
         self._process_evictions()
+        if self._benched:
+            self._probe_lockstep()
         admissions = []
-        deferred = []
-        while self.queue and self._free:
-            job = self.queue.popleft()
-            slot = self._pick_slot(self._avoid.get(job.name))
-            if slot is None:        # only its old slot is free: wait for
-                deferred.append(job)        # a DIFFERENT one
+        while True:
+            deferred = []
+            backing_off = False
+            now = self.clock()
+            while self.queue and self._free:
+                job = self.queue.popleft()
+                if job.not_before > now:    # backoff: re-admission waits
+                    deferred.append(job)
+                    backing_off = True
+                    continue
+                slot = self._pick_slot(self._avoid.get(job.name))
+                if slot is None:    # only its old slot is free: wait for
+                    deferred.append(job)    # a DIFFERENT one
+                    continue
+                self._avoid.pop(job.name, None)
+                admissions.append(self._admit_one(job, slot))
+            self.queue.extendleft(reversed(deferred))
+            if admissions or self._running or not self.queue:
+                break
+            # STALLED: jobs queued, nothing running, nothing admitted.
+            # Lockstep has no background tick — resolve the stall here or
+            # run_many's round loop would exit with jobs stranded.
+            if backing_off:
+                # wait out the earliest backoff gate, then re-admit
+                delay = min(j.not_before for j in self.queue) - self.clock()
+                if delay > 0:
+                    time.sleep(delay)
                 continue
-            self._avoid.pop(job.name, None)
-            admissions.append(self._admit_one(job, slot))
-        self.queue.extendleft(reversed(deferred))
-        if not admissions and not self._running and self.queue:
-            # STALLED: jobs queued, nothing running, nothing admitted —
-            # only the avoid preference blocks, and no other slot will
-            # ever free, so it must yield (progress guarantee); lockstep
-            # has no background tick, so run_many's round loop would
-            # otherwise exit with jobs stranded
             slot = self._pick_slot(None)
-            if slot is None:
-                raise FarmError("no live slots left to place queued jobs")
-            job = self.queue.popleft()
-            self._avoid.pop(job.name, None)
-            admissions.append(self._admit_one(job, slot))
+            if slot is not None:
+                # only the avoid preference blocks: no other slot will
+                # ever free, so it must yield (progress guarantee)
+                job = self.queue.popleft()
+                self._avoid.pop(job.name, None)
+                admissions.append(self._admit_one(job, slot))
+                break
+            if self._benched:
+                # every placeable seat is benched: probe inline until one
+                # heals or the breaker writes them all off
+                self._probe_lockstep()
+                if self._benched and self.policy is not None:
+                    delay = (min(self._benched.values())
+                             + self.policy.breaker_cooldown_s
+                             - self.clock())
+                    if delay > 0:
+                        time.sleep(delay)
+                continue
+            raise FarmError(
+                "no live slots left to place queued jobs "
+                f"(lost: {sorted(self._lost)})")
         if self._running:
             self.telemetry.occupancy(len(self._running), len(self.slots))
         return admissions
@@ -1014,20 +1757,26 @@ class FarmManager(ClientPolicy):
         run = self._running.pop(k)
         self._free.append(run.slot)
         if run.fault is not None:
+            if run.lanes is None:       # lane vetoes don't score the seat
+                self._slot_result(run.slot.name, ok=False,
+                                  why=f"veto: {run.fault}")
             self._requeue_or_fail(run, f"drain veto: {run.fault}")
             return
+        self._slot_result(run.slot.name, ok=True)
         self._finish_run(run, state, shell)
 
     @control_thread_only
     def crashed(self, k: int, exc: BaseException) -> bool:
-        """Crash absorption (the ClientPolicy hook run_many offers a
-        raising driver to): a client crashing mid-drive is a board fault,
-        not a farm failure — free the seat, requeue or fail the job, keep
-        the pass alive."""
+        """Lockstep crash absorption (the ClientPolicy hook run_many
+        offers a raising driver to): a client crashing mid-drive is a
+        board fault, not a farm failure — free the seat, score the slot,
+        requeue or dead-letter the job, keep the pass alive. Mirrors the
+        async mode's slot-thread ``crash`` message."""
         run = self._running.pop(k, None)
         if run is None:
             return False
         self._free.append(run.slot)
+        self._slot_result(run.slot.name, ok=False, why=f"crash: {exc!r}")
         self._requeue_or_fail(run, f"client crash: {exc!r}")
         return True
 
@@ -1082,17 +1831,43 @@ class FarmManager(ClientPolicy):
 
     @control_thread_only
     def _pick_slot(self, avoid: Optional[str]) -> Optional[DeviceSlot]:
-        s = pick_slot(self._free, avoid=avoid,
-                      sole_candidate=len(self.slots) == 1)
+        out = self._unavailable()
+        candidates = [s for s in self._free if s.name not in out]
+        live = [s for s in self.slots if s.name not in out]
+        s = pick_slot(candidates, avoid=avoid,
+                      sole_candidate=len(live) == 1)
         if s is not None:
             self._free.remove(s)
         return s
 
     @control_thread_only
+    def _probe_lockstep(self):
+        """Inline breaker probe (lockstep has no slot threads): run the
+        canary on the control thread for each benched slot past its
+        cooldown, and apply the verdict immediately."""
+        if self.policy is None:
+            return
+        now = self.clock()
+        for name, t0 in list(self._benched.items()):
+            if name in self._lost \
+                    or now - t0 < self.policy.breaker_cooldown_s:
+                continue
+            slot = next(s for s in self.slots if s.name == name)
+            self.telemetry.breaker(name, "probe")
+            try:
+                self._inject("slot.canary", slot=name)
+                fn = self.policy.canary or _default_canary
+                fn(slot)
+            except BaseException as e:  # noqa: BLE001 — verdict, not crash
+                self._canary_verdict(name, False, e)
+            else:
+                self._canary_verdict(name, True, None)
+
+    @control_thread_only
     def _interrupt_lockstep(self):
-        """Graceful stop: cut every running client at this round boundary
-        — run_many's evict check cancels it, its committed prefix and
-        snapshots stay — and orphan the queue."""
+        """Graceful stop (lockstep): cut every running client at this round
+        boundary — run_many's evict check cancels it, its committed prefix
+        and snapshots stay — and orphan the queue."""
         for k, run in list(self._running.items()):
             self._evicted.add(k)
             self._running.pop(k)
@@ -1154,12 +1929,15 @@ class FarmManager(ClientPolicy):
         for k, why in marks.items():
             run = self._running[k]
             if (run.lanes is None and run.fault is None
-                    and run.job.requeues >= run.job.max_requeues):
+                    and run.job.requeues >= self._budget(run.job)):
                 continue                # budget spent: let it limp home
                 # (lane runs skip the gate: members budget at requeue)
             self._evicted.add(k)
             self._running.pop(k)
             self._free.append(run.slot)
+            if run.fault is not None and run.lanes is None:
+                self._slot_result(run.slot.name, ok=False,
+                                  why=f"veto: {run.fault}")
             self._requeue_or_fail(run, why)
 
     @control_thread_only

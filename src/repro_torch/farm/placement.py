@@ -16,11 +16,18 @@ scheduler's ``place_fn`` dispatch hook, so a job's working set stays
 device-resident across windows (the FASE lesson: never re-upload what the
 board already holds). Host tensors travel through pinned memory with
 non-blocking copies, so placement never waits on the card.
+
+Streams: a card slot has one CUDA stream of its own for the life of the
+process (``slot_stream``, made at first use and kept by slot name), on
+which the async farm's dispatcher thread for that slot enqueues all of a
+job's work. A stream made once per virtual seat keeps one cuBLAS
+workspace per seat, not one per farm run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence
+import threading
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -67,6 +74,24 @@ def enumerate_slots(min_slots: int = 1,
         slots.append(DeviceSlot(name=name, device=d, index=i,
                                 lane_capacity=max(1, lane_capacity)))
     return slots
+
+
+_STREAMS: Dict[tuple, "torch.cuda.Stream"] = {}   # (name, card) -> stream
+_STREAMS_LOCK = threading.Lock()
+
+
+def slot_stream(slot: DeviceSlot) -> Optional["torch.cuda.Stream"]:
+    """The slot's own CUDA stream (``None`` for a host slot), made at its
+    first use and kept for the process: a farm's slots of the same name
+    on the same card share it across runs."""
+    device = torch.device(slot.device)
+    if device.type != "cuda":
+        return None
+    key = (slot.name, device.index)
+    with _STREAMS_LOCK:
+        if key not in _STREAMS:
+            _STREAMS[key] = torch.cuda.Stream(device=device)
+        return _STREAMS[key]
 
 
 def pick_slot(candidates: Sequence[DeviceSlot], avoid: Optional[str] = None,

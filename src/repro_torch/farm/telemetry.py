@@ -15,7 +15,7 @@ slot's host-overhead channels are folded into a per-slot
 :class:`~repro_torch.core.profiler.StallStack` whose dominant term is surfaced
 in :meth:`report`/:meth:`summary` (the live stall-stack attribution the
 solo train loop gets from its Profiler, reconstructed farm-side from the
-farm's own timestamps).
+slot threads' own timestamps).
 
 Device-side channels (ZP-Scope): ``scope(slot, job, sample)`` ingests the
 instrumentation plane's read-rate samples — on-device step/token
@@ -23,20 +23,26 @@ counters, gate toggle bits, commit digests — and
 :meth:`scope_report` joins them into fleet-wide per-job (and per-lane)
 counter tables.
 
-Host-overhead channels, folded into the stall stack:
+Host-overhead channels (filled by the ASYNC farm's slot threads, from
+their own timestamps — the attribution that makes an async win explainable
+rather than just measured):
 
+  queue_wait — admission-to-pickup: how long an assigned job sat in the
+      slot's bounded work queue before its dispatcher thread took it;
   dispatch   — the engine-call wall (the enqueue, per window);
-  drain      — the blocking fetch + verify wall per retired window, where
-      the caller of :meth:`drain` passes it.
+  drain      — the blocking fetch + verify wall per retired window;
+  idle       — the gap between a slot thread finishing one assignment and
+      picking up the next (slot starvation — admission latency, not board
+      slowness);
+  queue_depth — slot work-queue depth sampled at every assignment.
 
-The async farm's slot-thread channels (queue wait, idle gaps, queue
-depth) come with the slice that adds its slot threads.
-
-Failure-policy channels: per-job retry counts with their backoff,
-snapshot integrity fallbacks, and a fault log of the errors the
-recovery paths absorbed. The quarantine, circuit-breaker,
-certification and crash-recovery channels come with the slices that
-produce them (the failure policy, ZP-Cert, the ledger).
+Failure-policy channels (filled by the :class:`FailurePolicy` layer and
+the chaos harness): per-job retry counts with their backoff, quarantined
+(dead-lettered) jobs, circuit-breaker trips/probes per slot, snapshot
+integrity fallbacks, and a fault-recovery log pairing every injected
+fault with the recovery path that absorbed it. The certification and
+crash-recovery channels come with the slices that produce them (ZP-Cert,
+the ledger).
 
 All mutation is lock-protected: slot threads record concurrently while
 the control plane reads reports. Every event log is a BOUNDED deque with
@@ -102,6 +108,9 @@ class FarmTelemetry:
         self.window_ms = defaultdict(list)      # slot -> drain latencies
         self.dispatch_ms = defaultdict(list)    # slot -> engine-call cost
         self.drain_wall_ms = defaultdict(list)  # slot -> fetch+verify wall
+        self.queue_wait_ms = defaultdict(list)  # slot -> admission->pickup
+        self.idle_ms = defaultdict(list)        # slot -> between-job gaps
+        self.queue_depth = defaultdict(list)    # slot -> depth at assignment
         self.windows = defaultdict(int)         # slot -> drained windows
         self.vetoes = defaultdict(int)          # slot -> drain vetoes
         # ----- lane channels (lane-batched many-DUT dispatch) -----
@@ -112,8 +121,11 @@ class FarmTelemetry:
         self.occupancy_samples = _BoundedLog(max_events)
         # ----- failure-policy channels -----
         self.retries = _BoundedLog(max_events)  # {job, attempt, backoff_s}
+        self.quarantined = _BoundedLog(max_events)      # {job, why}
+        self.breaker_events = _BoundedLog(max_events)   # {slot, event, ..}
         self.fallbacks = _BoundedLog(max_events)        # snapshot fallbacks
         self.faults = _BoundedLog(max_events)   # fault-recovery log
+        self.breaker_trips = defaultdict(int)   # slot -> trip count
         # ----- device-side channels (ZP-Scope instrumentation plane) -----
         self.scope_samples = _BoundedLog(max_events)  # {slot, job, sample}
         self.scope_jobs: Dict[str, dict] = {}   # job -> latest cumulative
@@ -141,6 +153,18 @@ class FarmTelemetry:
             if wall_s is not None:
                 self.drain_wall_ms[slot].append(wall_s * 1e3)
             self.windows[slot] += 1
+
+    def queue_wait(self, slot: str, wait_s: float):
+        with self._lock:
+            self.queue_wait_ms[slot].append(wait_s * 1e3)
+
+    def idle(self, slot: str, gap_s: float):
+        with self._lock:
+            self.idle_ms[slot].append(gap_s * 1e3)
+
+    def depth(self, slot: str, depth: int):
+        with self._lock:
+            self.queue_depth[slot].append(depth)
 
     def veto(self, slot: str):
         with self._lock:
@@ -234,6 +258,22 @@ class FarmTelemetry:
                                  "backoff_s": float(backoff_s),
                                  "why": why})
 
+    def quarantine(self, job: str, why: str):
+        """A job exhausted its retry budget and was dead-lettered: the
+        farm completes the rest and reports it instead of raising."""
+        with self._lock:
+            self.quarantined.append({"job": job, "why": why})
+
+    def breaker(self, slot: str, event: str, detail: str = ""):
+        """Circuit-breaker transition on ``slot``: ``trip`` (benched after
+        too many failures in the scoring window), ``probe`` (canary
+        dispatched), ``canary_pass``/``canary_fail``, ``readmit``."""
+        with self._lock:
+            self.breaker_events.append({"slot": slot, "event": event,
+                                        "detail": detail})
+            if event == "trip":
+                self.breaker_trips[slot] += 1
+
     def fallback(self, slot: str, job: str, want_step: int, got_step,
                  why: str):
         """Snapshot integrity fallback: the restore at ``want_step`` hit a
@@ -247,9 +287,9 @@ class FarmTelemetry:
 
     def fault(self, point: str, kind: str, job: str = "", slot: str = "",
               event: str = "injected"):
-        """Fault log entry: an error that a recovery path absorbed at
-        ``point`` (the lockstep farm records a failed snapshot publish
-        whose restore fell back to an older save, ``event="error"``)."""
+        """Fault-recovery log entry: the chaos harness records each
+        injection (``event="injected"``); the recovery paths record what
+        absorbed it (``event="recovered"`` with the policy applied)."""
         with self._lock:
             self.faults.append({"point": point, "kind": kind, "job": job,
                                 "slot": slot, "event": event})
@@ -264,10 +304,12 @@ class FarmTelemetry:
                 lanes = self.lanes_per_dispatch.get(slot, [])
                 # Fold the slot's host-overhead channel SUMS into a stall
                 # stack: the solo loop's Profiler attribution, rebuilt
-                # farm-side from the farm's own timestamps.
+                # farm-side from the slot thread's own timestamps.
                 stack = StallStack(seconds={
+                    "queue": sum(self.queue_wait_ms.get(slot, [])),
                     "dispatch": sum(self.dispatch_ms.get(slot, [])),
                     "drain": sum(self.drain_wall_ms.get(slot, [])),
+                    "idle": sum(self.idle_ms.get(slot, [])),
                 })
                 has_stall = any(v > 0 for v in stack.seconds.values())
                 devices[slot] = {
@@ -276,6 +318,11 @@ class FarmTelemetry:
                     "window_ms": _stats(self.window_ms.get(slot, [])),
                     "dispatch_ms": _stats(self.dispatch_ms.get(slot, [])),
                     "drain_ms": _stats(self.drain_wall_ms.get(slot, [])),
+                    "queue_wait_ms": _stats(
+                        self.queue_wait_ms.get(slot, [])),
+                    "idle_ms": _stats(self.idle_ms.get(slot, [])),
+                    "queue_depth_max": max(
+                        self.queue_depth.get(slot, []), default=0),
                     "drain_vetoes": self.vetoes.get(slot, 0),
                     "stall_ms": dict(stack.seconds),
                     "dominant_stall": (stack.dominant() if has_stall
@@ -289,14 +336,19 @@ class FarmTelemetry:
             resumes = [dict(r) for r in self.resumes]
             vetoes = sum(self.vetoes.values())
             retries = [dict(r) for r in self.retries]
+            quarantined = [dict(q) for q in self.quarantined]
+            breaker_events = [dict(b) for b in self.breaker_events]
             fallbacks = [dict(f) for f in self.fallbacks]
             faults = [dict(f) for f in self.faults]
+            trips = dict(self.breaker_trips)
             dropped = {name: log.dropped for name, log in (
                 ("evictions", self.evictions),
                 ("lane_vetoes", self.lane_vetoes),
                 ("resumes", self.resumes),
                 ("occupancy", self.occupancy_samples),
                 ("retries", self.retries),
+                ("quarantined", self.quarantined),
+                ("breaker_events", self.breaker_events),
                 ("fallbacks", self.fallbacks),
                 ("faults", self.faults),
                 ("scope_samples", self.scope_samples)) if log.dropped}
@@ -316,6 +368,9 @@ class FarmTelemetry:
                           for s, j, w in evs],
             "resumes": resumes,
             "retries": retries,
+            "quarantined": quarantined,
+            "breaker_trips": trips,
+            "breaker_events": breaker_events,
             "fallbacks": fallbacks,
             "faults": faults,
             "scope": scope,
@@ -338,10 +393,16 @@ class FarmTelemetry:
         policy = []
         if r["retries"]:
             policy.append(f"{len(r['retries'])} retries")
+        if r["quarantined"]:
+            policy.append(f"{len(r['quarantined'])} quarantined")
+        if r["breaker_trips"]:
+            policy.append(
+                f"{sum(r['breaker_trips'].values())} breaker trips")
         if r["fallbacks"]:
             policy.append(f"{len(r['fallbacks'])} snapshot fallbacks")
         if r["faults"]:
-            policy.append(f"{len(r['faults'])} faults absorbed")
+            n_inj = sum(f["event"] == "injected" for f in r["faults"])
+            policy.append(f"{n_inj} faults injected")
         if policy:
             lines.append("  policy: " + ", ".join(policy))
         sc = r["scope"]
@@ -360,8 +421,10 @@ class FarmTelemetry:
                 line += (f", drain p50 {w['p50']:.1f}ms "
                          f"p99 {w['p99']:.1f}ms max {w['max']:.1f}ms")
             host = []
-            for label, ch in (("dispatch", "dispatch_ms"),
-                              ("drain", "drain_ms")):
+            for label, ch in (("queue", "queue_wait_ms"),
+                              ("dispatch", "dispatch_ms"),
+                              ("drain", "drain_ms"),
+                              ("idle", "idle_ms")):
                 st = d[ch]
                 if st["n"]:
                     host.append(f"{label} {st['p50']:.1f}ms")

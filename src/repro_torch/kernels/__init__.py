@@ -1,9 +1,32 @@
 """Hand-written CUDA kernels of the port, each beside its plain version."""
 from __future__ import annotations
 
+import threading
+
 import torch
 
 _SMS: dict = {}                    # device index -> streaming multiprocessors
+_COUNT_LOCK = threading.Lock()
+_TALLIES = threading.local()       # .counts: kernel wrapper -> this thread's
+
+
+def count_launch(fn, n: int = 1) -> None:
+    """Add ``n`` launches to the kernel wrapper ``fn``: to its process
+    total ``fn.launches`` (under a lock: a bare ``+=`` is a
+    read-modify-write that two slot threads can interleave and lose a
+    launch) and to the calling thread's own tally, which a CUDA-graph
+    capture diffs to take back only the launches it recorded itself."""
+    with _COUNT_LOCK:
+        fn.launches += n
+    tally = getattr(_TALLIES, "counts", None)
+    if tally is None:
+        tally = _TALLIES.counts = {}
+    tally[fn] = tally.get(fn, 0) + n
+
+
+def thread_launches(fn) -> int:
+    """The launches ``fn`` counted on the calling thread."""
+    return getattr(_TALLIES, "counts", {}).get(fn, 0)
 
 
 def refuse_grad(name: str, *tensors) -> None:

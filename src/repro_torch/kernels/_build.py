@@ -5,7 +5,10 @@ plain C interface; the sources share PTX building blocks through the
 headers of ``csrc/`` (``sm90.cuh``). It is compiled with nvcc for Hopper
 (``sm_90a``) into a shared library under the checkout's
 ``build/kernels/`` at first use (one nvcc process per source; ``build``
-starts several together) and loaded with ``ctypes``. The library's file
+starts several together) and loaded with ``ctypes``. ``load`` is safe
+from several threads at first use (the async farm's slot threads): one
+builds and loads, the others wait for it; a temporary output is named
+by process and thread, so two builders never write one file. The library's file
 name carries a hash of its source, the shared headers and the flags, so
 an edited source or header is rebuilt and a stale library is never
 loaded. Nothing here runs at import: the CPU tests import every module on
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -28,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,7 +65,8 @@ def build(*names: str) -> Dict[str, str]:
         if out.exists():
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
              str(_CSRC / f"{name}.cu")],
@@ -83,7 +89,10 @@ def load(name: str) -> ctypes.CDLL:
     """The named kernel's library, built on first use in this process."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        with _LOAD_LOCK:
+            lib = _loaded.get(name)
+            if lib is None:
+                build(name)
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
     return lib

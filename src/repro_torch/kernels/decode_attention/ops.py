@@ -19,8 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
-                                  sm_count)
+from repro_torch.kernels import (_build, count_launch, refuse_grad,
+                                  refuse_vmap, sm_count)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
@@ -116,7 +116,7 @@ def decode_attention(q, k, v, *, pos, window: int, softcap: float = 0.0):
     B, K, W = q.shape[0], k.shape[2], k.shape[1]
     out = launch(q, k, v, pos, window, softcap,
                  *split_plan(B * K, W, sm_count(q.device)))
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (_build, fold_lane_axis,
+from repro_torch.kernels import (_build, count_launch, fold_lane_axis,
                                   is_lane_batched, refuse_grad)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -118,7 +118,7 @@ def _launch(q, k, v, causal: bool, window: int, softcap: float):
                            "could not be encoded")
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

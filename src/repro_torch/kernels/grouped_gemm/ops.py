@@ -23,8 +23,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
-                                  sm_count)
+from repro_torch.kernels import (_build, count_launch, refuse_grad,
+                                  refuse_vmap, sm_count)
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -147,7 +147,7 @@ def _launch(x, w, path):
     if rc != 0:
         raise RuntimeError(f"grouped_gemm launch failed ({path}): CUDA "
                            f"error {rc}")
-    grouped_gemm.launches += 1
+    count_launch(grouped_gemm)
     return out
 
 

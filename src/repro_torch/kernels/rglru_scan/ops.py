@@ -26,8 +26,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
-                                  sm_count)
+from repro_torch.kernels import (_build, count_launch, refuse_grad,
+                                  refuse_vmap, sm_count)
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 PATHS = ("tma", "registers")
@@ -144,7 +144,7 @@ def _launch(a, b, h0, path):
     if rc != 0:
         raise RuntimeError(f"rglru_scan launch failed ({path}): CUDA error "
                            f"{rc}")
-    rglru_scan.launches += 1
+    count_launch(rglru_scan)
     return h, h_last
 
 

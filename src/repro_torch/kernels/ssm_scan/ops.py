@@ -17,8 +17,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (_build, refuse_grad, refuse_vmap,
-                                  sm_count)
+from repro_torch.kernels import (_build, count_launch, refuse_grad,
+                                  refuse_vmap, sm_count)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16)
@@ -140,7 +140,7 @@ def _launch(dt, A, B_, C_, x, group):
         torch.cuda.current_stream(dt.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {rc}")
-    ssm_scan.launches += 1
+    count_launch(ssm_scan)
     return y, h_last
 
 

@@ -1,15 +1,17 @@
-"""The port's lockstep ZP-Farm (``repro_torch.farm``) on the CPU: every
-case of the reference's ``tests/test_farm.py`` and the lockstep cases of
-``tests/test_farm_resume.py`` that this slice covers, the refusals of what
+"""The port's ZP-Farm (``repro_torch.farm``) on the CPU: every case of
+the reference's ``tests/test_farm.py`` and the cases of
+``tests/test_farm_resume.py`` that need no ledger, the refusals of what
 waits for later slices, and ``verify_subsystems`` held against the JAX
 package.
 
 Every farm here runs on ``device="cpu"`` (virtual slots ``cpu:0#k``);
 without a card and without it the farm raises. Straggler cases run on an
 injected clock (an engine advances it by its own cost), never on the wall
-clock. Async mode, the failure policy, the ledger, ZP-Chaos and the
-roofline's ``WindowCapture`` wait for their slices (``ROADMAP.md``), so
-their cases of the reference's files are not mirrored here.
+clock. The resume cases run in both host loops (``mode``); the async
+mode's own cases are in ``test_torch_farm_async.py``, the failure
+policy's and ZP-Chaos's in ``test_torch_farm_chaos.py``. The ledger and
+the roofline's ``WindowCapture`` wait for their slices (``ROADMAP.md``),
+and refuse here by name.
 
 Against the reference (``verify_subsystems`` on the glm4-9b and
 recurrentgemma-2b smoke configs, weights redrawn from numpy by
@@ -32,9 +34,10 @@ from repro_torch.core import (Client, DrainBarrier,  # noqa: E402
                               WindowScheduler, iter_windows)
 from repro_torch.core.coemu import inject_fault, verify_subsystems  # noqa: E402
 from repro_torch.core.watchdog import Watchdog  # noqa: E402
-from repro_torch.farm import (DeviceSlot, FarmError, FarmJob,  # noqa: E402
-                              FarmManager, enumerate_slots, pick_slot,
-                              place, place_stack)
+from repro_torch.farm import (DeviceSlot, FailurePolicy,  # noqa: E402
+                              FarmError, FarmJob, FarmManager,
+                              enumerate_slots, pick_slot, place,
+                              place_stack)
 
 RTOL = 5e-2                 # verify_subsystems' default, the reference's
 # the port's checksums and relative errors against the reference's, f32
@@ -286,32 +289,36 @@ def test_empty_farm_reports_nothing():
 
 # ---------------------------------------------------- deferred options --
 @pytest.mark.parametrize("kw,match", [
-    ({"mode": "async"}, "next slice"),
-    ({"policy": object()}, "next slice"),
+    ({"ledger": object(), "mode": "async"}, "next slice"),
+    ({"ledger": object(), "policy": FailurePolicy()}, "next slice"),
     ({"ledger": object()}, "next slice"),
     ({"certify": True}, "ZP-Cert"),
 ])
 def test_deferred_farm_options_raise_naming_their_slice(kw, match):
+    """What waits for a later slice refuses by name in either host loop
+    and under a failure policy: the durable journal (the ledger slice)
+    and ZP-Cert."""
     with pytest.raises(NotImplementedError, match=match):
         _farm(slots=2, **kw)
 
 
 def test_deferred_job_options_raise_naming_their_slice():
+    """A job's roofline capture, recovery from a journal and the
+    process_kill injection refuse, naming their slices; an unknown mode
+    is a ValueError."""
+    from repro_torch.farm.chaos import ChaosInjector, Injection
+
     mgr = _farm(slots=2)
     job = dict(name="j", engine=_engine, windows=_windows(0),
                state=torch.tensor(0.0), shell={}, stack_fn=_stack)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        mgr.submit(FarmJob(**job, spec=object()))
     with pytest.raises(NotImplementedError, match="roofline"):
         mgr.submit(FarmJob(**job, capture=object()))
     with pytest.raises(NotImplementedError, match="next slice"):
-        mgr.submit_spec(object())
-    with pytest.raises(NotImplementedError, match="next slice"):
         FarmManager.recover(object())
-    with pytest.raises(NotImplementedError, match="ZP-Chaos"):
-        mgr.injector = object()
-    mgr.injector = None
-    assert mgr.injector is None
+    with pytest.raises(NotImplementedError, match="ledger slice"):
+        ChaosInjector().arm([Injection("process_kill", "ledger.commit",
+                                       "farm", "*", at=0)])
+    assert mgr.jobs == []
     with pytest.raises(ValueError, match="mode"):
         _farm(mode="threads")
 
@@ -388,7 +395,23 @@ def _evict_trigger(mgr, at_index, name="j"):
             fired["done"] = True
             mgr.force_evict(name)
 
+    verify.fired = fired
     return verify
+
+
+def _held(mgr, engine, trigger, name="j"):
+    """``engine``, which on the job's first attempt, once ``trigger`` has
+    marked the job, holds each dispatch until the async control plane has
+    signalled the eviction (``hold_until_evicted``): the eviction then
+    lands at the next drain boundary whatever the threads' timing."""
+    from test_torch_farm_async import hold_until_evicted
+
+    def held(state, shell, stack):
+        if mgr.mode == "async" and trigger.fired["done"] \
+                and mgr.jobs[0].attempts == 1:
+            hold_until_evicted(mgr, name)
+        return engine(state, shell, stack)
+    return held
 
 
 def _same(base, got):
@@ -414,16 +437,20 @@ def test_lockstep_resume_zero_replay_and_bit_identical():
     assert torch.equal(mgr.results["j"][0], base_state)
 
 
-def test_resumed_on_drain_never_redelivers_a_committed_window():
-    mgr = _farm(slots=3, evict_stragglers=False)
-    got = _submit_board(mgr, verify=_evict_trigger(mgr, 4))
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_resumed_on_drain_never_redelivers_a_committed_window(mode):
+    mgr = _farm(slots=3, evict_stragglers=False, mode=mode)
+    trigger = _evict_trigger(mgr, 4)
+    got = _submit_board(mgr, verify=trigger,
+                        engine=_held(mgr, _engine, trigger))
     rep = mgr.run()
     assert rep["jobs"]["j"]["requeues"] == 1
     assert all(c == 1 for c in Counter(i for i, _, _ in got).values())
     assert [i for i, _, _ in got] == list(range(8))
 
 
-def test_veto_then_evict_resumes_from_barrier_before_the_veto():
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_veto_then_evict_resumes_from_barrier_before_the_veto(mode):
     base, _ = _resume_baseline()
     commits: list = []
     failed = {"n": 0}
@@ -433,7 +460,7 @@ def test_veto_then_evict_resumes_from_barrier_before_the_veto():
             failed["n"] += 1
             raise AssertionError("synthetic commit divergence")
 
-    mgr = _farm(slots=3, evict_stragglers=False)
+    mgr = _farm(slots=3, evict_stragglers=False, mode=mode)
     got = _submit_board(mgr, verify=verify, commits=commits)
     rep = mgr.run()
     j = rep["jobs"]["j"]
@@ -469,11 +496,13 @@ def test_in_place_engine_full_replay_after_eviction():
     assert torch.equal(mgr.results["j"][0], base_state)
 
 
-def test_in_place_engine_snapshot_resume_bit_identical():
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_in_place_engine_snapshot_resume_bit_identical(mode):
     base, base_state = _resume_baseline()
-    mgr = _farm(slots=3, evict_stragglers=False)
-    got = _submit_board(mgr, engine=_in_place_engine,
-                        verify=_evict_trigger(mgr, 4))
+    mgr = _farm(slots=3, evict_stragglers=False, mode=mode)
+    trigger = _evict_trigger(mgr, 4)
+    got = _submit_board(mgr, engine=_held(mgr, _in_place_engine, trigger),
+                        verify=trigger)
     rep = mgr.run()
     j = rep["jobs"]["j"]
     assert j["status"] == "done" and j["requeues"] == 1
@@ -540,7 +569,8 @@ def test_corrupt_snapshot_falls_back_to_an_older_one():
     assert torch.equal(mgr.results["j"][0], base_state)
 
 
-def test_stateful_verifier_rewinds_on_no_snapshot_requeue():
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_stateful_verifier_rewinds_on_no_snapshot_requeue(mode):
     class PositionVerifier:
         def __init__(self):
             self.pos = 0
@@ -555,7 +585,7 @@ def test_stateful_verifier_rewinds_on_no_snapshot_requeue():
         def restore(self, snap):
             self.pos = int(snap["pos"])
 
-    mgr = _farm(slots=3, evict_stragglers=False)
+    mgr = _farm(slots=3, evict_stragglers=False, mode=mode)
     got = _submit_board(mgr, verify=PositionVerifier(), barrier_every=1000)
     mgr.force_evict("j")
     rep = mgr.run()

@@ -52,8 +52,8 @@ def _windows(seed, n_steps=7, group=2):
     return [items[i:i + group] for i in range(0, n_steps, group)]
 
 
-def _farm(**kw):
-    return FarmManager(device="cpu", mode="lockstep", evict_stragglers=False,
+def _farm(mode="lockstep", **kw):
+    return FarmManager(device="cpu", mode=mode, evict_stragglers=False,
                        **kw)
 
 
@@ -82,17 +82,18 @@ def _same(solo, outs):
 
 
 # ------------------------------------------------------ farm bit-identity --
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
 @pytest.mark.parametrize("n_steps,group", [(7, 2), (8, 2), (9, 4)])
-def test_farm_lanes_bit_identical_to_solo(n_steps, group):
+def test_farm_lanes_bit_identical_to_solo(mode, n_steps, group):
     """A lane-coalesced farm pass (tail windows included) delivers every
     board's outputs and final state bit-identical to the solo farm pass,
-    and actually coalesced (one dispatch stream)."""
+    and actually coalesced (one dispatch stream), in both host loops."""
     n = 4
-    solo_mgr = _farm(slots=2)
+    solo_mgr = _farm(mode, slots=2)
     solo = _submit_lane_jobs(solo_mgr, n, n_steps=n_steps, group=group,
                              lane_key=None)
     solo_mgr.run()
-    mgr = _farm(slots=2, lanes=n)
+    mgr = _farm(mode, slots=2, lanes=n)
     outs = _submit_lane_jobs(mgr, n, n_steps=n_steps, group=group)
     rep = mgr.run()
     assert rep["telemetry"]["lanes_per_dispatch_max"] == n
@@ -152,12 +153,13 @@ def test_lane_compatible_names_the_mismatch():
 
 
 # ------------------------------------------------------ lane-granular veto --
-def test_lane_veto_evicts_only_the_faulted_lane(n=4, bad=2):
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_lane_veto_evicts_only_the_faulted_lane(mode, n=4, bad=2):
     """A verify failure mid-stream names ONE lane: that member is detached
     and requeued solo (resuming from its per-lane snapshot, not window 0),
     the survivors keep running, and every board — the vetoed one too —
     still delivers exactly-once outputs bit-identical to its solo run."""
-    solo_mgr = _farm(slots=2)
+    solo_mgr = _farm(mode, slots=2)
     solo = _submit_lane_jobs(solo_mgr, n, lane_key=None)
     solo_mgr.run()
 
@@ -168,7 +170,7 @@ def test_lane_veto_evicts_only_the_faulted_lane(n=4, bad=2):
             marked["done"] = True
             raise RuntimeError("injected lane fault")
 
-    mgr = _farm(slots=2, lanes=n)
+    mgr = _farm(mode, slots=2, lanes=n)
     outs = _submit_lane_jobs(mgr, n, verify_for=bad, verify=chaos_verify)
     rep = mgr.run(strict=False)
     vetoes = rep["telemetry"]["lane_vetoes"]
@@ -228,12 +230,13 @@ def _shell_reset(shell):
     return {"acc": torch.zeros_like(shell["acc"])}
 
 
-def test_fused_custom_drain_fans_records_out_per_lane(n=3):
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_fused_custom_drain_fans_records_out_per_lane(mode, n=3):
     """Boards with a custom drain_fn/reset shell: the fused drain runs the
     base drain per lane against shell SLICES and each member's on_drain
     sees exactly the records its solo run produces."""
     def run(lanes):
-        mgr = _farm(slots=1, lanes=lanes)
+        mgr = _farm(mode, slots=1, lanes=lanes)
         recs = {}
         for i in range(n):
             name = f"b{i}"

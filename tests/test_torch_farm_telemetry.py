@@ -57,12 +57,17 @@ def test_report_channel_schema_includes_percentiles():
 
 # ------------------------------------------------------------ stall stack --
 def test_dominant_stall_attribution_per_slot():
+    """The slot's host-overhead channel sums (the async slot threads'
+    queue wait and idle gaps among them) fold into a StallStack whose
+    dominant term is surfaced."""
     tm = FarmTelemetry()
+    tm.queue_wait("slot0", 0.001)
     tm.dispatch("slot0", 0, cost_s=0.050)
     tm.drain("slot0", 0, wall_s=0.002)
+    tm.idle("slot0", 0.003)
     dev = tm.report()["devices"]["slot0"]
     assert dev["dominant_stall"] == "dispatch"
-    assert set(dev["stall_ms"]) == {"dispatch", "drain"}
+    assert set(dev["stall_ms"]) == {"queue", "dispatch", "drain", "idle"}
     assert dev["stall_ms"]["dispatch"] == pytest.approx(50.0)
     assert "stall: dispatch" in tm.summary()
 
@@ -183,9 +188,9 @@ def test_lane_coalescing_requires_equal_scope_spec():
                            mk(ScopeSpec(every_n_windows=2))) is None
 
 
-def _scoped_pass(scope, lanes=1):
+def _scoped_pass(scope, lanes=1, mode="lockstep"):
     mgr = FarmManager(device="cpu", slots=2, evict_stragglers=False,
-                      lanes=lanes)
+                      lanes=lanes, mode=mode)
     col = {}
     for i in range(2):
         name = f"job{i}"
@@ -198,13 +203,15 @@ def _scoped_pass(scope, lanes=1):
     return mgr, mgr.run(), col
 
 
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
 @pytest.mark.parametrize("lanes", [1, 2])
-def test_scope_on_is_bit_identical_to_scope_off(lanes):
+def test_scope_on_is_bit_identical_to_scope_off(lanes, mode):
     """Scope-on outputs and states bit-identical to scope-off, no scope
     keys leaking into the published shells, a non-empty fleet report
-    (per-lane counters under lanes)."""
-    off, _, col_off = _scoped_pass(None, lanes)
-    on, rep, col_on = _scoped_pass(ScopeSpec(every_n_windows=2), lanes)
+    (per-lane counters under lanes), in both host loops."""
+    off, _, col_off = _scoped_pass(None, lanes, mode)
+    on, rep, col_on = _scoped_pass(ScopeSpec(every_n_windows=2), lanes,
+                                   mode)
     for n in col_off:
         assert len(col_on[n]) == len(col_off[n]) == 4
         for a, b in zip(col_off[n], col_on[n]):
@@ -218,10 +225,11 @@ def test_scope_on_is_bit_identical_to_scope_off(lanes):
         assert row["lanes"] == lanes and len(row["tokens"]) == lanes
 
 
-def test_farm_scope_report_and_work_channel_feed():
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_farm_scope_report_and_work_channel_feed(mode):
     """Scoped jobs populate the fleet scope report (cumulative counters
     per job) AND the watchdog's device-side work-rate channel."""
-    mgr, rep, _ = _scoped_pass(ScopeSpec(every_n_windows=1))
+    mgr, rep, _ = _scoped_pass(ScopeSpec(every_n_windows=1), mode=mode)
     sc = rep["telemetry"]["scope"]
     assert set(sc["jobs"]) == {"job0", "job1"}
     for row in sc["jobs"].values():
@@ -232,18 +240,30 @@ def test_farm_scope_report_and_work_channel_feed():
     assert any(len(v) for v in mgr.wd.work_rates.values())
 
 
-def test_device_counters_evict_true_straggler_not_heavy_board():
+@pytest.mark.parametrize("mode", ["lockstep", "async"])
+def test_device_counters_evict_true_straggler_not_heavy_board(mode):
     """On the farm's injected clock: board "heavy" does 8x the device work
     a window (8x tokens) at 4x the dispatch cost, board "slow" the same
     work as the normal boards at 8x their cost. With every board scoped
     the watchdog judges seconds per token from the device counters: only
     "slow" is evicted, requeued, and still delivers outputs bit-identical
-    to an undisturbed run."""
-    clock = {"t": 0.0}
+    to an undisturbed run. Async: the clock is per thread (each slot's
+    measured window wall is its own board's cost), and on its first
+    attempt "slow" holds its sixth dispatch until the eviction is
+    signalled, so the verdict lands however fast the threads run."""
+    from test_torch_farm_async import ThreadClock, hold_until_evicted
+
+    clock = ThreadClock()
+    held = {"mgr": None, "calls": 0}     # the async farm, once it exists
 
     def costing(cost, engine=_engine):
         def eng(state, shell, stack):
-            clock["t"] += cost
+            clock.advance(cost)
+            m = held["mgr"]
+            if m is not None and cost == SLOW and m.jobs[3].attempts == 1:
+                held["calls"] += 1
+                if held["calls"] == 6:
+                    hold_until_evicted(m, "slow")
             return engine(state, shell, stack)
         return eng
 
@@ -251,8 +271,12 @@ def test_device_counters_evict_true_straggler_not_heavy_board():
         s, sh, ys = _engine(state, shell, stack)
         return s, sh, ys[:, None].repeat(1, 8)
 
-    engines = {"norm0": costing(0.01), "norm1": costing(0.01),
-               "heavy": costing(0.04, heavy_body), "slow": costing(0.08)}
+    # costs in the ratio 1 : 4 : 8 on binary fractions, so sums of them
+    # are exact: heavy's seconds per token is exactly half a normal
+    # board's, a tie that rounding must not tip over the factor of 2
+    SLOW = 8 / 64
+    engines = {"norm0": costing(1 / 64), "norm1": costing(1 / 64),
+               "heavy": costing(4 / 64, heavy_body), "slow": costing(SLOW)}
 
     def submit_all(mgr, scope):
         col = {}
@@ -269,7 +293,9 @@ def test_device_counters_evict_true_straggler_not_heavy_board():
     base = submit_all(oracle, None)
     oracle.run()
     mgr = FarmManager(device="cpu", slots=4, straggler_factor=2.0,
-                      straggler_min_s=0.01, clock=lambda: clock["t"])
+                      straggler_min_s=0.01, clock=clock, mode=mode)
+    if mode == "async":
+        held["mgr"] = mgr
     col = submit_all(mgr, ScopeSpec(every_n_windows=1))
     rep = mgr.run()
     ev = rep["telemetry"]["evictions"]

@@ -5,9 +5,12 @@ the serve slice and the commit-tapped forward with its Scale-Down replay
 on the card against the same on the host, the co-emulator's
 group-locked windows, the ZP-Scope plane inside the decode window graphs,
 remat inside the train window graphs, K1's vmap rule (and K2-K5's refusal
-under vmap), a lane-batched smoke farm against its solo run, and the bytes
-CUDA-graph private pools hold across serves. They skip where CUDA is
-absent.
+under vmap), a lane-batched smoke farm against its solo run, the bytes
+CUDA-graph private pools hold across serves, and the async farm's
+threads: two threads on two streams launching K1 and K2 (exact counts,
+bitwise), a window graph captured on a thread beside eager launches,
+first-use kernel builds from two threads, and the async smoke farm
+against lockstep. They skip where CUDA is absent.
 On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -28,6 +31,7 @@ the loss and checksums within 1e-5 (``repro_torch.testing``).
 """
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -1109,3 +1113,189 @@ def test_graph_private_pools_do_not_grow_across_serves(cuda):
         del out
         pools.append(private_pool_bytes())
     assert max(pools[1:]) <= pools[1], pools
+
+
+# ------------------------------------------- slot threads and their streams --
+def _run_threads(targets, timeout=600.0):
+    """Run each zero-arg callable on its own thread, all started
+    together; re-raise the first exception any of them raised."""
+    errors = []
+
+    def wrap(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+        return run
+
+    threads = [threading.Thread(target=wrap(fn), name=f"t{i}")
+               for i, fn in enumerate(targets)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+        assert not t.is_alive(), "a thread did not finish in time"
+    if errors:
+        raise errors[0]
+
+
+def _k1_k2_inputs():
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+
+    fa_in = (rnd(2, 256, 8, 64), rnd(2, 256, 2, 64), rnd(2, 256, 2, 64))
+    da_in = (rnd(4, 8, 64), rnd(4, 512, 2, 64), rnd(4, 512, 2, 64),
+             torch.tensor(300, dtype=torch.int32, device="cuda"))
+    return fa_in, da_in
+
+
+def test_two_threads_on_two_streams_count_k1_and_k2_exactly(cuda):
+    """Two threads, each on a stream of its own, launch K1 and K2 at once,
+    50 calls each: every launch counted (the count is taken under a lock),
+    and every result equal to the bit to the single-thread run's."""
+    from repro_torch.core.graphs import launch_counts
+
+    (q, k, v), (q2, k2, v2, p) = _k1_k2_inputs()
+
+    def call_k1():
+        return fa_ops.flash_attention(q, k, v, causal=True)
+
+    def call_k2():
+        return ops.decode_attention(q2, k2, v2, pos=p, window=512)
+
+    want = {"k1": call_k1(), "k2": call_k2()}
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream()
+    barrier = threading.Barrier(2)
+    outs = {}
+
+    def worker(key, call):
+        def run():
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                stream.wait_stream(main)
+                barrier.wait()
+                outs[key] = [call() for _ in range(50)]
+                stream.synchronize()
+        return run
+
+    before = launch_counts()
+    _run_threads([worker("k1", call_k1), worker("k2", call_k2)])
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {"k1": 50, "k2": 50, "k3": 0, "k4": 0, "k5": 0}
+    for key, got in outs.items():
+        assert all(torch.equal(x, want[key]) for x in got), key
+
+
+def test_window_graph_captured_on_a_thread_beside_eager_launches(cuda):
+    """A WindowGraphs whose eager warm-up window ran on the main thread
+    (as the farm's prewarm runs it) is captured, and replayed, on a fresh
+    slot thread's stream — whose first cuBLAS product is inside that
+    capture — while another thread launches K2 eagerly on its own: the
+    capture succeeds (thread-local capture mode, the thread's cuBLAS
+    handle made before it), its windows equal the eager engine's to the
+    bit, and the counts are exact — the capture takes back only its own
+    thread's launches, never the other thread's."""
+    from repro_torch.core.graphs import WindowGraphs, launch_counts
+    from repro_torch.farm import DeviceSlot, slot_stream
+
+    (q, k, v), (q2, k2, v2, p) = _k1_k2_inputs()
+    xs = torch.stack([q * (i + 1) for i in range(3)])
+    w = torch.randn(64, 64, device="cuda").bfloat16()
+
+    def engine(state, shell, xs):
+        ys = [fa_ops.flash_attention(xs[i], state["k"], state["v"],
+                                     causal=True).float().sum()
+              + (xs[i][0, 0] @ state["w"]).float().sum()
+              for i in range(xs.shape[0])]
+        return state, shell, torch.stack(ys)
+
+    state = {"k": k, "v": v, "w": w}
+    want = engine(state, {}, xs)[2]
+    graphs = WindowGraphs(engine, warmup="eager")
+    assert torch.equal(graphs(state, {}, xs)[2], want)    # eager, here
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream()
+    slot = DeviceSlot("cuda:0#thread-capture", torch.device("cuda"), 0)
+    done = threading.Event()
+    got, eager = {}, {"n": 0}
+
+    def capture():
+        try:
+            with torch.cuda.stream(slot_stream(slot)):
+                slot_stream(slot).wait_stream(main)
+                got["ys"] = [graphs(state, {}, xs)[2].clone()
+                             for _ in range(3)]
+                slot_stream(slot).synchronize()
+        finally:
+            done.set()
+
+    def launch():
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            stream.wait_stream(main)
+            while not done.is_set() or eager["n"] < 20:
+                ops.decode_attention(q2, k2, v2, pos=p, window=512)
+                eager["n"] += 1
+            stream.synchronize()
+
+    before = launch_counts()
+    _run_threads([capture, launch])
+    after = launch_counts()
+    assert graphs.windows == {"graph": 3, "eager": 1}
+    assert after["k1"] - before["k1"] == 3 * xs.shape[0]
+    assert after["k2"] - before["k2"] == eager["n"]
+    assert all(torch.equal(y, want) for y in got["ys"])
+
+
+def test_first_use_build_from_two_threads_builds_once(cuda, tmp_path,
+                                                      monkeypatch):
+    """Two threads load a kernel that is not built yet at the same moment:
+    one nvcc build runs, both get the same library, and no temporary file
+    is left behind."""
+    from repro_torch.kernels import _build
+
+    name = "rglru_scan"
+    monkeypatch.setattr(_build, "_BUILD", tmp_path)
+    monkeypatch.delitem(_build._loaded, name, raising=False)
+    calls = []
+    real_build = _build.build
+
+    def counting_build(*names):
+        calls.append(names)
+        return real_build(*names)
+
+    monkeypatch.setattr(_build, "build", counting_build)
+    barrier = threading.Barrier(2)
+    libs = []
+
+    def load():
+        barrier.wait()
+        libs.append(_build.load(name))
+
+    _run_threads([load, load], timeout=900.0)
+    assert calls == [(name,)]
+    assert len(libs) == 2 and libs[0] is libs[1]
+    assert [f.suffix for f in tmp_path.iterdir()] == [".so"]
+
+
+def test_async_smoke_farm_equals_lockstep_bitwise(cuda):
+    """The farm CLI's mixed workload (granite-8b smoke: a train board, a
+    graphed decode board, two verify boards) on the card, async (one
+    thread and one stream a slot) and lockstep, under deterministic
+    mode: the losses, tokens and verify reports equal to the bit."""
+    from repro_torch.launch.farm import run_farm
+
+    out = {}
+    with deterministic():
+        for mode in ("lockstep", "async"):
+            out[mode] = run_farm("granite-8b", 8, 4, mode=mode,
+                                 device="cuda")
+            assert out[mode]["ok"], (out[mode]["jobs"],
+                                     out[mode]["telemetry"]["retries"])
+    for key in ("train", "decode", "verify"):
+        assert out["async"][key] == out["lockstep"][key], key
