@@ -33,7 +33,7 @@ and after it each count must read what that path launches. Phases:
                window's dispatch runs under CUDA sync-debug mode "error",
                so a host sync inside a window fails the run. The two runs
                must agree to the bit: tokens, every drained FIFO row and
-               CSR, the final KV cache. Each decode is traced with
+               CSR, the final KV cache. The graph run's decode is traced with
                torch.profiler (device activity only) from window 3 to its
                end: device busy time, span and idle share, device
                operations per step, and the kernels that take the most
@@ -294,7 +294,7 @@ after phase 39):
                cuBLAS keeps one workspace there however many pools the
                process makes);
  41. scope-loop — phase 39's train_loop cell (granite-8b, 2 of 36 layers,
-               8 steps, windows of 2, checkpoints every 4) with the plane
+               8 steps, windows of 2, one checkpoint, at step 8) with the plane
                off and on (ScopeSpec()), fused and per step, under
                deterministic mode: losses and the final state equal to
                the bit, and each published checkpoint's manifest (every
@@ -356,8 +356,13 @@ freed): one dispatcher thread and one CUDA stream per slot.
                nothing else. Gates: each board's solo checksums equal
                phase 50's lockstep ones to the bit; lanes within the
                verifier's rtol of solo; faults at layers 0 and 39 named
-               (0, k) on layers 0, 1, 38, 39 in both; each pass leaves
-               the bytes it found. Board-steps/s of lockstep and async
+               (0, k) on layers 0, 1, 38, 39 in both; the solo pass and
+               nine more async solo passes right after it, in one
+               process, each delivering the first's checksums: from the
+               second on each leaves exactly the bytes it found (a
+               seat's thread and stream, and so its cuBLAS workspace,
+               live for the process), the bytes allocated after each
+               printed. Board-steps/s of lockstep and async
                solo passes in turns (lockstep, async, async, lockstep);
                queue-wait, idle and depth telemetry; peak memory; one
                lockstep and one async pass traced (torch.profiler, CUDA
@@ -432,6 +437,46 @@ patches of 1024 wide):
                forward shapes and K2 at their serve shapes, one input
                set a layer, timed as in phases 10 and 5, beside the
                bound, the plain version and F.scaled_dot_product_attention.
+
+ZP-Ledger, run last, once every model is freed and the parent holds
+under 1 GiB of reserved device memory (its reserved bytes and the card's
+free memory printed first):
+
+ 55. farm-ledger — (a) the CLI's --killrestart-smoke (run_killrestart_
+               smoke: toy boards paced at 5 ms a window, the victim
+               killed at the 8th journaled commit) async and lockstep
+               together, each in its own process with --device cuda (its
+               oracle in it, the victim and the recovery its children),
+               before (b): the victim died by SIGKILL at a journaled
+               commit, a board resumed mid-stream, fewer windows replayed
+               than committed, every window delivered once across both
+               lifetimes, the window files equal the oracle's byte for
+               byte (launch.farm.killrestart_problems); each board's
+               commits, delivered cursor and their lag at the kill
+               printed. (b) The same gates on glm4-9b at full width:
+               layers 0, 5, 10, 15, 20, 25, 30 and 39 as layer boards (a
+               JobSpec each, through a factory this script registers as
+               "chip_smoke.glm4_layer_board" that draws the weights as
+               phase 3 does and captures 8 steps of B=2, S=1024
+               activations from seed 0, whose first 4 are phase 50's),
+               windows of 2 (4 a board, 32 commits), 4 async slots,
+               snapshots on disk (4 kept a board) and the journal in a
+               temporary directory (its free space printed first), under
+               deterministic mode. Three lifetimes, each the CLI's
+               run_ledger_farm: the oracle here (K1 exactly 64, nothing
+               else; each board's first 4 steps, read back from its
+               window files, equal to phase 50's solo checksums to the
+               bit), a victim child SIGKILLed at its 12th journaled
+               commit, and, once the card has its memory back, a
+               recovery child (`chip_smoke.py --ledger-child ROLE DIR`,
+               each with a timeout; a failed one's stderr tail printed):
+               the CLI's gates (its window files, written by both
+               lifetimes, equal the oracle's to the bit), its K1 count
+               above 0 and under 64. Each lifetime's seconds, each
+               child's peak memory, the journal's records, bytes and
+               append (fsync) times, the bytes written, and the seconds
+               from the victim's death (its exit reaped here) to the
+               recovery's first commit.
 
 K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
 head_dim 256 numbers under "hd256", their head_dim 64 numbers under
@@ -518,6 +563,10 @@ COEMU_BF16_RTOL = 0.3
 # the train loop with the verifier: 2 of granite-8b's 36 layers (8.4 GB of
 # DUT state a checkpoint)
 LOOP_LAYERS, LOOP_STEPS, LOOP_INTERVAL, LOOP_EVERY = 2, 8, 2, 4
+# phase 41 publishes one checkpoint a run, at its last step: its gate
+# compares the manifests of the plane-off and plane-on runs, and each
+# 8.4 GB save takes 9-10 s (H100 80GB HBM3)
+SCOPE_LOOP_EVERY = LOOP_STEPS
 # the ZP-Scope plane's read rate in the scoped serve (phase 40)
 SCOPE_EVERY = 2
 # the last four archs (phases 43-49), each at full width and depth, in
@@ -560,6 +609,25 @@ FARM_RTOL = 1e-3
 # straggler floor of MIXED_MIN_S s
 MIXED_SLOTS, MIXED_TRAIN_LAYERS, MIXED_TRAIN_STEPS = 4, 2, 8
 MIXED_SOAK_WINDOWS, MIXED_SOAK_DELAY, MIXED_MIN_S = 30, 1.0, 0.5
+# consecutive async solo passes of phase 52's cell whose memory is gated
+# (from the second on, each leaves exactly the bytes it found)
+ASYNC_MEMORY_PASSES = 10
+# the ledger cell (phase 55): LEDGER_LAYERS of glm4-9b's 40 layers as
+# layer boards of LEDGER_STEPS steps (B=FARM_BATCH, S=FARM_SEQ, windows of
+# FARM_GROUP: 4 windows and 4 commits a board) on LEDGER_SLOTS async
+# slots; the victim dies at its LEDGER_KILL_AT-th journaled commit; each
+# child gets LEDGER_CHILD_TIMEOUT_S; the recovery starts once the card's
+# free memory is back within LEDGER_FREE_SLACK of what it was before the
+# victim, waiting at most LEDGER_FREE_TIMEOUT_S; the parent holds under
+# LEDGER_PARENT_RESERVED bytes when the phase starts
+LEDGER_LAYERS = (0, 5, 10, 15, 20, 25, 30, 39)
+LEDGER_STEPS, LEDGER_SLOTS, LEDGER_KILL_AT = 8, 4, 12
+LEDGER_CHILD_TIMEOUT_S = 400
+LEDGER_FREE_SLACK, LEDGER_FREE_TIMEOUT_S = 4 * 2**30, 60.0
+LEDGER_PARENT_RESERVED = 2**30
+# the disk the phase needs under tempfile.gettempdir(): the 4 snapshots a
+# board kept (8 boards x 4 x 0.41 GB) and some room
+LEDGER_DISK_BYTES = 16 * 10**9
 
 # the examples and their smoke budgets, run on the card last
 EXAMPLES = (("torch_quickstart.py", ["--steps", "4"]),
@@ -641,8 +709,9 @@ def log(**kw):
     print(json.dumps(kw, default=float), flush=True)
 
 
-def tracing_timer(first):
-    """A NoSyncInWindow timer that starts torch.profiler (device activity
+def tracing_timer(first, trace=True):
+    """A NoSyncInWindow timer that keeps the launch counts when window 0
+    starts and, with ``trace``, starts torch.profiler (device activity
     only) just before window ``first`` is enqueued. The caller stops it
     after the run, so no profiler stop or sync falls inside the decode."""
     import torch
@@ -650,10 +719,11 @@ def tracing_timer(first):
 
     from repro_torch.testing import NoSyncInWindow
 
-    # the first profile of a process spends seconds setting up CUPTI:
-    # spend them here, before the run the trace is taken from
-    with profile(activities=[ProfilerActivity.CUDA]):
-        torch.ones(1, device="cuda").add_(1)
+    if trace:
+        # the first profile of a process spends seconds setting up CUPTI:
+        # spend them here, before the run the trace is taken from
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
 
     class Tracing(NoSyncInWindow):
         prof = None
@@ -663,7 +733,7 @@ def tracing_timer(first):
         def phase(self, name):
             if name == "device" and self.windows == 0:
                 self.counts_at_decode = counts()
-            if name == "device" and self.windows == first:
+            if trace and name == "device" and self.windows == first:
                 self.prof = profile(activities=[ProfilerActivity.CUDA])
                 self.prof.start()
             with super().phase(name):
@@ -672,27 +742,39 @@ def tracing_timer(first):
     return Tracing()
 
 
+def device_events(prof):
+    """(name, start ns, end ns) of every device event (kernels, copies,
+    fills) of a stopped torch.profiler run, read from its kineto results
+    (names as the trace holds them). ``prof.events()`` builds a Python
+    FunctionEvent and a tree of them for every event, device and runtime
+    alike, at tens of microseconds of host time an event: a glm4-9b serve
+    trace holds 112,171 device operations and as many launches."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def device_trace(prof, steps):
     """Device activity of the traced windows: busy time (the union of
     their kernels' and copies' intervals, over all streams: on one stream
     the sum of their times) over their span (first start to last end on
     the card), operations, and the kernels that take the most device
     time."""
-    from torch.autograd import DeviceType
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    span_us = max(e.time_range.end for e in evs) \
-        - min(e.time_range.start for e in evs)
-    busy_us, end = 0.0, None
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in evs):
+    evs = device_events(prof)
+    span_us = (max(b for _, _, b in evs) - min(a for _, a, _ in evs)) / 1e3
+    busy_ns, end = 0, None
+    for a, b in sorted((a, b) for _, a, b in evs):
         if end is None or a > end:
-            busy_us, end = busy_us + b - a, b
+            busy_ns, end = busy_ns + b - a, b
         elif b > end:
-            busy_us, end = busy_us + b - end, b
+            busy_ns, end = busy_ns + b - end, b
+    busy_us = busy_ns / 1e3
     by_name: dict = {}
-    for e in evs:
-        row = by_name.setdefault(e.name, [0.0, 0])
-        row[0] += e.time_range.elapsed_us()
+    for name, a, b in evs:
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += (b - a) / 1e3
         row[1] += 1
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
     return {"steps": steps,
@@ -851,14 +933,16 @@ def scale_down_phase(cfg, params, model, batch, layers):
 
 
 def _serve_run(cfg, params, graph):
-    """serve() at the serve cell, traced from window TRACED on; all launch
-    counts set to 0 just before. Returns (serve record, timer, launch
-    counts, peak memory, trace)."""
+    """serve() at the serve cell, the graph engine traced from window
+    TRACED on (the eager one, the bitwise reference, untraced: its
+    profile cost ~25 s of profiler stops over the script's eight serve
+    phases on an H100); all launch counts set to 0 just before. Returns
+    (serve record, timer, launch counts, peak memory, trace or None)."""
     import torch
 
     from repro_torch.launch.serve import serve
 
-    timer = tracing_timer(TRACED)
+    timer = tracing_timer(TRACED, trace=graph)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out = serve(cfg, BATCH, PROMPT, GEN, seed=0, sample_interval=INTERVAL,
@@ -866,6 +950,8 @@ def _serve_run(cfg, params, graph):
                 return_cache=True)
     got = counts()
     peak = torch.cuda.max_memory_allocated()
+    if not graph:
+        return out, timer, got, peak, None
     t = time.perf_counter()
     timer.prof.stop()
     stop_s = time.perf_counter() - t
@@ -879,7 +965,7 @@ def serve_phase(cfg, params):
     the eager engine (``graph=False``), then with every decode window one
     CUDA-graph replay (the full window and the tail captured before the
     first window, after a one-step warm-up on clones), each window under
-    sync-debug mode "error" and each decode traced from window TRACED
+    sync-debug mode "error" and the graph run's decode traced from window TRACED
     on. All launch counts are set to 0 just before each run. When the
     first window starts, the prefill must have launched K3 or K4 once per
     mamba or RG-LRU layer and K5 three times per MoE layer, and nothing
@@ -888,8 +974,7 @@ def serve_phase(cfg, params):
     layer per decode step besides (``testing.serve_kernels``), counted as
     replays in the graph run. The two runs must agree to the bit (tokens,
     every drained FIFO row and CSR, the final cache). Returns the graph
-    run's record (the eager run's under "eager") and its trace (the
-    eager one under "eager")."""
+    run's record (the eager run's under "eager") and its trace."""
     from repro_torch.testing import assert_serve_equal, serve_kernels
     from repro_torch.utils import tree_map
 
@@ -935,7 +1020,6 @@ def serve_phase(cfg, params):
     rec, trace = runs["graph"][1], runs["graph"][2]
     rec["eager"] = runs["eager"][1]
     rec["bitwise_vs_eager"] = True
-    trace["eager"] = runs["eager"][2]
     return rec, trace
 
 
@@ -1900,7 +1984,6 @@ def _unfused_update_ops(spec, ys):
     """Device operations (kernels, copies, fills) one eager counter update
     of the plane launches on a window's ys, read from torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.scope import make_update, scope_init
@@ -1911,9 +1994,9 @@ def _unfused_update_ops(spec, ys):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         upd(sc, ys)
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    evs = device_events(prof)
     return {"device_ops": len(evs),
-            "device_us": sum(e.time_range.elapsed_us() for e in evs)}
+            "device_us": sum(b - a for _, a, b in evs) / 1e3}
 
 
 def scope_serve_phase(cfg, params):
@@ -1990,21 +2073,22 @@ def scope_serve_phase(cfg, params):
     return rec
 
 
-def _farm_inputs(cfg):
+def _farm_inputs(cfg, steps=FARM_STEPS):
     """Phase 50's activations and positions, drawn on the card from seed
-    0 (phase 51 draws the same)."""
+    0 (phase 51 draws the same; phase 55 draws ``steps`` of them, whose
+    first FARM_STEPS are these)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(0)
     xs = [torch.randn(FARM_BATCH, FARM_SEQ, cfg.d_model, generator=g,
                       device="cuda").to(torch.bfloat16)
-          for _ in range(FARM_STEPS)]
+          for _ in range(steps)]
     pos = torch.arange(FARM_SEQ, dtype=torch.int32, device="cuda")[
         None].expand(FARM_BATCH, FARM_SEQ).contiguous()
     return xs, pos
 
 
 def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None,
-              mode="lockstep", trace=None, switch_interval=None):
+              mode="lockstep", trace=None):
     """One verify_subsystems pass (``submit_subsystem_jobs`` + the farm's
     run + finalize, so the counts can be set to 0 just before the farm
     pass, after the in-situ capture) on a FarmManager in ``mode``: 8
@@ -2013,8 +2097,7 @@ def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None,
     Returns (reports, {layer name: (steps, 2) host checksums}, launch
     counts, seconds, telemetry report, memory: the bytes allocated before
     the capture, before the farm pass and after the farm and its results
-    are dropped, and the farm pass's peak). ``switch_interval`` sets the
-    interpreter's thread switch interval for the pass."""
+    are dropped, and the farm pass's peak)."""
     import torch
 
     from repro_torch.core.coemu import submit_subsystem_jobs
@@ -2038,13 +2121,10 @@ def _farm_run(cfg, params, xs, pos, layers, lanes, dut=None,
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.start()
         reset_counts()
-        interval = sys.getswitchinterval()
-        sys.setswitchinterval(switch_interval or interval)
         t = time.perf_counter()
         rep = mgr.run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        sys.setswitchinterval(interval)
         got = counts()
         mem["peak_in_run"] = torch.cuda.max_memory_allocated()
         if prof is not None:
@@ -2293,6 +2373,9 @@ def farm_async_phase(cfg, params, farm_rec):
         }
         print(f"farm-async {mode}: {L * FARM_STEPS / secs:.2f} "
               f"board-steps/s, K1 {got['k1']}, memory {mem}", flush=True)
+        if mode == "solo":
+            rec["memory_passes"] = _async_memory_passes(
+                cfg, params, xs, pos, layers, mem, secs, cks["solo"])
     # the async contract: lockstep's outputs byte for byte
     for n, want in farm_rec["solo_checksums"].items():
         assert cks["solo"][n].tolist() == want, n
@@ -2326,17 +2409,6 @@ def farm_async_phase(cfg, params, farm_rec):
         turns.append({"mode": mode, "seconds": secs,
                       "board_steps_per_s": L * FARM_STEPS / secs})
     rec["turns"] = turns
-    # the interpreter's thread switch interval (5 ms by default): a slot
-    # thread back from a call that let the GIL go (a launch through
-    # ctypes, an event sync) waits up to one interval while another
-    # thread holds it; async solo at a tenth of it, beside the default
-    switch = {}
-    for si in (sys.getswitchinterval() / 10, sys.getswitchinterval()):
-        _, _, _, secs, _, _ = _farm_run(cfg, params, xs, pos, layers,
-                                        lanes=False, mode="async",
-                                        switch_interval=si)
-        switch[f"{si:g}"] = L * FARM_STEPS / secs
-    rec["async_board_steps_per_s_by_switch_interval"] = switch
     traces = {}
     for mode in ("lockstep", "async"):
         traces[mode] = {}
@@ -2347,12 +2419,40 @@ def farm_async_phase(cfg, params, farm_rec):
         r["memory"]["peak_in_run"]
         for r in [rec["solo"], rec["lanes"], *faults.values()])
     rates = [round(t["board_steps_per_s"], 2) for t in turns]
-    print(f"farm-async turns: {rates} board-steps/s; by switch interval "
-          f"{switch}; idle share lockstep "
+    print(f"farm-async turns: {rates} board-steps/s; idle share lockstep "
           f"{traces['lockstep']['device_idle_share']:.3f} async "
           f"{traces['async']['device_idle_share']:.3f}", flush=True)
     torch.cuda.empty_cache()
     return rec
+
+
+def _async_memory_passes(cfg, params, xs, pos, layers, first, first_s,
+                         first_cks):
+    """Phase 52's solo pass (``first``: its memory, ``first_s``: its
+    seconds, ``first_cks``: its checksums) and ASYNC_MEMORY_PASSES - 1
+    more async solo passes right after it, in one process: the bytes
+    allocated after each and the bytes each leaves. From the second pass
+    on each must leave exactly the bytes it found (the seats' threads and
+    streams, and so their cuBLAS workspaces, are made once), and each
+    must deliver the first one's checksums. Returns the passes."""
+    import torch
+
+    passes = [{"allocated": first["after_run"],
+               "left": first["after_run"] - first["before_capture"],
+               "seconds": first_s}]
+    for _ in range(ASYNC_MEMORY_PASSES - 1):
+        _, cks, _, secs, _, mem = _farm_run(cfg, params, xs, pos, layers,
+                                            lanes=False, mode="async")
+        passes.append({"allocated": mem["after_run"],
+                       "left": mem["after_run"] - mem["before_capture"],
+                       "seconds": secs})
+        assert all(torch.equal(cks[n], first_cks[n]) for n in first_cks)
+    print("farm-async memory after each of "
+          f"{ASYNC_MEMORY_PASSES} passes: "
+          f"{[p['allocated'] for p in passes]}, left "
+          f"{[p['left'] for p in passes]}", flush=True)
+    assert all(p["left"] == 0 for p in passes[1:]), passes
+    return passes
 
 
 def _mixed_run(cfg, params, mode, *, train, soak):
@@ -2510,11 +2610,12 @@ def farm_cli_phase():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.farm", "--steps", "8"]
     t = time.perf_counter()
-    done = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    assert done.returncode == 0, done.stderr[-3000:]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    out, _ = _communicate("python -m repro_torch.launch.farm --steps 8",
+                          proc, 600)
     rec["cli"] = {"seconds": time.perf_counter() - t,
-                  "ok": json.loads(done.stdout)["ok"]}
+                  "ok": json.loads(out)["ok"]}
     proc = subprocess.Popen(cmd + ["--synthetic-straggler"], cwd=ROOT,
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -2525,15 +2626,18 @@ def farm_cli_phase():
             seen.append(line)
             if not line or line.startswith("farm: running"):
                 break
-        assert line, "".join(seen)[-3000:]
+        if not line:
+            proc.wait(timeout=60)
+            _subprocess_failed("the farm CLI before its SIGINT", proc, "",
+                               "".join(seen))
         time.sleep(0.5)
         proc.send_signal(signal.SIGINT)
-        out, err = proc.communicate(timeout=300)
+        out, err = _communicate("the farm CLI after SIGINT", proc, 300,
+                                want=130)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    assert proc.returncode == 130, (proc.returncode, err[-3000:])
     partial = json.loads(out)
     assert partial["interrupted"] and partial["jobs"], partial
     rec["sigint"] = {"returncode": proc.returncode,
@@ -2542,9 +2646,407 @@ def farm_cli_phase():
     return rec
 
 
+def _subprocess_failed(what, proc, out, err):
+    """Print a failed subprocess's stdout and stderr tails, then raise
+    naming it."""
+    sys.stderr.write(f"{what} exited {proc.returncode}\n--- stdout tail\n"
+                     f"{(out or '')[-4000:]}\n--- stderr tail\n"
+                     f"{(err or '')[-8000:]}\n")
+    sys.stderr.flush()
+    raise AssertionError(f"{what} exited {proc.returncode}")
+
+
+def _communicate(what, proc, timeout, want=0):
+    """Wait for ``proc`` (killed and reaped at ``timeout``); on a return
+    code other than ``want``, print its tails and raise. Returns
+    (stdout, stderr)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        _subprocess_failed(f"{what} (killed at its {timeout} s timeout)",
+                           proc, out, err)
+    if proc.returncode != want:
+        _subprocess_failed(what, proc, out, err)
+    return out, err
+
+
+def _go(what, proc, timeout):
+    """Tell a waiting child of phase 55 to start (one line on its
+    stdin); a child that already exited is a failure, with its tails."""
+    try:
+        if proc.poll() is not None:
+            raise BrokenPipeError
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+    except BrokenPipeError:
+        out, err = proc.communicate(timeout=timeout)
+        _subprocess_failed(f"{what} (before its go)", proc, out, err)
+
+
+def _json_lines(text):
+    """The JSON objects among ``text``'s lines, in order."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+# ------------------------------------------------- 55. the farm's ledger --
+LEDGER_FACTORY = "chip_smoke.glm4_layer_board"
+_LEDGER_BOARDS: dict = {}       # layer -> subsystem_boards' board tuple
+
+
+def _ledger_boards():
+    """Phase 55's layer boards in this process, made at the first call
+    and kept: glm4-9b's weights drawn on the card from seed 0 as phase 3
+    draws them, LEDGER_STEPS activation batches, one in-situ capture
+    (``subsystem_boards``) and one board a layer of LEDGER_LAYERS. Every
+    process that calls it makes the same boards."""
+    if not _LEDGER_BOARDS:
+        import torch
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.coemu import subsystem_boards
+        from repro_torch.models import Runtime, build_model
+
+        cfg = get_config(ARCH)
+        with torch.inference_mode():
+            params = build_model(cfg).init(0, device="cuda")
+            xs, pos = _farm_inputs(cfg, LEDGER_STEPS)
+            boards = subsystem_boards(params, cfg, Runtime(), xs, pos,
+                                      LEDGER_LAYERS)
+        _LEDGER_BOARDS.update(zip(LEDGER_LAYERS, boards))
+    return _LEDGER_BOARDS
+
+
+def _no_barrier(state, boundary):
+    pass
+
+
+def _ledger_board(layer, out_dir):
+    """The registered factory of phase 55: glm4-9b's layer ``layer`` as a
+    board of LEDGER_STEPS steps in windows of FARM_GROUP, a commit at
+    every window, each window's checksums delivered to a per-window file
+    under ``out_dir`` (the CLI's idempotent ``_write_window_file``)."""
+    from repro_torch.core import DrainBarrier, iter_windows
+    from repro_torch.core.coemu import _stack_on_device
+    from repro_torch.launch.farm import _write_window_file
+
+    engine, state, x_ins, _, _ = _ledger_boards()[int(layer)]
+
+    def sink(plan, records, ys):
+        # no fsync: the gate kills a process, whose files the page cache
+        # keeps; with the 0.41 GB snapshots in write-back an fsync here
+        # stalled the control thread's delivery
+        _write_window_file(out_dir, f"layer{layer}", plan.index, ys,
+                           fsync=False)
+
+    return dict(engine=engine, state=state, shell={},
+                windows=list(iter_windows(x_ins, FARM_GROUP)),
+                stack_fn=_stack_on_device, on_drain=sink,
+                barriers=(DrainBarrier(every=FARM_GROUP,
+                                       action=_no_barrier),))
+
+
+def _register_ledger_board():
+    from repro_torch.farm import register
+    register(LEDGER_FACTORY, _ledger_board)
+
+
+def _ledger_specs(ledger_dir):
+    """One JobSpec a layer board: journal, snapshots (on disk, 4 kept)
+    and window files all under ``ledger_dir``."""
+    from repro_torch.farm import JobSpec
+    return [JobSpec(name=f"layer{li}", factory=LEDGER_FACTORY,
+                    kwargs={"layer": li,
+                            "out_dir": os.path.join(ledger_dir, "outputs")},
+                    snapshot_dir=os.path.join(ledger_dir, "snaps",
+                                              f"layer{li}"),
+                    snapshot_keep=4, max_requeues=4)
+            for li in LEDGER_LAYERS]
+
+
+def _timed_ledger(path):
+    """A FarmLedger whose appends (each flushed and fsynced) are timed."""
+    from repro_torch.farm import FarmLedger
+
+    class TimedLedger(FarmLedger):
+        def __init__(self, directory):
+            super().__init__(directory)
+            self.append_s = []
+
+        def append(self, kind, **fields):
+            t = time.perf_counter()
+            rec = super().append(kind, **fields)
+            self.append_s.append(time.perf_counter() - t)
+            return rec
+
+    return TimedLedger(path)
+
+
+def _append_stats(led):
+    """The journal's fsync'd appends of a lifetime: their count, total,
+    median and largest seconds."""
+    s = sorted(led.append_s)
+    return {"appends": len(s), "append_s_total": sum(s),
+            "append_s_p50": s[len(s) // 2] if s else None,
+            "append_s_max": s[-1] if s else None}
+
+
+def _ledger_lifetime(ledger_dir, kill_at=None, recover=False, echo=False):
+    """One process lifetime of phase 55's campaign: the farm CLI's
+    ``run_ledger_farm`` on LEDGER_SLOTS async slots of the card over the
+    layer boards' JobSpecs (or recovered from the journal), under
+    deterministic mode and inference mode, its journal's appends timed;
+    a victim armed with ``kill_at`` never returns. With ``echo`` it
+    prints one JSON line at each journaled commit (with the peak memory
+    so far) before the kill armed there can fire. Returns the CLI's
+    report with the lifetime's seconds, peak memory and append times."""
+    import torch
+
+    from repro_torch.launch.farm import run_ledger_farm
+    from repro_torch.testing import deterministic
+
+    def echo_commit(job, n):
+        print(json.dumps({"event": "commit", "commit": n, "job": job,
+                          "unix": time.time(),
+                          "peak_bytes": torch.cuda.max_memory_allocated()}),
+              flush=True)
+
+    t0 = time.perf_counter()
+    _register_ledger_board()
+    led = _timed_ledger(ledger_dir)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), deterministic():
+        rec = run_ledger_farm(
+            ledger_dir, mode="async", recover=recover, kill_after=kill_at,
+            slots=LEDGER_SLOTS, device="cuda",
+            specs=None if recover else _ledger_specs(ledger_dir),
+            ledger=led, on_commit=echo_commit if echo else None)
+        torch.cuda.synchronize()
+    rec.update(seconds=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    rec["journal"].update(_append_stats(led))
+    return rec
+
+
+def ledger_child(role, ledger_dir):
+    """A child process of phase 55 (``python3 chip_smoke.py
+    --ledger-child victim|recover DIR``): waits for one line on stdin
+    (the parent's go: the card is free for it), then runs one lifetime —
+    the victim SIGKILLs itself at its LEDGER_KILL_AT-th journaled commit,
+    the recovery prints its record as the last line."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.stdin.readline()
+    rec = _ledger_lifetime(
+        ledger_dir, kill_at=LEDGER_KILL_AT if role == "victim" else None,
+        recover=role == "recover", echo=True)
+    print(json.dumps(rec, default=float), flush=True)
+    return 0
+
+
+def _free_bytes():
+    import torch
+    return torch.cuda.mem_get_info()[0]
+
+
+def _board_rows(out_dir, board):
+    """A board's delivered output rows in window order, read back from
+    its per-window files."""
+    from repro_torch.launch.farm import _read_window_files
+    files = _read_window_files(out_dir)
+    rows = []
+    for name in sorted(f for f in files if f.startswith(f"{board}_w")):
+        rows += json.loads(files[name])["y"]
+    return rows
+
+
+def farm_ledger_phase(solo_checksums):
+    """Phase 55: ZP-Ledger's kill-restart gate on the card (see the
+    module docstring); ``solo_checksums`` are phase 50's. Returns the
+    record."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.farm import FarmLedger
+    from repro_torch.launch.farm import killrestart_problems, victim_journal
+    from repro_torch.utils import tree_leaves
+
+    rec: dict = {"layers": list(LEDGER_LAYERS), "steps": LEDGER_STEPS,
+                 "group": FARM_GROUP, "slots": LEDGER_SLOTS,
+                 "kill_at_commit": LEDGER_KILL_AT}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = tempfile.gettempdir()
+    disk = shutil.disk_usage(tmp)
+    rec["tmp"] = {"dir": tmp, "free_bytes": disk.free}
+    print(f"farm-ledger: {tmp} has {disk.free} bytes free", flush=True)
+    # a lifetime keeps up to 4 snapshots of 0.41 GB a board on disk
+    assert disk.free > LEDGER_DISK_BYTES, \
+        f"phase 55 needs {LEDGER_DISK_BYTES} bytes free under {tmp}"
+    base = tempfile.mkdtemp(prefix="zp-ledger-glm4-")
+    children = []
+    try:
+        # (b)'s victim process starts now: it imports while (a) and the
+        # oracle run, and waits for its go
+        victim_dir = os.path.join(base, "victim")
+        victim = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ledger-child",
+             "victim", victim_dir], cwd=ROOT, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        children.append(victim)
+        # (a) the CLI's kill-restart gate on toy boards, both modes
+        # together, each in its own process (the oracle in it, the victim
+        # and the recovery its children), before (b): the toy board
+        # paces a window at 5 ms, and (b)'s 13 GB of snapshot writes
+        # slow the fsyncs its delivery waits for
+        toys = {mode: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.farm",
+             "--killrestart-smoke", f"--{mode}", "--device", "cuda"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for mode in ("async", "lockstep")}
+        children += toys.values()
+        toy = {}
+        for mode, proc in toys.items():
+            out, err = _communicate(f"--killrestart-smoke --{mode}", proc,
+                                    LEDGER_CHILD_TIMEOUT_S)
+            res = json.loads(out)
+            assert res["ok"], (mode, res["problems"])
+            toy[mode] = {k: res[k] for k in (
+                "seconds", "kill_after", "victim_returncode",
+                "pre_commits", "pre_delivered", "delivery_lag")}
+            toy[mode].update({k: res["recovered"][k] for k in (
+                "recoveries", "windows_replayed", "windows_committed")})
+        rec["toy"] = toy
+        print(f"farm-ledger toys: {json.dumps(toy)}", flush=True)
+
+        # (b) glm4-9b's layer boards: the oracle in this process
+        oracle_dir = os.path.join(base, "oracle")
+        oracle = _ledger_lifetime(oracle_dir)
+        assert oracle["ok"], oracle["jobs"]
+        expect_counts(oracle["launches"],
+                      {"k1": len(LEDGER_LAYERS) * LEDGER_STEPS},
+                      "ledger oracle")
+        for li in LEDGER_LAYERS:
+            got = _board_rows(os.path.join(oracle_dir, "outputs"),
+                              f"layer{li}")
+            assert len(got) == LEDGER_STEPS, (li, len(got))
+            assert got[:FARM_STEPS] == solo_checksums[f"layer{li}"], li
+        # one snapshot: a board's state (its layer's weights)
+        snap_bytes = sum(x.numel() * x.element_size() for x in
+                         tree_leaves(_LEDGER_BOARDS[LEDGER_LAYERS[0]][1]))
+        rec["snapshot_bytes"] = snap_bytes
+        oracle["bytes_written"] = (oracle["commits"] * snap_bytes
+                                   + oracle["journal"]["bytes"])
+        rec["oracle"] = oracle
+        # the oracle's window files stay for the comparison, its
+        # snapshots go (the victim's and the recovery's take their room)
+        shutil.rmtree(os.path.join(oracle_dir, "snaps"))
+        _LEDGER_BOARDS.clear()
+        free_device_memory()
+        free0 = _free_bytes()
+        rec["free_before_victim"] = free0
+        print(f"farm-ledger oracle: {oracle['seconds']:.1f} s, K1 "
+              f"{oracle['launches']['k1']}, journal {oracle['journal']}, "
+              f"{oracle['bytes_written']} bytes written, peak "
+              f"{oracle['peak_bytes']}", flush=True)
+
+        t = time.perf_counter()
+        _go("the ledger victim", victim, LEDGER_CHILD_TIMEOUT_S)
+        out, err = _communicate("the ledger victim", victim,
+                                LEDGER_CHILD_TIMEOUT_S,
+                                want=-signal.SIGKILL)
+        t_dead = time.time()
+        # the lines echoed at its commits (the one the kill fired at may
+        # be missing or not the last: slot threads echo concurrently)
+        lines = [x for x in _json_lines(out) if x.get("event") == "commit"]
+        assert lines, out[-2000:]
+        v = {"returncode": victim.returncode,
+             "seconds": time.perf_counter() - t,
+             "dead_unix": t_dead,
+             "peak_bytes": max(x["peak_bytes"] for x in lines),
+             **victim_journal(victim_dir)}
+        # the kill fires right after the LEDGER_KILL_AT-th commit record
+        # is on disk (another slot thread may append one more first)
+        v["commits"] = sum(v["pre_commits"].values())
+        assert v["commits"] >= LEDGER_KILL_AT, v["pre_commits"]
+        v["journal_bytes"] = os.path.getsize(
+            os.path.join(victim_dir, FarmLedger.FILENAME))
+        v["bytes_written"] = v["commits"] * snap_bytes + v["journal_bytes"]
+        rec["victim"] = v
+        # the card gives the dead victim's memory back before the
+        # recovery starts
+        t = time.perf_counter()
+        while _free_bytes() < free0 - LEDGER_FREE_SLACK:
+            assert time.perf_counter() - t < LEDGER_FREE_TIMEOUT_S, \
+                ("the victim's memory was not returned", _free_bytes(),
+                 free0)
+            time.sleep(0.1)
+        v["memory_returned_s"] = time.perf_counter() - t
+        print(f"farm-ledger victim: exit {v['returncode']} at commit "
+              f"{v['commits']}, commits {v['pre_commits']}, delivered "
+              f"{v['pre_delivered']}, {v['seconds']:.1f} s, peak "
+              f"{v['peak_bytes']}, memory back in "
+              f"{v['memory_returned_s']:.2f} s", flush=True)
+
+        t = time.perf_counter()
+        rec_proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ledger-child",
+             "recover", victim_dir], cwd=ROOT, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        children.append(rec_proc)
+        _go("the ledger recovery", rec_proc, LEDGER_CHILD_TIMEOUT_S)
+        out, err = _communicate("the ledger recovery", rec_proc,
+                                LEDGER_CHILD_TIMEOUT_S)
+        r = _json_lines(out)[-1]
+        r["wall_s"] = time.perf_counter() - t
+        # from the victim's death as the parent saw it (its exit reaped)
+        r["kill_to_first_commit_s"] = r["first_commit_unix"] - t_dead
+        r["bytes_written"] = (r["commits"] * snap_bytes
+                              + r["journal"]["bytes"] - v["journal_bytes"])
+        rec["recover"] = r
+        print(f"farm-ledger recovery: {r['wall_s']:.1f} s, resumed "
+              f"{[(x['job'], x['window']) for x in r['recoveries']]}, "
+              f"replayed {r['windows_replayed']} of "
+              f"{r['windows_committed']} committed, K1 "
+              f"{r['launches']['k1']}, peak {r['peak_bytes']}, SIGKILL to "
+              f"first commit {r['kill_to_first_commit_s']:.2f} s",
+              flush=True)
+        # the gates: the CLI's, then the K1 counts
+        problems = killrestart_problems(
+            oracle_dir, victim_dir, [f"layer{li}" for li in LEDGER_LAYERS],
+            -(-LEDGER_STEPS // FARM_GROUP), victim.returncode, v, r)
+        assert not problems, problems
+        expect_counts(r["launches"], {"k1": r["launches"]["k1"]},
+                      "ledger recovery")
+        assert 0 < r["launches"]["k1"] < len(LEDGER_LAYERS) * LEDGER_STEPS
+        rec["exactly_once"] = True
+        rec["files_equal_oracle"] = len(LEDGER_LAYERS) \
+            * -(-LEDGER_STEPS // FARM_GROUP)
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(base, ignore_errors=True)
+    return rec
+
+
 def scope_loop_phase():
     """train_loop at phase 39's cell with the ZP-Scope plane (phase 41):
-    both engines, plane off and on, checkpoints every LOOP_EVERY into a
+    both engines, plane off and on, a checkpoint at the last step into a
     temporary directory the phase deletes; then the verifier's digest
     first pass on the fused run's drains. Returns the record."""
     import shutil
@@ -2570,7 +3072,7 @@ def scope_loop_phase():
     n_windows = LOOP_STEPS // LOOP_INTERVAL
     rec: dict = {"arch": cfg.name, "layers": LOOP_LAYERS,
                  "steps": LOOP_STEPS, "sample_interval": LOOP_INTERVAL,
-                 "checkpoint_every": LOOP_EVERY, "windows": n_windows}
+                 "checkpoint_every": SCOPE_LOOP_EVERY, "windows": n_windows}
     drains: list = []               # the fused plane-on run's drains
     try:
         with deterministic():
@@ -2581,7 +3083,7 @@ def scope_loop_phase():
                     lc = LoopConfig(
                         steps=LOOP_STEPS, batch=COEMU_BATCH, seq=COEMU_SEQ,
                         sample_interval=LOOP_INTERVAL,
-                        checkpoint_every=LOOP_EVERY, fused=fused,
+                        checkpoint_every=SCOPE_LOOP_EVERY, fused=fused,
                         checkpoint_dir=str(tmp / plane),
                         scope=ScopeSpec() if plane == "on" else None)
                     keep = (lambda last, r: drains.append((last, r))) \
@@ -2603,7 +3105,7 @@ def scope_loop_phase():
                 # shape, dtype and crc32 of its stored bytes
                 for plane in ("off", "on"):
                     assert CheckpointManager(str(tmp / plane)).steps() \
-                        == [LOOP_EVERY, LOOP_STEPS], (engine, plane)
+                        == [SCOPE_LOOP_EVERY], (engine, plane)
                 for step_dir in sorted((tmp / "off").glob("step_*")):
                     manifest = (step_dir / "manifest.json").read_text()
                     assert manifest == (tmp / "on" / step_dir.name /
@@ -2623,7 +3125,7 @@ def scope_loop_phase():
                     "scope": {k: rep[k] for k in (
                         "windows", "steps", "tokens", "samples", "gates",
                         "digest")},
-                    "checkpoint_manifests_equal": [LOOP_EVERY, LOOP_STEPS],
+                    "checkpoint_manifests_equal": [SCOPE_LOOP_EVERY],
                     "final_state_bitwise": True}
                 if fused:
                     got = [h["win_digests"][0] for h in rep["history"]]
@@ -2778,10 +3280,7 @@ def examples_phase():
     rec = {}
     try:
         for name, proc in procs.items():
-            out, err = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                sys.stderr.write(out[-4000:] + err[-8000:])
-                raise AssertionError(f"{name} exited {proc.returncode}")
+            out, _ = _communicate(name, proc, 600)
             lines = out.strip().splitlines()
             rec[name] = {"seconds_to_exit": time.perf_counter() - t0,
                          "last_line": lines[-1] if lines else ""}
@@ -3096,6 +3595,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ledger-child"]:     # a child of phase 55
+        return ledger_child(*sys.argv[2:4])
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -3634,6 +4135,23 @@ def main() -> int:
     record.update(new["record"])
     for kern, part in ((k1, new["k1"]), (k2, new["k2"])):
         kern.update(part)
+
+    # --------------------------------------------------- 55. farm-ledger --
+    # every model is freed: the phase's children need the card. cuBLAS
+    # keeps a 32 MiB workspace for each (handle, stream) pair it has met
+    # (13 after phase 54's chaos runs retired seats); no graph replays
+    # after this, and the next product makes its own again
+    torch._C._cuda_clearCublasWorkspaces()
+    before = free_device_memory()
+    before["free"], before["total"] = torch.cuda.mem_get_info()
+    log(phase="memory_before_ledger", **before)
+    assert before["reserved"] < LEDGER_PARENT_RESERVED, before
+    farm_ledger = farm_ledger_phase(farm["solo_checksums"])
+    log(phase="farm_ledger", **farm_ledger)
+    record["farm_ledger"] = farm_ledger
+    k1["launches_ledger"] = {
+        "oracle": farm_ledger["oracle"]["launches"]["k1"],
+        "recovery": farm_ledger["recover"]["launches"]["k1"]}
 
     kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels

@@ -97,7 +97,7 @@ def _tree_digest(leaves) -> int:
     for x in leaves:
         raw = _encode(x.detach().cpu())[0] if torch.is_tensor(x) \
             else np.asarray(x)
-        crc = zlib.crc32(raw.tobytes(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(raw), crc)
     return crc
 
 
@@ -218,7 +218,9 @@ class CheckpointManager:
                 manifest["leaves"].append({
                     "path": p, "file": fp.name,
                     "shape": list(t.shape), "dtype": dtype_name,
-                    "crc32": zlib.crc32(raw.tobytes()),
+                    # crc32 reads the array's own buffer: no copy, and
+                    # zlib lets the other threads run meanwhile
+                    "crc32": zlib.crc32(np.ascontiguousarray(raw)),
                     # one device, no sharding (the sharding slice)
                     "sharding": "None",
                 })
@@ -268,7 +270,7 @@ class CheckpointManager:
                 manifest = json.load(f)
             for meta in manifest["leaves"]:
                 raw = np.load(d / meta["file"])
-                if zlib.crc32(raw.tobytes()) != meta["crc32"]:
+                if zlib.crc32(np.ascontiguousarray(raw)) != meta["crc32"]:
                     return False
         except Exception:       # noqa: BLE001 — unreadable IS unverifiable
             return False
@@ -284,7 +286,7 @@ class CheckpointManager:
             for p in _leaf_paths(like):
                 meta = by_path[p]
                 raw = np.load(d / meta["file"])
-                if zlib.crc32(raw.tobytes()) != meta["crc32"]:
+                if zlib.crc32(np.ascontiguousarray(raw)) != meta["crc32"]:
                     raise SnapshotIntegrityError(
                         f"checksum mismatch for {p} in step {step}",
                         step=step)

@@ -4,12 +4,13 @@ straggler eviction + checkpointed requeue + lane batching over one
 ``WindowScheduler.run_many`` pass (lockstep) or one dispatcher thread and
 one CUDA stream per slot (async), plus the ZP-Chaos hardening layer —
 :class:`FailurePolicy` (retry budgets, quarantine, slot circuit breakers)
-and the deterministic fault-injection harness (``farm/chaos.py``) — and
-the serializable job registry (``farm/registry.py``).
-
-The durable journal (``ledger=``, ``FarmManager.recover``) is the next
-slice of the port (``FarmManager`` raises NotImplementedError for it)."""
+and the deterministic fault-injection harness (``farm/chaos.py``) — the
+serializable job registry (``farm/registry.py``) and ZP-Ledger, the
+farm's durable journal (``farm/ledger.py``, ``FarmManager(ledger=)``,
+``FarmManager.recover``)."""
 from repro_torch.core.schedule import LaneBatch  # noqa: F401
+from repro_torch.farm.ledger import (  # noqa: F401
+    FarmLedger, JobReplay, LedgerState, choose_resume)
 from repro_torch.farm.manager import (  # noqa: F401
     FailurePolicy, FarmError, FarmJob, FarmManager, JobSnapshot,
     lane_compatible)

@@ -21,8 +21,9 @@ Injection points (fired via ``FarmManager._inject`` /
   ``results.post``    before a drain posts to the results queue (async)
   ``slot.canary``     a circuit-breaker probe running
   ``ledger.<kind>``   right AFTER a ZP-Ledger journal record lands
-                      (``ledger.commit``, ``ledger.deliver``, ...) — with
-                      the ledger slice
+                      (``ledger.commit``, ``ledger.deliver``, ...) — the
+                      window where the journal is ahead of everything
+                      the manager would have done next
 
 Fault kinds and the recovery each must produce:
 
@@ -40,10 +41,7 @@ Fault kinds and the recovery each must produce:
   ``process_kill``      SIGKILL the whole farm process (ZP-Ledger only —
                         armed by the kill-restart harness, never by the
                         seeded menus)             -> FarmManager.recover
-                        in a fresh process resumes from the journal. The
-                        port's injector refuses to arm it until the
-                        ledger slice (``ROADMAP.md`` Queue 1) ports the
-                        journal that recovery reads.
+                        in a fresh process resumes from the journal
 
 Determinism: occurrences are counted PER JOB (and per slot) at each
 point. A job's own sequence of dispatch/drain/verify/store events is
@@ -61,7 +59,9 @@ when the requeue restores, before retention ages it out.
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
+import signal
 import threading
 import time
 from collections import defaultdict
@@ -85,8 +85,7 @@ RAISE_KINDS = frozenset({"dispatch_exc", "slot_crash", "thread_death",
 SLEEP_KINDS = frozenset({"hung_drain", "results_stall"})
 CORRUPT_KINDS = frozenset({"snapshot_corrupt", "snapshot_truncate"})
 #: whole-process death: os.kill(SIGKILL) — no handler, no cleanup, no
-#: atexit; the only recovery is FarmManager.recover in a NEW process,
-#: which waits for the ledger slice: ``ChaosInjector.arm`` refuses it
+#: atexit; the only recovery is FarmManager.recover in a NEW process
 KILL_KINDS = frozenset({"process_kill"})
 
 #: the full fault menu per farm mode: the lockstep control thread cannot
@@ -126,14 +125,6 @@ class ChaosInjector:
         self._lock = threading.Lock()
 
     def arm(self, schedule):
-        schedule = list(schedule)
-        for inj in schedule:
-            if inj.kind in KILL_KINDS:
-                raise NotImplementedError(
-                    f"the {inj.kind!r} injection waits for the ledger "
-                    "slice of the port's farm (ROADMAP.md Queue 1 item 5: "
-                    "the durable journal and FarmManager.recover, which "
-                    "a killed process resumes through)")
         with self._lock:    # arming can race already-running fires
             for inj in schedule:
                 self._pending[(inj.point, inj.scope, inj.name,
@@ -173,6 +164,10 @@ class ChaosInjector:
             return None
         if hit.kind in CORRUPT_KINDS:
             return hit              # the caller applies the corruption
+        if hit.kind in KILL_KINDS:
+            # whole-process death, the real thing: no exception to catch,
+            # no finally blocks, no flushes — nothing below here runs
+            os.kill(os.getpid(), signal.SIGKILL)
         raise ChaosError(
             f"injected {hit.kind} at {point} "
             f"({hit.scope} {hit.name}, occurrence {hit.at})")

@@ -109,11 +109,20 @@ through the named points ``slot.dispatch`` / ``slot.drain`` /
 ``snapshot.publish`` — every fault the policy layer absorbs is
 reproducible from a seed.
 
-``FarmJob.spec`` (a ``registry.JobSpec``) and ``submit_spec`` build and
-submit a job from its serializable description. What waits for a later
-slice raises NotImplementedError naming it: the durable journal
-(``ledger=``) and ``recover`` (the ledger slice), ``certify=True``
-(ZP-Cert), ``FarmJob.capture`` (the roofline).
+ZP-Ledger (``FarmManager(ledger=FarmLedger(dir))``, ``farm/ledger.py``):
+every control-plane decision is journaled (fsync'd) at the reference's
+points, committed windows are delivered to ``on_drain`` as their commits
+land (``_deliver_upto``), and ``FarmManager.recover`` rebuilds a farm
+from its journal after whole-process death: each job from its journaled
+``JobSpec`` (``submit_spec``), resumed from the newest on-disk snapshot
+``choose_resume`` accepts, with the windows the dead process delivered
+suppressed — ``on_drain`` stays exactly-once across process lifetimes.
+Each journal call fires the ``ledger.<kind>`` injection point after its
+record is on disk (the chaos ``process_kill`` target).
+
+What waits for a later slice raises NotImplementedError naming it:
+``certify=True`` (ZP-Cert), ``FarmJob.capture`` (the measured-window
+roofline).
 
 The port's engines may update their state in place, so every attempt
 dispatches from fresh copies of ``FarmJob.state``/``shell`` (or from
@@ -144,20 +153,13 @@ from repro_torch.core.schedule import (Client, ClientPolicy, DrainBarrier,
 from repro_torch.core.watchdog import Watchdog
 from repro_torch.farm.placement import (DeviceSlot, enumerate_slots,
                                         pick_slot, place, place_stack,
-                                        slot_stream)
+                                        release_seat, retire_seat_thread,
+                                        slot_stream, take_seat)
+from repro_torch.farm.ledger import choose_resume
+from repro_torch.farm.registry import JobSpec
 from repro_torch.farm.telemetry import FarmTelemetry
 from repro_torch.utils import resolve_device, tree_leaves, tree_map, \
     tree_structure
-
-# what the port's farm refuses, and the slice that adds it
-NEXT_SLICE = ("waits for the next slice of the port's farm, the ledger "
-              "(ROADMAP.md Queue 1 item 5: the durable journal, "
-              "choose_resume, ledger-mode delivery and recover)")
-
-
-def _refuse(what: str):
-    raise NotImplementedError(f"{what} {NEXT_SLICE}")
-
 
 class FarmError(RuntimeError):
     pass
@@ -350,7 +352,8 @@ class FarmJob:
     scope: Any = None                   # ScopeSpec: opt into the ZP-Scope
     # instrumentation plane (per-attempt counters; restart on requeue)
     spec: Any = None                    # registry.JobSpec this job was
-    # built from (journaled for recovery with the ledger slice)
+    # built from; journaled at submit so FarmManager.recover can rebuild
+    # it after a process death
 
     # ----- runtime bookkeeping (owned by the manager) -----
     requeues: int = dataclasses.field(default=0, init=False)
@@ -365,14 +368,15 @@ class FarmJob:
     not_before: float = dataclasses.field(default=0.0, init=False)
     # ^ backoff gate: a requeued job is not re-admitted before this time
     committed_outputs: List = dataclasses.field(
-        default_factory=list, init=False)   # committed windows:
+        default_factory=list, init=False)   # committed windows from _base:
     # committed_outputs[i] is window (_base + i)
     windows_delivered: int = dataclasses.field(default=0, init=False)
     # ^ exactly-once on_drain cursor: windows [0, windows_delivered) have
-    # been handed to the sink
+    # been handed to the sink (this process OR, after recover(), a dead
+    # predecessor process — seeded from the journal)
     _base: int = dataclasses.field(default=0, init=False)
-    # ^ recovery resume base (windows a dead predecessor process
-    # delivered; 0 until the ledger's recover is ported)
+    # ^ recovery resume base: windows [0, _base) were committed by a dead
+    # predecessor process and are not in committed_outputs (0 otherwise)
     _snap_like: Any = dataclasses.field(default=None, init=False)
     # ^ the snapshot store's restore target (meta-device skeleton)
     _verify_init: Any = dataclasses.field(default=None, init=False)
@@ -431,25 +435,61 @@ class _Canary:
     slot: DeviceSlot
 
 
-class _SlotWorker(threading.Thread):
-    """One device slot's dispatcher thread: pulls job assignments off a
-    bounded work queue and drives each through a thread-confined
-    ``ClientDriver`` pipeline (dispatch window *i+1* while draining window
-    *i*) on the slot's own stream. Every device interaction for the job
-    happens HERE; the control plane only ever sees completed drains and
-    terminal messages on the results queue. The thread runs under the
-    autograd mode ``modes`` = (inference mode, grad mode) of the control
-    thread that started it."""
+class _SlotWorker:
+    """One device slot's dispatcher loop for one farm run: pulls job
+    assignments off a bounded work queue and drives each through a
+    thread-confined ``ClientDriver`` pipeline (dispatch window *i+1* while
+    draining window *i*) on the slot's own stream. Every device
+    interaction for the job happens HERE; the control plane only ever
+    sees completed drains and terminal messages on the results queue.
+
+    The loop runs on the seat's own thread (``placement.take_seat``,
+    kept for the process like the seat's stream: a thread per run would
+    leave a cuBLAS workspace per new handle and stream pair behind), under
+    the autograd mode ``modes`` = (inference mode, grad mode) of the
+    control thread that started it. ``start`` takes the seat and raises
+    ``FarmError`` while another farm's loop holds it;
+    ``join``/``is_alive`` are a thread's, for the loop."""
 
     def __init__(self, mgr: "FarmManager", slot: DeviceSlot, depth: int,
                  modes):
-        super().__init__(name=f"farm-{slot.name}", daemon=True)
         self.mgr = mgr
         self.slot = slot
         self.stream = slot_stream(slot)
         self.modes = modes
         self.inbox: queue_mod.Queue = queue_mod.Queue(maxsize=max(1, depth))
         self._idle_since: Optional[float] = None
+        self._started = False
+        self._ended = threading.Event()
+
+    def start(self):
+        self._started = True            # alive from the moment it holds
+        seat = take_seat(self.slot, self)
+        if seat is None:
+            self._started = False
+            raise FarmError(
+                f"seat {self.slot.name} on {self.slot.device} is held by "
+                f"another farm's dispatcher loop, which has not ended")
+        self._seat = seat
+        seat.tasks.put(self.run)
+
+    def stop(self):
+        """End the loop once its current task returns. What is still
+        queued is dropped (at the end of a farm run only a canary the run
+        no longer needs): a loop left waiting on its inbox would hold the
+        seat's thread, which later farms share."""
+        while True:
+            try:
+                self.inbox.get_nowait()
+            except queue_mod.Empty:
+                break
+        self.inbox.put_nowait(_STOP)
+
+    def join(self, timeout: Optional[float] = None):
+        self._ended.wait(timeout)
+
+    def is_alive(self) -> bool:
+        return self._started and not self._ended.is_set()
 
     def run(self):
         inference, grad = self.modes
@@ -463,10 +503,10 @@ class _SlotWorker(threading.Thread):
                     if isinstance(task, _Canary):
                         self._canary()
                         continue
-                    # worker.loop: an injected raise here kills the THREAD
-                    # itself (no crash message ever posts) — the liveness
-                    # watchdog is the only thing that can notice, exactly
-                    # the failure it exists for
+                    # worker.loop: an injected raise here ends the slot's
+                    # loop, as a dead thread would (no crash message ever
+                    # posts) — the liveness watchdog is the only thing
+                    # that can notice, exactly the failure it exists for
                     self.mgr._inject("worker.loop", slot=self.slot.name,
                                      job=task.job.name)
                     self._drive(task)
@@ -475,6 +515,8 @@ class _SlotWorker(threading.Thread):
             # workers, so the pair would otherwise be a reference cycle
             # that keeps a pass's results alive until the collector runs
             self.mgr = None
+            self._ended.set()
+            release_seat(self._seat, self)
 
     def _sync(self):
         """Wait for the slot's stream: what the thread hands over next
@@ -569,6 +611,13 @@ class _SlotWorker(threading.Thread):
                     or run.evict_flag.is_set():
                 return
             mgr._publish_snapshot(run, plan, state, shell)
+            if mgr.ledger is not None and run.lanes is None:
+                # ledger mode: the commit makes its window deliverable
+                # now. The window's drain went to the control plane just
+                # before the commit, and the next one comes only after
+                # the next window's commit (a whole snapshot save later),
+                # so a crash in between would lose that window's delivery
+                mgr._results.put(("commit", run))
 
         inject = None
         if mgr.injector is not None:
@@ -659,13 +708,10 @@ class FarmManager(ClientPolicy):
                  device=None):
         if mode not in ("lockstep", "async"):
             raise ValueError(f"unknown farm mode: {mode!r}")
-        if ledger is not None:
-            _refuse("ledger= (the durable farm journal)")
         if certify:
             raise NotImplementedError(
                 "certify=True waits for ZP-Cert, the static board "
-                "certifier of the port's analysis/ (ROADMAP.md Queue 1 "
-                "item 6)")
+                "certifier of the port's analysis/ (the ZP-Cert slice)")
         self._slots_arg = slots
         self.device = (None if isinstance(slots, (list, tuple))
                        else resolve_device(device))
@@ -682,6 +728,7 @@ class FarmManager(ClientPolicy):
         self.slot_queue_depth = max(1, slot_queue_depth)
         self.poll_s = poll_s
         self.policy = policy
+        self.ledger = ledger        # FarmLedger: durable journal (ZP-Ledger)
         self.clock = clock
         self.injector = None        # chaos harness hook (farm/chaos.py)
 
@@ -717,21 +764,150 @@ class FarmManager(ClientPolicy):
         if job.capture is not None:
             raise NotImplementedError(
                 "FarmJob.capture (a measured-window roofline capture) "
-                "waits for the roofline slice of the port (roofline/, "
-                "WindowCapture)")
+                "waits for the measured-window roofline slice of the port "
+                "(roofline/, WindowCapture)")
         self.jobs.append(job)
         self.queue.append(job)
+        spec = None
+        if job.spec is not None:
+            try:
+                spec = job.spec.to_json()
+            except Exception:   # noqa: BLE001 — an unserializable spec
+                spec = None     # journals as closure-built (dead-letters
+                # on recovery with a reason instead of raising here)
+        self._journal("submit", job=job.name, spec=spec)
         return job
 
     def submit_spec(self, spec, registry: Any = None) -> FarmJob:
         """Build and submit a serializable :class:`~repro_torch.farm.
-        registry.JobSpec` (journaling it for ``recover`` comes with the
-        ledger slice)."""
+        registry.JobSpec` — the durable intake path: the spec is journaled
+        with the submit record, so ``recover()`` can re-instantiate the
+        job after a process death."""
         return self.submit(spec.build(registry))
 
+    # ------------------------------------------------- crash recovery --
     @classmethod
-    def recover(cls, ledger, registry: Any = None, **kwargs):
-        _refuse("FarmManager.recover (rebuilding a farm from its journal)")
+    def recover(cls, ledger, registry: Any = None, **kwargs
+                ) -> "FarmManager":
+        """Rebuild a farm from its journal after whole-process death
+        (SIGKILL, OOM, power cut). For every job the journal shows
+        incomplete: re-instantiate it from its journaled ``JobSpec``,
+        cross-check the ledger's commit cursor against the newest
+        *verifiable* on-disk snapshot (``choose_resume`` — a torn newest
+        snapshot rewinds to an older one, none at all rewinds to window
+        0), seed the ``windows_delivered`` suppression cursor from the
+        journal's deliver records so ``on_drain`` stays exactly-once
+        across process lifetimes, and rebase any unconsumed retry backoff
+        onto this process's clock. Jobs that cannot be rebuilt (no
+        serializable spec — closure-submitted — or a factory that fails)
+        are DEAD-LETTERED with a reason, never raised. Terminal jobs
+        (done/quarantined/failed) re-enter the report as stubs so the
+        recovered run's report covers the whole campaign. ``kwargs`` go
+        to the constructor (slots, mode, device, policy, ...)."""
+        mgr = cls(ledger=ledger, **kwargs)
+        state = ledger.replay()
+        if ledger.dropped_records or ledger.dropped_bytes:
+            mgr.telemetry.recovery(
+                "<journal>", note=f"torn tail truncated: "
+                f"{ledger.dropped_records} record(s), "
+                f"{ledger.dropped_bytes} byte(s) dropped")
+        for name, js in state.jobs.items():
+            if js.status in ("done", "quarantined", "failed"):
+                stub = FarmJob(name=name, engine=None, windows=[])
+                stub.status = js.status
+                stub.error = js.error
+                stub.windows_drained = js.windows or 0
+                stub.windows_delivered = max(js.delivered,
+                                             js.windows or 0)
+                mgr.jobs.append(stub)
+                continue
+            job, note = mgr._rebuild_job(js, registry)
+            if job is None:
+                mgr._dead_letter(name, note)
+                continue
+            mgr.jobs.append(job)
+            mgr.queue.append(job)
+            w = job.snapshot.window if job.snapshot else 0
+            step = job.snapshot.step if job.snapshot else None
+            mgr.telemetry.recovery(name, window=w, step=step,
+                                   delivered=job.windows_delivered,
+                                   note=note)
+            mgr._journal("recover", job=name, window=w,
+                         delivered=job.windows_delivered)
+        return mgr
+
+    def _rebuild_job(self, js, registry: Any = None):
+        """One journal entry -> a live, resume-positioned FarmJob (or
+        ``(None, reason)`` for the dead-letter path)."""
+        if js.spec is None:
+            return None, ("no serializable JobSpec in the journal "
+                          "(submitted from closures — use submit_spec)")
+        try:
+            spec = JobSpec.from_json(js.spec)
+            job = spec.build(registry)
+        except Exception as e:      # noqa: BLE001 — dead-letter, not raise
+            return None, f"JobSpec rebuild failed: {e!r}"
+        job.attempts = js.attempts
+        job.requeues = js.requeues
+        job.windows_delivered = js.delivered
+        if js.backoff_s > 0:
+            # rebase the journal's RELATIVE backoff onto this process's
+            # clock (the dead process's absolute not_before is meaningless
+            # against a fresh monotonic origin)
+            job.not_before = self.clock() + float(js.backoff_s)
+        verify_fn = (job.snapshot_store.verify
+                     if hasattr(job.snapshot_store, "verify") else None)
+        window, step = choose_resume(js.commits, js.delivered, verify_fn)
+        committed = max((int(c[1]) for c in js.commits), default=0)
+        note = ""
+        if window > 0:
+            job.snapshot = JobSnapshot(step=int(step), window=int(window))
+            job._base = window
+            try:
+                job._snap_like = self._skeleton_for(job)
+            except Exception as e:  # noqa: BLE001 — skeleton from the
+                # factory's initial trees failed; fall back to window 0
+                job.snapshot = None
+                job._base = 0
+                window, step = 0, None
+                note = f"resume skeleton failed ({e!r}); "
+        if window == 0 and committed:
+            note += ("no verifiable snapshot at or behind the delivered "
+                     "cursor; window-0 replay")
+        # work lost to the death: committed-or-delivered windows this
+        # process must re-run (delivered-but-past-resume ones re-run
+        # suppressed)
+        job.windows_replayed = max(committed, js.delivered) - window
+        return job, note
+
+    def _skeleton_for(self, job: FarmJob):
+        """The snapshot store's restore target in a fresh process (the
+        dead one's ``_snap_like`` died with it): the skeleton
+        (:func:`_skeleton`, meta-device leaves) of the tree
+        ``_publish_snapshot`` saves, made from the job's initial
+        state/shell (a factory is called once for it) and its verifier's
+        position. Snapshots keep the leaves' shapes and dtypes, so the
+        initial trees describe them."""
+        state = job.state() if callable(job.state) else job.state
+        shell = job.shell() if callable(job.shell) else job.shell
+        vsnap = (job.verify.snapshot()
+                 if hasattr(job.verify, "snapshot") else {})
+        tree = {"state": state, "shell": zp_scope.unwrap(shell),
+                "verify": vsnap,
+                "cursor": {"step": np.int64(0), "window": np.int64(0)}}
+        return _skeleton(tree)
+
+    @control_thread_only
+    def _dead_letter(self, name: str, why: str) -> FarmJob:
+        """Quarantine an unrecoverable journal entry with its reason (a
+        recovery must complete the rest of the campaign, not raise)."""
+        job = FarmJob(name=name, engine=None, windows=[])
+        job.status = "quarantined"
+        job.error = why
+        self.jobs.append(job)
+        self.telemetry.quarantine(name, why)
+        self._journal("quarantine", job=name, why=str(why))
+        return job
 
     @any_thread
     def force_evict(self, job_name: str):
@@ -759,6 +935,20 @@ class FarmManager(ClientPolicy):
         the production fast path is one attribute check)."""
         if self.injector is not None:
             self.injector.fire(point, **ctx)
+
+    @any_thread
+    def _journal(self, kind: str, **fields):
+        """Durably append one ledger record (no-op without a ledger).
+        The ``ledger.<kind>`` injection point fires AFTER the record is
+        on disk — a ``process_kill`` there models dying with the journal
+        ahead of everything the manager would have done next, the exact
+        edge ``recover()`` must close. Called from slot threads too (an
+        async commit): ``FarmLedger.append`` takes its own lock."""
+        if self.ledger is None:
+            return
+        self.ledger.append(kind, **fields)
+        self._inject("ledger." + kind, job=fields.get("job"),
+                     slot=fields.get("slot"))
 
     # -------------------------------------------- slot health / breaker --
     def _budget(self, job: FarmJob) -> int:
@@ -888,11 +1078,11 @@ class FarmManager(ClientPolicy):
                          for s in self.slots}
         self._slot_load = {s.name: 0 for s in self.slots}
         self._lost = set()
-        for w in self._workers.values():
-            w.start()
         try:
+            for w in self._workers.values():
+                w.start()
             self._assign_async()
-            while self._running or self.queue:
+            while self._running or self.queue or self._probe_in_flight():
                 if self._shutdown.is_set():
                     self._shutdown_async()
                 try:
@@ -906,13 +1096,13 @@ class FarmManager(ClientPolicy):
                 self._assign_async()
         finally:
             for w in self._workers.values():
-                try:
-                    w.inbox.put_nowait(_STOP)
-                except queue_mod.Full:
-                    pass
+                w.stop()
             for w in self._workers.values():
-                if w.slot.name not in self._lost:
+                if w.slot.name not in self._lost and w.is_alive():
                     w.join(timeout=10.0)
+                    if w.is_alive():    # a loop that outlives the run
+                        # keeps its thread; later farms get a new one
+                        retire_seat_thread(w.slot, holder=w)
 
     @control_thread_only
     def _assign_async(self):
@@ -992,6 +1182,14 @@ class FarmManager(ClientPolicy):
             self.telemetry.breaker(name, "probe")
 
     @control_thread_only
+    def _probe_in_flight(self) -> bool:
+        """A breaker canary is out on a slot whose loop still runs: its
+        verdict (and the re-probe or readmission it brings) lands before
+        the run ends, or the run would end with the verdict unread."""
+        return any(n not in self._lost and self._workers[n].is_alive()
+                   for n in self._probing)
+
+    @control_thread_only
     def _shutdown_async(self):
         """Graceful-stop sweep: orphan the queue, cut every running job at
         its next drain boundary (its committed prefix stays delivered)."""
@@ -1040,6 +1238,10 @@ class FarmManager(ClientPolicy):
         if kind == "drain":
             _, _, plan, records, ys = msg
             run.outputs.append((plan, records, ys))
+            self._deliver_committed(run)
+            return
+        if kind == "commit":            # ledger mode: deliver what the
+            self._deliver_committed(run)    # commit made deliverable
             return
         if kind == "lane_drain":
             _, _, plan, delivered, faulted = msg
@@ -1136,6 +1338,9 @@ class FarmManager(ClientPolicy):
         self._running.pop(run.idx, None)
         self._slot_load[run.slot.name] -= 1
         self._lost.add(run.slot.name)
+        # the seat's thread may stay stuck in the board: later farms on
+        # this seat get a new one
+        retire_seat_thread(run.slot, holder=self._workers[run.slot.name])
         # orphan any pre-staged (not yet started) assignments on the queue
         w = self._workers[run.slot.name]
         while True:
@@ -1154,11 +1359,13 @@ class FarmManager(ClientPolicy):
 
     @control_thread_only
     def _orphan_queue(self):
-        """Mark everything still queued ``interrupted``."""
+        """Mark everything still queued ``interrupted`` (journaled, so a
+        recovery re-queues it instead of losing it)."""
         while self.queue:
             job = self.queue.popleft()
             if job.status != "done":
                 job.status = "interrupted"
+                self._journal("interrupted", job=job.name)
 
     # ---------------------------------------------------- lane coalescing --
     @control_thread_only
@@ -1195,6 +1402,8 @@ class FarmManager(ClientPolicy):
             job.attempts += 1
             job.status = "running"
             job.last_slot = slot.name
+            self._journal("admit", job=job.name, slot=slot.name,
+                          attempt=job.attempts)
             run = _Run(job, slot, self._next_idx, t_assigned=t_assigned)
             self._next_idx += 1
         self.telemetry.lanes(slot.name, len(members))
@@ -1236,6 +1445,8 @@ class FarmManager(ClientPolicy):
             m.status = "running"
             m.last_slot = slot.name
             self._avoid.pop(m.name, None)
+            self._journal("admit", job=m.name, slot=slot.name,
+                          attempt=m.attempts)
         return run
 
     def _lane_barriers(self, run: _Run, proto) -> tuple:
@@ -1308,6 +1519,9 @@ class FarmManager(ClientPolicy):
                 m._snap_like = _skeleton(tree)
                 m.snapshot = JobSnapshot(step=plan.boundary,
                                          window=plan.index + 1)
+                self._journal("commit", job=m.name, slot=run.slot.name,
+                              step=int(plan.boundary),
+                              window=int(plan.index) + 1)
             run.snapshot = JobSnapshot(step=plan.boundary,
                                        window=plan.index + 1)
             return
@@ -1321,6 +1535,11 @@ class FarmManager(ClientPolicy):
         job._snap_like = _skeleton(tree)    # restore target: host tensors
         run.snapshot = JobSnapshot(step=plan.boundary,
                                    window=plan.index + 1)
+        # journal AFTER the store publish: a journaled commit whose
+        # snapshot never landed is exactly what recovery's verify
+        # cross-check (choose_resume) exists to rewind past
+        self._journal("commit", job=job.name, slot=run.slot.name,
+                      step=int(plan.boundary), window=int(plan.index) + 1)
 
     @control_thread_only
     def _restore_snapshot(self, job: FarmJob, slot: DeviceSlot,
@@ -1357,6 +1576,7 @@ class FarmManager(ClientPolicy):
         if got != want:
             # landed on an older snapshot: rewind the cursor to ITS
             # recorded position and drop the committed prefix beyond it
+            # (committed_outputs[i] is window _base + i for recovered jobs)
             new_window = int(np.asarray(
                 tree.get("cursor", {}).get("window", 0)))
             self.telemetry.fallback(slot.name, job.name, want, got,
@@ -1488,6 +1708,8 @@ class FarmManager(ClientPolicy):
         if run is None or run.fault is not None:
             return
         self._publish_snapshot(run, plan, state, shell)
+        self._deliver_committed(run)    # ledger mode: hand over the newly
+        # committed windows now (lockstep's control thread owns delivery)
 
     def _inject_lockstep(self, k: int, point: str, plan):
         """Lockstep route for the ClientDriver injection points (the async
@@ -1539,10 +1761,64 @@ class FarmManager(ClientPolicy):
         job.windows_drained = len(outputs)
         self.results[job.name] = (state, shell)
         self.outputs[job.name] = outputs
+        if self.ledger is not None:
+            # ledger mode delivers incrementally as commits land (so a
+            # crash costs only the undelivered tail); this hands over
+            # whatever remains past the last commit
+            self._deliver_upto(job, outputs, job._base,
+                               job._base + len(outputs))
+        else:
+            if job.on_drain is not None:
+                for plan, records, ys in outputs:   # exactly-once, in order
+                    job.on_drain(plan, records, ys)
+            job.windows_delivered = len(outputs)
+        self._journal("done", job=job.name,
+                      windows=job._base + len(outputs))
+
+    # ------------------------------------------------- ledger delivery --
+    @control_thread_only
+    def _deliver_upto(self, job: FarmJob, outputs: List, base: int,
+                      upto: int):
+        """Ledger-mode exactly-once delivery: hand windows
+        ``[windows_delivered, upto)`` to the sink in order (window ``g``
+        read from ``outputs[g - base]``) and journal the advanced cursor.
+        The ``windows_delivered`` cursor — seeded from the journal by
+        ``recover()`` — suppresses windows a dead predecessor already
+        delivered, which is what makes ``on_drain`` exactly-once ACROSS
+        process lifetimes. Control thread only (lockstep's control thread
+        or the async control plane)."""
+        upto = min(upto, base + len(outputs))
+        if job.windows_delivered >= upto:
+            return
         if job.on_drain is not None:
-            for plan, records, ys in outputs:       # exactly-once, in order
+            while job.windows_delivered < upto:
+                g = job.windows_delivered
+                if g < base:            # defensively skip a gap below the
+                    job.windows_delivered = base    # in-hand range
+                    continue
+                plan, records, ys = outputs[g - base]
                 job.on_drain(plan, records, ys)
-        job.windows_delivered = len(outputs)
+                job.windows_delivered = g + 1
+        else:
+            job.windows_delivered = upto
+        # journaled AFTER the sink returns: a crash between the sink and
+        # this record re-delivers at most the windows of this one batch —
+        # the documented idempotent-sink edge of the WAL contract
+        self._journal("deliver", job=job.name, upto=job.windows_delivered)
+
+    @control_thread_only
+    def _deliver_committed(self, run: _Run):
+        """Deliver a solo run's committed prefix as commits land (ledger
+        mode only — without a ledger delivery stays at completion).
+        Called at drain/commit ingestion on the control thread; the
+        cursor never passes ``min(committed, windows in hand)``."""
+        if self.ledger is None or run.lanes is not None or run.closed:
+            return
+        snap = run.snapshot or run.job.snapshot
+        if snap is None:
+            return
+        self._deliver_upto(run.job, run.outputs, run.start_window,
+                           snap.window)
 
     # ------------------------------------------------------ lane lifecycle --
     def _lane_ingest(self, run: _Run, plan, records, ys):
@@ -1605,10 +1881,14 @@ class FarmManager(ClientPolicy):
         run.lane_faults.setdefault(lane, None)
         m = run.lanes[lane]
         cursor = self._adopt_lane(run, lane)
+        if self.ledger is not None:
+            self._deliver_upto(m, m.committed_outputs, m._base, cursor)
         # the vetoed window itself re-runs on the solo attempt too
         m.windows_replayed += max(
             0, len(run.lane_outputs[lane]) - cursor) + 1
         self.telemetry.eviction(run.slot.name, m.name, why)
+        self._journal("evict", job=m.name, slot=run.slot.name,
+                      why=str(why))
         self._requeue_member(m, run.slot.name, why)
 
     @control_thread_only
@@ -1627,10 +1907,13 @@ class FarmManager(ClientPolicy):
                 continue
             run.lane_detached.add(lane)
             cursor = self._adopt_lane(run, lane)
+            if self.ledger is not None:
+                self._deliver_upto(m, m.committed_outputs, m._base, cursor)
             m.windows_replayed += max(
                 0, len(run.lane_outputs[lane]) - cursor)
             if interrupted:
                 m.status = "interrupted"
+                self._journal("interrupted", job=m.name)
             else:
                 self._requeue_member(m, run.slot.name, why)
 
@@ -1647,6 +1930,13 @@ class FarmManager(ClientPolicy):
             if backoff > 0:
                 job.not_before = self.clock() + backoff
             self.telemetry.retry(job.name, job.requeues, backoff, why)
+            # backoff is journaled as the RELATIVE delay, not the
+            # absolute not_before: self.clock() is a process-local
+            # monotonic origin, so a recovering process REBASES the
+            # remaining delay onto its own clock instead of inheriting a
+            # timestamp that could stall re-admission arbitrarily long
+            self._journal("requeue", job=job.name, attempt=job.requeues,
+                          backoff_s=float(backoff), why=str(why))
             job.status = "queued"
             self._avoid[job.name] = slot_name
             self.queue.appendleft(job)
@@ -1654,9 +1944,11 @@ class FarmManager(ClientPolicy):
             job.status = "quarantined"
             job.error = why
             self.telemetry.quarantine(job.name, why)
+            self._journal("quarantine", job=job.name, why=str(why))
         else:
             job.status = "failed"
             job.error = why
+            self._journal("failed", job=job.name, why=str(why))
 
     @control_thread_only
     def _finish_lanes(self, run: _Run, state, shell):
@@ -1679,10 +1971,16 @@ class FarmManager(ClientPolicy):
             self.results[m.name] = (lb.slice_state(state, lane),
                                     lb.slice_shell(shell, lane))
             self.outputs[m.name] = outputs
-            if m.on_drain is not None:
-                for plan, records, ys in outputs:
-                    m.on_drain(plan, records, ys)
-            m.windows_delivered = len(outputs)
+            if self.ledger is not None:
+                self._deliver_upto(m, outputs, m._base,
+                                   m._base + len(outputs))
+            else:
+                if m.on_drain is not None:
+                    for plan, records, ys in outputs:
+                        m.on_drain(plan, records, ys)
+                m.windows_delivered = len(outputs)
+            self._journal("done", job=m.name,
+                          windows=m._base + len(outputs))
 
     # ----------------------------------------------- ClientPolicy protocol --
     @control_thread_only
@@ -1893,9 +2191,13 @@ class FarmManager(ClientPolicy):
         if run.lanes is not None:
             self._retire_lanes(run, "shutdown", interrupted=True)
             return
-        self._adopt_progress(run)
+        cursor = self._adopt_progress(run)
+        if self.ledger is not None:
+            self._deliver_upto(run.job, run.job.committed_outputs,
+                               run.job._base, cursor)
         self.wd.forget(run.slot.name)
         run.job.status = "interrupted"
+        self._journal("interrupted", job=run.job.name)
 
     @control_thread_only
     def _admit_one(self, job: FarmJob, slot: DeviceSlot) -> Client:
@@ -1970,6 +2272,12 @@ class FarmManager(ClientPolicy):
             return
         job = run.job
         cursor = self._adopt_progress(run)
+        if self.ledger is not None:
+            # the adopted committed prefix is deliverable NOW — held
+            # windows would be lost if the process died before the
+            # requeued attempt completed
+            self._deliver_upto(job, job.committed_outputs, job._base,
+                               cursor)
         # work lost to the eviction: drained-but-uncommitted windows that
         # the resumed attempt must re-run (0 when the evict landed on a
         # commit; the whole attempt under the no-barrier replay)
@@ -1977,4 +2285,6 @@ class FarmManager(ClientPolicy):
             0, run.start_window + len(run.outputs) - cursor)
         self.wd.forget(run.slot.name)
         self.telemetry.eviction(run.slot.name, job.name, why)
+        self._journal("evict", job=job.name, slot=run.slot.name,
+                      why=str(why))
         self._requeue_member(job, run.slot.name, why)

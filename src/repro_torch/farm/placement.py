@@ -20,13 +20,25 @@ non-blocking copies, so placement never waits on the card.
 Streams: a card slot has one CUDA stream of its own for the life of the
 process (``slot_stream``, made at first use and kept by slot name), on
 which the async farm's dispatcher thread for that slot enqueues all of a
-job's work. A stream made once per virtual seat keeps one cuBLAS
-workspace per seat, not one per farm run.
+job's work. The dispatcher thread is the seat's too (``take_seat``,
+made at first use and kept by slot name): cuBLAS keeps one workspace per
+(thread handle, stream) pair, and a thread made per farm run takes
+whichever pooled handle a finished one returned, so each run could pair
+a seat's stream with a new handle and leave another 32 MiB workspace
+behind (10 consecutive async passes of glm4-9b's 40 boards on 8 seats
+grew by 1.64 GB on an H100). A seat's one thread and one stream keep one
+workspace per seat for the life of the process. A farm's loop holds its
+seat for the length of a run (``take_seat``); a farm that finds a seat
+still held by another farm's loop is refused, and a loop that outlives
+its farm's run retires the seat's thread (``retire_seat_thread``).
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import queue as queue_mod
 import threading
+import traceback
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -92,6 +104,99 @@ def slot_stream(slot: DeviceSlot) -> Optional["torch.cuda.Stream"]:
         if key not in _STREAMS:
             _STREAMS[key] = torch.cuda.Stream(device=device)
         return _STREAMS[key]
+
+
+class SeatThread(threading.Thread):
+    """A seat's long-lived dispatcher thread: runs the callables put on
+    ``tasks`` one after another, for the life of the process unless
+    :func:`retire_seat_thread` retires it (a seat the farm wrote off as
+    hung: the thread leaves after the task it is stuck in returns). A
+    task that raises ends that task only, as a thread that died would
+    end its work; the traceback goes to stderr. ``holder`` is the
+    dispatcher loop that has the seat (:func:`take_seat`), None when
+    the seat is free."""
+
+    def __init__(self, name: str):
+        super().__init__(name=f"farm-{name}", daemon=True)
+        self.tasks: queue_mod.Queue = queue_mod.Queue()
+        self.retired = False
+        self.holder = None
+
+    def run(self):
+        while not self.retired:
+            task = self.tasks.get()
+            try:
+                task()
+            except BaseException:   # noqa: BLE001 — the task's death,
+                traceback.print_exc()   # not the seat's
+
+
+_SEATS: Dict[tuple, SeatThread] = {}        # (name, device) -> thread
+_SEATS_LOCK = threading.Lock()
+
+
+def _seat_key(slot: DeviceSlot) -> tuple:
+    device = torch.device(slot.device)
+    return (slot.name, device.type, device.index)
+
+
+def take_seat(slot: DeviceSlot, holder) -> Optional[SeatThread]:
+    """Give the slot's dispatcher thread to ``holder`` (a loop with
+    ``is_alive()``) and return it: the thread is started at the seat's
+    first use and kept for the process (a farm's slots of the same name
+    on the same device share it across runs), or a new one where the
+    last was retired. Returns None, taking nothing, while the seat's
+    last holder is alive: another farm's loop still runs on it."""
+    key = _seat_key(slot)
+    with _SEATS_LOCK:
+        t = _SEATS.get(key)
+        if t is None:
+            t = _SEATS[key] = SeatThread(slot.name)
+            t.start()
+        if t.holder is not None and t.holder.is_alive():
+            return None
+        t.holder = holder
+        return t
+
+
+def release_seat(t: SeatThread, holder):
+    """``holder``'s loop has ended: the seat is free again."""
+    with _SEATS_LOCK:
+        if t.holder is holder:
+            t.holder = None
+
+
+def _retire(t: SeatThread):
+    t.retired = True
+    t.tasks.put(lambda: None)       # wake it if it is idle
+
+
+def retire_seat_thread(slot: DeviceSlot, holder=None):
+    """Retire the slot's thread (it may be stuck in a hung board; with
+    ``holder``, only while that loop has the seat): the next
+    :func:`take_seat` for the seat starts a new one, and the old one
+    leaves once its current task returns."""
+    key = _seat_key(slot)
+    with _SEATS_LOCK:
+        t = _SEATS.get(key)
+        if t is None or (holder is not None and t.holder is not holder):
+            return
+        del _SEATS[key]
+    _retire(t)
+
+
+@atexit.register
+def _retire_all_seats(timeout_s: float = 5.0):
+    """At interpreter exit: every idle seat thread leaves and is joined,
+    so none is left waiting while the interpreter tears down (a thread
+    stuck in a hung board stays a daemon)."""
+    with _SEATS_LOCK:
+        seats = list(_SEATS.values())
+        _SEATS.clear()
+    for t in seats:
+        _retire(t)
+    for t in seats:
+        t.join(timeout=timeout_s)
 
 
 def pick_slot(candidates: Sequence[DeviceSlot], avoid: Optional[str] = None,

@@ -12,10 +12,6 @@ plumbing, barriers) as a dict; the spec itself round-trips through
 journals, so ``FarmManager.recover`` can re-instantiate the job in a
 fresh process.
 
-In the port the spec is built and submitted through
-``FarmManager.submit_spec``; journaling it and ``FarmManager.recover``
-come with the ledger slice (``ROADMAP.md`` Queue 1).
-
 Factories register by name::
 
     @register("zp.my_board")

@@ -40,9 +40,9 @@ Failure-policy channels (filled by the :class:`FailurePolicy` layer and
 the chaos harness): per-job retry counts with their backoff, quarantined
 (dead-lettered) jobs, circuit-breaker trips/probes per slot, snapshot
 integrity fallbacks, and a fault-recovery log pairing every injected
-fault with the recovery path that absorbed it. The certification and
-crash-recovery channels come with the slices that produce them (ZP-Cert,
-the ledger).
+fault with the recovery path that absorbed it, and the crash-recovery
+log of ZP-Ledger (the jobs a dead process's journal resumed). The
+certification channel comes with ZP-Cert.
 
 All mutation is lock-protected: slot threads record concurrently while
 the control plane reads reports. Every event log is a BOUNDED deque with
@@ -125,6 +125,8 @@ class FarmTelemetry:
         self.breaker_events = _BoundedLog(max_events)   # {slot, event, ..}
         self.fallbacks = _BoundedLog(max_events)        # snapshot fallbacks
         self.faults = _BoundedLog(max_events)   # fault-recovery log
+        self.recoveries = _BoundedLog(max_events)   # ZP-Ledger: jobs a
+        # crashed process's journal resumed ({job, window, delivered, ..})
         self.breaker_trips = defaultdict(int)   # slot -> trip count
         # ----- device-side channels (ZP-Scope instrumentation plane) -----
         self.scope_samples = _BoundedLog(max_events)  # {slot, job, sample}
@@ -294,6 +296,18 @@ class FarmTelemetry:
             self.faults.append({"point": point, "kind": kind, "job": job,
                                 "slot": slot, "event": event})
 
+    def recovery(self, job: str, window: int = 0, step=None,
+                 delivered: int = 0, note: str = ""):
+        """ZP-Ledger crash recovery: ``job`` was rebuilt from the journal
+        after whole-process death and will resume at ``window`` (0 =
+        full replay) with windows ``[0, delivered)`` suppressed — the
+        dead process already delivered them."""
+        with self._lock:
+            self.recoveries.append({
+                "job": job, "window": int(window),
+                "step": None if step is None else int(step),
+                "delivered": int(delivered), "note": note})
+
     # ------------------------------------------------------------ report --
     def report(self) -> dict:
         with self._lock:
@@ -340,6 +354,7 @@ class FarmTelemetry:
             breaker_events = [dict(b) for b in self.breaker_events]
             fallbacks = [dict(f) for f in self.fallbacks]
             faults = [dict(f) for f in self.faults]
+            recoveries = [dict(r) for r in self.recoveries]
             trips = dict(self.breaker_trips)
             dropped = {name: log.dropped for name, log in (
                 ("evictions", self.evictions),
@@ -351,6 +366,7 @@ class FarmTelemetry:
                 ("breaker_events", self.breaker_events),
                 ("fallbacks", self.fallbacks),
                 ("faults", self.faults),
+                ("recoveries", self.recoveries),
                 ("scope_samples", self.scope_samples)) if log.dropped}
             scope = self._scope_report_locked()
         return {
@@ -373,6 +389,7 @@ class FarmTelemetry:
             "breaker_events": breaker_events,
             "fallbacks": fallbacks,
             "faults": faults,
+            "recoveries": recoveries,
             "scope": scope,
             "events_dropped": dropped,
         }
@@ -400,6 +417,8 @@ class FarmTelemetry:
                 f"{sum(r['breaker_trips'].values())} breaker trips")
         if r["fallbacks"]:
             policy.append(f"{len(r['fallbacks'])} snapshot fallbacks")
+        if r["recoveries"]:
+            policy.append(f"{len(r['recoveries'])} crash-recovered")
         if r["faults"]:
             n_inj = sum(f["event"] == "injected" for f in r["faults"])
             policy.append(f"{n_inj} faults injected")

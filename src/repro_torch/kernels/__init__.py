@@ -63,7 +63,7 @@ def refuse_vmap(name: str, what: str, *tensors) -> None:
         raise NotImplementedError(
             f"{name} under torch.func.vmap on CUDA tensors waits for the "
             f"lane-batched {what} slice of the port, which adds its vmap "
-            "rule (ROADMAP.md Queue 1); on host tensors its plain version "
+            "rule (ROADMAP.md Queue 2); on host tensors its plain version "
             "vmaps")
 
 

@@ -50,7 +50,24 @@ The gates, each exiting non-zero unless it holds:
                       and exactly that lane must requeue solo;
   --scope-smoke       the same boards scope-off and scope-on, bitwise, with
                       a non-empty fleet scope report (``--lanes N``: the
-                      lane-coalesced variant).
+                      lane-coalesced variant);
+  --killrestart-smoke whole-process crash recovery (ZP-Ledger): a toy
+                      durable campaign run fault-free in-process (the
+                      oracle), then in a victim subprocess SIGKILLed at a
+                      journaled commit (chaos ``process_kill``), then in a
+                      ``--recover`` subprocess over the victim's journal:
+                      at least one board resumed mid-stream, fewer windows
+                      replayed than committed, every window delivered
+                      exactly once across both lifetimes, and the
+                      per-window output files bit-identical to the
+                      oracle's.
+
+``--ledger DIR`` runs the durable toy workload (``--ledger-boards`` boards
+of ``--ledger-windows`` windows, journal, snapshots and per-window
+outputs all under DIR) as one process lifetime: ``--recover`` rebuilds
+the farm from DIR's journal and finishes the campaign,
+``--kill-after-commits N`` SIGKILLs the process at the N-th journaled
+commit.
 
 ``--scope N`` runs the mixed workload with the ZP-Scope plane read every N
 drains; ``--telemetry-out PATH`` merges the run's telemetry and scope
@@ -63,9 +80,8 @@ printed, and the process exits ``128 + signum`` (130 for SIGINT, 143 for
 SIGTERM). A second signal kills immediately.
 
 What waits for a later slice exits non-zero with a message naming it:
-``--ledger``, ``--recover``, ``--kill-after-commits`` and
-``--killrestart-smoke`` (the ledger), ``--certify`` and
-``--certify-smoke`` (ZP-Cert), ``--roofline`` (the roofline).
+``--certify`` and ``--certify-smoke`` (ZP-Cert), ``--roofline`` (the
+measured-window roofline).
 """
 from __future__ import annotations
 
@@ -75,6 +91,7 @@ import json
 import os
 import signal
 import sys
+import threading
 import time
 
 import numpy as np
@@ -84,14 +101,14 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core import DrainBarrier, plan_windows
 from repro_torch.core.coemu import submit_subsystem_jobs
 from repro_torch.core.commit import default_shell_config, make_ingest
-from repro_torch.core.graphs import WindowGraphs
+from repro_torch.core.graphs import WindowGraphs, counted_kernels
 from repro_torch.core.pshell import PShell, drain, shell_init, stack_batches
 from repro_torch.core.scope import ScopeSpec
 from repro_torch.core.watchdog import Watchdog
 from repro_torch.data.pipeline import SyntheticPipeline, make_batch_fn
-from repro_torch.farm import (FailurePolicy, FarmJob, FarmManager, JobSpec,
-                              register)
-from repro_torch.farm.chaos import ChaosHarness
+from repro_torch.farm import (FailurePolicy, FarmJob, FarmLedger,
+                              FarmManager, JobSpec, register)
+from repro_torch.farm.chaos import ChaosHarness, ChaosInjector, Injection
 from repro_torch.launch.serve import (_FRONTEND_INPUTS, decode_shell_config,
                                       make_decode_engine)
 from repro_torch.models import Runtime, build_model
@@ -101,13 +118,10 @@ from repro_torch.train.step import init_state, make_group_step
 from repro_torch.utils import dtype_of, resolve_device, tree_leaves
 
 # the CLI flags of the reference that wait for a later slice of the port
-LEDGER_SLICE = ("waits for the ledger slice of the port's farm "
-                "(ROADMAP.md Queue 1 item 5: the durable journal and "
-                "FarmManager.recover)")
 CERT_SLICE = ("waits for ZP-Cert, the static board certifier of the "
-              "port's analysis/ (ROADMAP.md Queue 1 item 6)")
-ROOFLINE_SLICE = ("waits for the roofline slice of the port (ROADMAP.md "
-                  "Queue 1 item 7: roofline/, WindowCapture)")
+              "port's analysis/ (the ZP-Cert slice)")
+ROOFLINE_SLICE = ("waits for the measured-window roofline slice of the "
+                  "port (roofline/, WindowCapture)")
 
 
 class _SignalDrain:
@@ -692,6 +706,357 @@ def run_scope_smoke(mode: str = "async", lanes: int = 1,
     }
 
 
+# ------------------------------------------------------------ ZP-Ledger --
+
+def _write_window_file(out_dir: str, board: str, index: int, ys,
+                       fsync: bool = True) -> str:
+    """Atomic, idempotent per-window delivery: tmp + fsync + rename keyed
+    on the GLOBAL window index. This is the documented sink contract for
+    the WAL's one honest edge — a window whose ``deliver`` record was
+    torn by a crash is re-delivered once after recovery, and rewriting
+    the same window file with the same bytes is a no-op. ``fsync=False``
+    skips the fsync: the file then survives the death of the process
+    (the kernel's page cache keeps it), not a power cut."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{board}_w{index:05d}.json")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"window": int(index), "y": np.asarray(ys).tolist()},
+                  f, sort_keys=True)
+        f.flush()
+        if fsync:
+            os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def _read_window_files(out_dir: str) -> dict:
+    """``{file name: bytes}`` of every per-window file under ``out_dir``."""
+    files = {}
+    if os.path.isdir(out_dir):
+        for fn in sorted(os.listdir(out_dir)):
+            if fn.endswith(".json"):
+                with open(os.path.join(out_dir, fn), "rb") as f:
+                    files[fn] = f.read()
+    return files
+
+
+@register("zp.ledger_board")
+def _ledger_board_factory(board="board", scale=1.0, n_windows=24,
+                          out_dir=".", delay=0.005):
+    """Registered toy board for the durable-farm gates: window *w* yields
+    ``[w * scale]`` (analytic — divergence after recovery is detectable
+    bit-exactly), a checkpoint barrier at every window boundary, and an
+    idempotent per-window file sink. The per-window ``delay`` paces
+    commits so the control plane's incremental delivery cursor tracks
+    them — at a mid-stream SIGKILL the journal then holds BOTH a commit
+    frontier and a delivered cursor behind it, the state recovery must
+    reconcile. The control plane fsyncs a window file and a deliver
+    record for each batch it delivers; where those fsyncs and its waits
+    for the interpreter lock take longer than a window, the cursor falls
+    behind the commits (``run_killrestart_smoke`` reports the lag)."""
+    scale = float(scale)
+
+    def engine(state, shell, stack):
+        if delay:
+            time.sleep(delay)
+        return state + stack.sum(), shell, stack * scale
+
+    def sink(plan, records, ys):
+        _write_window_file(out_dir, board, plan.index, ys)
+
+    return dict(
+        engine=engine,
+        windows=[[np.float32(w)] for w in range(int(n_windows))],
+        state=torch.tensor(0.0), shell={},
+        stack_fn=_toy_stack, on_drain=sink,
+        barriers=(DrainBarrier(every=1, action=_noop_barrier),))
+
+
+def ledger_board_spec(name: str, scale: float, n_windows: int,
+                      ledger_dir: str) -> JobSpec:
+    """One durable toy board: outputs, snapshots, and journal all live
+    under ``ledger_dir`` so a recovering process finds everything by the
+    journal alone. ``snapshot_keep=4`` leaves enough on-disk history for
+    ``choose_resume`` to rewind past a torn newest snapshot."""
+    return JobSpec(
+        name=name, factory="zp.ledger_board",
+        kwargs={"board": name, "scale": float(scale),
+                "n_windows": int(n_windows),
+                "out_dir": os.path.join(ledger_dir, "outputs")},
+        snapshot_dir=os.path.join(ledger_dir, "snaps", name),
+        snapshot_keep=4, max_requeues=4)
+
+
+class _CommitClock(ChaosInjector):
+    """The injector of a durable-farm lifetime: counts the journaled
+    commits, keeps the wall time of the first, and calls
+    ``on_commit(job, n)`` at the n-th, before a ``process_kill`` armed
+    there fires."""
+
+    def __init__(self, telemetry, on_commit=None):
+        super().__init__(telemetry=telemetry)
+        self.commits = 0
+        self.first_commit_unix = None
+        self.on_commit = on_commit
+        self._mu = threading.Lock()
+
+    def fire(self, point, job=None, slot=None, **ctx):
+        if point == "ledger.commit":
+            with self._mu:
+                self.commits += 1
+                n = self.commits
+                if self.first_commit_unix is None:
+                    self.first_commit_unix = time.time()
+            if self.on_commit is not None:
+                self.on_commit(job, n)
+        return super().fire(point, job=job, slot=slot, **ctx)
+
+
+def run_ledger_farm(ledger_dir: str, mode: str = "async",
+                    recover: bool = False, kill_after=None,
+                    n_boards: int = 3, n_windows: int = 24,
+                    slots: int = 2, device=None, specs=None, ledger=None,
+                    on_commit=None) -> dict:
+    """One durable-farm process lifetime: fresh (``recover=False``)
+    submits ``specs`` (JobSpecs whose factories are registered in this
+    process; by default ``n_boards`` toy boards of ``n_windows`` windows)
+    through the journaled JobSpec intake; ``recover=True`` rebuilds the
+    whole farm from ``ledger_dir``'s journal and finishes the campaign.
+    ``ledger`` is an open FarmLedger on ``ledger_dir`` (one is opened by
+    default). ``kill_after=N`` arms a ``process_kill`` injection at the
+    N-th journaled commit — the caller sees this process die by SIGKILL,
+    mid-write-order, exactly like an OOM kill; ``on_commit`` as
+    :class:`_CommitClock`. The kernel launch counts are set to 0 just
+    before the run; the lifetime ends once the snapshot stores' last
+    writes are on disk. Reports the run's launches, its seconds, the
+    commits it journaled (and the wall time of the first) and the
+    journal's records and bytes."""
+    ledger = ledger if ledger is not None else FarmLedger(ledger_dir)
+    kw = dict(slots=slots, mode=mode, evict_stragglers=False, poll_s=0.01,
+              device=device)
+    if recover:
+        mgr = FarmManager.recover(ledger, **kw)
+    else:
+        mgr = FarmManager(ledger=ledger, **kw)
+        if specs is None:
+            specs = [ledger_board_spec(f"board{i}", float(i + 1), n_windows,
+                                       ledger_dir) for i in range(n_boards)]
+        for spec in specs:
+            mgr.submit_spec(spec)
+    clock = _CommitClock(mgr.telemetry, on_commit)
+    if kill_after is not None:
+        # scope "farm" counts every journaled commit across all boards:
+        # die at the Nth, whoever commits it
+        clock.arm([Injection(kind="process_kill", point="ledger.commit",
+                             scope="farm", name="*",
+                             at=max(0, int(kill_after) - 1))])
+    mgr.injector = clock
+    kernels = counted_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    report = mgr.run(strict=False)
+    run_s = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    # the last commits' snapshot writes run on in the stores' threads
+    # after run() returns: they finish before this lifetime ends
+    for job in mgr.jobs:
+        if job.snapshot_store is not None:
+            job.snapshot_store.wait()
+    jobs = report["jobs"]       # empty-journal recover: a minimal report
+    out = {
+        "mode": mode,
+        "recover": recover,
+        "jobs": jobs,
+        "recoveries": report["telemetry"].get("recoveries", []),
+        "interrupted": report.get("interrupted", False),
+        "windows_committed": sum(j["windows_committed"]
+                                 for j in jobs.values()),
+        "windows_replayed": sum(j["windows_replayed"]
+                                for j in jobs.values()),
+        "windows_delivered": sum(j["windows_delivered"]
+                                 for j in jobs.values()),
+        "launches": launches,
+        "run_s": run_s,
+        "commits": clock.commits,
+        "first_commit_unix": clock.first_commit_unix,
+        "journal": {"records": len(ledger.records()),
+                    "bytes": os.path.getsize(ledger.path)},
+        "ok": (not report.get("interrupted", False)
+               and all(j["status"] == "done" for j in jobs.values())),
+    }
+    if not report.get("interrupted", False):
+        # bound journal growth once the campaign settled — NOT inside
+        # FarmManager.run(), which must leave the full audit trail for
+        # a supervisor (and the kill-restart gate) to inspect
+        ledger.compact()
+    ledger.close()
+    return out
+
+
+def _tail(text: str, n: int = 2000) -> str:
+    return text[-n:] if text else ""
+
+
+def victim_journal(victim_dir: str) -> dict:
+    """What a SIGKILLed lifetime left in its journal: each board's
+    journaled commits (``pre_commits``) and delivered cursor
+    (``pre_delivered``), and the windows by which the cursor trailed
+    the commits (``delivery_lag``)."""
+    led = FarmLedger(victim_dir)
+    pre = led.replay()
+    led.close()
+    delivered = {n: js.delivered for n, js in pre.jobs.items()}
+    commits = {n: len(js.commits) for n, js in pre.jobs.items()}
+    return {"pre_delivered": delivered, "pre_commits": commits,
+            "delivery_lag": {n: commits[n] - d
+                             for n, d in delivered.items()}}
+
+
+def killrestart_problems(oracle_dir: str, victim_dir: str, boards,
+                         n_windows: int, victim_returncode: int,
+                         victim: dict, recovered: dict) -> list:
+    """The kill-restart gate over a campaign's three lifetimes (the
+    oracle's journal and per-window files under ``oracle_dir``, the
+    victim's and then the recovery's under ``victim_dir``): the victim
+    died by SIGKILL with delivery already in flight (``victim`` from
+    :func:`victim_journal`), the recovery (``recovered``, its
+    :func:`run_ledger_farm` report) finished every board, resumed at
+    least one mid-stream (window > 0) and replayed fewer windows than it
+    committed, every board of ``boards`` was delivered exactly
+    ``n_windows`` windows across both lifetimes, and the per-window
+    files are bit-identical to the oracle's. Returns the problems."""
+    problems: list = []
+    if victim_returncode != -signal.SIGKILL:
+        problems.append(f"victim exited {victim_returncode}, expected "
+                        f"{-signal.SIGKILL} (SIGKILL'd mid-commit)")
+    # the delivered cursors must already be moving, or the exactly-once
+    # suppression across lifetimes would be exercised vacuously
+    if sum(victim["pre_delivered"].values()) <= 0:
+        problems.append("victim died before delivering any window — the "
+                        "kill landed too early to gate recovery")
+    if recovered:
+        if not recovered.get("ok"):
+            problems.append("recovered run did not finish every board "
+                            "done")
+        if not any(r["window"] > 0
+                   for r in recovered.get("recoveries", [])):
+            problems.append("no board resumed mid-stream (every recovery "
+                            "fell back to window 0)")
+        replayed = recovered.get("windows_replayed", -1)
+        committed = recovered.get("windows_committed", 0)
+        if not 0 <= replayed < committed:
+            problems.append(
+                f"windows_replayed={replayed} not below "
+                f"windows_committed={committed} — recovery replayed the "
+                f"full stream (delivery lag at the kill: "
+                f"{victim['delivery_lag']})")
+    # exactly-once across both lifetimes: the final journal's deliver
+    # cursor per board is exactly the stream length — never short (lost
+    # windows) and never past it (double delivery)
+    led = FarmLedger(victim_dir)
+    final = led.replay()
+    led.close()
+    for name in boards:
+        js = final.jobs.get(name)
+        if js is None or js.status != "done":
+            problems.append(f"{name}: not done in the final journal")
+        elif js.delivered != n_windows:
+            problems.append(f"{name}: delivered cursor {js.delivered} != "
+                            f"{n_windows} windows across both lifetimes")
+    want = _read_window_files(os.path.join(oracle_dir, "outputs"))
+    got = _read_window_files(os.path.join(victim_dir, "outputs"))
+    if len(want) != len(boards) * n_windows:
+        problems.append(f"oracle produced {len(want)} window files, "
+                        f"expected {len(boards) * n_windows}")
+    if got != want:
+        missing = sorted(set(want) - set(got))
+        diff = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+        problems.append(f"outputs diverged from the oracle: "
+                        f"missing={missing[:5]} differing={diff[:5]}")
+    return problems
+
+
+def run_killrestart_smoke(mode: str = "async", n_boards: int = 3,
+                          n_windows: int = 24, kill_after: int = 8,
+                          slots: int = 2, device=None) -> dict:
+    """The ``farm-killrestart-smoke`` gate: whole-process crash recovery.
+    Three lifetimes: (1) a fault-free oracle run in-process; (2) a victim
+    subprocess armed with ``process_kill`` at the ``kill_after``-th
+    journaled commit — it must die by SIGKILL with delivery already in
+    flight; (3) a ``--recover`` subprocess over the victim's ledger that
+    must finish the campaign. ``ok`` requires what
+    :func:`killrestart_problems` gates. The subprocesses run on
+    ``device`` (``--device``) with a timeout of 600 s each; a problem
+    quotes a failed one's stderr tail. ``pre_commits``,
+    ``pre_delivered`` and ``delivery_lag`` are the victim's journal at
+    its death (:func:`victim_journal`)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    device = resolve_device(device)
+    src_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    base = tempfile.mkdtemp(prefix="zp-killrestart-")
+    problems: list = []
+    out: dict = {"mode": mode, "kill_after": kill_after,
+                 "device": str(device), "seconds": {}}
+    try:
+        oracle_dir = os.path.join(base, "oracle")
+        t = time.perf_counter()
+        oracle = run_ledger_farm(oracle_dir, mode=mode, n_boards=n_boards,
+                                 n_windows=n_windows, slots=slots,
+                                 device=device)
+        out["seconds"]["oracle"] = time.perf_counter() - t
+        if not oracle["ok"]:
+            problems.append("fault-free oracle run failed")
+
+        victim_dir = os.path.join(base, "victim")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = src_root + os.pathsep \
+            + env.get("PYTHONPATH", "")
+        common = [sys.executable, "-m", "repro_torch.launch.farm",
+                  "--ledger", victim_dir, f"--{mode}",
+                  "--slots", str(slots), "--device", str(device),
+                  "--ledger-boards", str(n_boards),
+                  "--ledger-windows", str(n_windows)]
+        t = time.perf_counter()
+        victim = subprocess.run(
+            common + ["--kill-after-commits", str(kill_after)],
+            env=env, capture_output=True, text=True, timeout=600)
+        out["seconds"]["victim"] = time.perf_counter() - t
+        out["victim_returncode"] = victim.returncode
+        if victim.returncode != -signal.SIGKILL:
+            problems.append(f"victim stderr: {_tail(victim.stderr)}")
+        # the victim's journal as the recovery will see it
+        pre = victim_journal(victim_dir)
+        out.update(pre)
+
+        t = time.perf_counter()
+        rec = subprocess.run(common + ["--recover"], env=env,
+                             capture_output=True, text=True, timeout=600)
+        out["seconds"]["recover"] = time.perf_counter() - t
+        if rec.returncode != 0:
+            problems.append(f"recovery run exited {rec.returncode}: "
+                            f"{_tail(rec.stderr)}")
+        try:
+            recovered = json.loads(rec.stdout)
+        except ValueError:
+            recovered = {}
+            problems.append("recovery run printed no parseable report")
+        out["recovered"] = recovered
+        problems += killrestart_problems(
+            oracle_dir, victim_dir, [f"board{i}" for i in range(n_boards)],
+            n_windows, victim.returncode, pre, recovered)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["problems"] = problems
+    out["ok"] = not problems
+    return out
+
+
 def write_telemetry(path: str, out: dict, run_key: str) -> str:
     """Dump a farm run's merged telemetry + scope report as JSON, keyed
     by run so repeated invocations MERGE into one file (one mergeable
@@ -848,11 +1213,6 @@ def run_farm(arch: str, steps: int, slots, interval: int = 2,
 def _refused(args) -> str | None:
     """The message for a flag that waits for a later slice, if any."""
     for flag, on, slice_ in (
-            ("--ledger", args.ledger is not None, LEDGER_SLICE),
-            ("--recover", args.recover, LEDGER_SLICE),
-            ("--kill-after-commits", args.kill_after_commits is not None,
-             LEDGER_SLICE),
-            ("--killrestart-smoke", args.killrestart_smoke, LEDGER_SLICE),
             ("--certify", args.certify, CERT_SLICE),
             ("--certify-smoke", args.certify_smoke, CERT_SLICE),
             ("--roofline", args.roofline, ROOFLINE_SLICE)):
@@ -909,22 +1269,38 @@ def main(argv=None):
                          "schedule; exit non-zero unless every fault was "
                          "recovered with oracle-identical outputs and "
                          "the poisoned board quarantined")
+    ap.add_argument("--ledger", metavar="DIR", default=None,
+                    help="attach a ZP-Ledger write-ahead journal at DIR "
+                         "and run the durable toy workload (outputs, "
+                         "snapshots, and journal all under DIR)")
+    ap.add_argument("--recover", action="store_true",
+                    help="with --ledger: rebuild the farm from DIR's "
+                         "journal after a process death and finish the "
+                         "campaign")
+    ap.add_argument("--kill-after-commits", type=int, metavar="N",
+                    default=None,
+                    help="with --ledger: SIGKILL this process at the "
+                         "N-th journaled commit (chaos process_kill — "
+                         "models an OOM kill mid-write-order)")
+    ap.add_argument("--ledger-boards", type=int, default=3,
+                    help="with --ledger: number of toy boards")
+    ap.add_argument("--ledger-windows", type=int, default=24,
+                    help="with --ledger: windows per toy board")
+    ap.add_argument("--killrestart-smoke", action="store_true",
+                    help="whole-process crash-recovery gate: oracle run, "
+                         "SIGKILL'd victim subprocess, --recover "
+                         "subprocess; exit non-zero unless recovery "
+                         "resumed mid-stream with bit-identical outputs "
+                         "and exactly-once delivery across lifetimes")
     # what waits for a later slice: accepted so that it is refused by
     # name, never silently ignored
-    ap.add_argument("--ledger", metavar="DIR", default=None,
-                    help="the durable journal (waits for the ledger slice)")
-    ap.add_argument("--recover", action="store_true",
-                    help="recovery from the journal (the ledger slice)")
-    ap.add_argument("--kill-after-commits", type=int, metavar="N",
-                    default=None, help="process_kill (the ledger slice)")
-    ap.add_argument("--killrestart-smoke", action="store_true",
-                    help="crash-recovery gate (the ledger slice)")
     ap.add_argument("--certify", action="store_true",
                     help="static board certification (ZP-Cert)")
     ap.add_argument("--certify-smoke", action="store_true",
                     help="ZP-Cert admission gate (ZP-Cert)")
     ap.add_argument("--roofline", action="store_true",
-                    help="measured-window roofline (the roofline slice)")
+                    help="measured-window roofline (the measured-window "
+                         "roofline slice)")
     g = ap.add_mutually_exclusive_group()
     g.add_argument("--async", dest="mode", action="store_const",
                    const="async", default="async",
@@ -941,6 +1317,15 @@ def main(argv=None):
         sys.exit(refused)
 
     dev = args.device
+    if args.killrestart_smoke:
+        return _emit(run_killrestart_smoke(mode=args.mode, device=dev))
+    if args.ledger:
+        return _emit(run_ledger_farm(args.ledger, mode=args.mode,
+                                     recover=args.recover,
+                                     kill_after=args.kill_after_commits,
+                                     n_boards=args.ledger_boards,
+                                     n_windows=args.ledger_windows,
+                                     slots=args.slots, device=dev))
     if args.scope_smoke:
         out = run_scope_smoke(mode=args.mode, lanes=args.lanes or 1,
                               every_n=args.scope or 2, slots=args.slots,

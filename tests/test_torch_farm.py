@@ -288,24 +288,52 @@ def test_empty_farm_reports_nothing():
 
 
 # ---------------------------------------------------- deferred options --
+# The first three cases refused ``ledger=`` until the ledger slice; they
+# keep their ids and now hold that the journal works in either host loop
+# and under a failure policy. ZP-Cert still refuses by name.
 @pytest.mark.parametrize("kw,match", [
-    ({"ledger": object(), "mode": "async"}, "next slice"),
-    ({"ledger": object(), "policy": FailurePolicy()}, "next slice"),
-    ({"ledger": object()}, "next slice"),
+    ({"mode": "async"}, None),
+    ({"policy": FailurePolicy()}, None),
+    ({}, None),
     ({"certify": True}, "ZP-Cert"),
-])
-def test_deferred_farm_options_raise_naming_their_slice(kw, match):
-    """What waits for a later slice refuses by name in either host loop
-    and under a failure policy: the durable journal (the ledger slice)
-    and ZP-Cert."""
-    with pytest.raises(NotImplementedError, match=match):
-        _farm(slots=2, **kw)
+], ids=["kw0-next slice", "kw1-next slice", "kw2-next slice",
+        "kw3-ZP-Cert"])
+def test_deferred_farm_options_raise_naming_their_slice(kw, match,
+                                                        tmp_path):
+    """ZP-Cert refuses by name; ``ledger=`` journals the pass (submit,
+    admit, done for every job), delivers what an unjournaled farm
+    delivers, and its journal replays to every job done with every
+    window delivered."""
+    from repro_torch.farm import FarmLedger
+
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            _farm(slots=2, **kw)
+        return
+    ledger = FarmLedger(str(tmp_path))
+    mgr = _farm(slots=2, ledger=ledger, **kw)
+    col = _submit(mgr)
+    rep = mgr.run()
+    ledger.close()
+    assert all(j["status"] == "done" for j in rep["jobs"].values())
+    base, _ = _baseline()
+    for s_ in range(3):
+        assert len(col[f"job{s_}"]) == len(base[s_])
+        assert all(torch.equal(a, b)
+                   for a, b in zip(col[f"job{s_}"], base[s_]))
+    st = FarmLedger(str(tmp_path)).replay()
+    kinds = Counter(r["kind"] for r in FarmLedger(str(tmp_path)).records())
+    assert kinds["submit"] == kinds["admit"] == kinds["done"] == 3
+    assert {n: (j.status, j.delivered) for n, j in st.jobs.items()} == \
+        {n: ("done", len(_windows(0))) for n in col}
 
 
-def test_deferred_job_options_raise_naming_their_slice():
-    """A job's roofline capture, recovery from a journal and the
-    process_kill injection refuse, naming their slices; an unknown mode
-    is a ValueError."""
+def test_deferred_job_options_raise_naming_their_slice(tmp_path):
+    """A job's roofline capture still refuses, naming its slice;
+    recovery from an empty journal is an empty farm, and the
+    process_kill injection arms (it fires only at its point); an unknown
+    mode is a ValueError."""
+    from repro_torch.farm import FarmLedger
     from repro_torch.farm.chaos import ChaosInjector, Injection
 
     mgr = _farm(slots=2)
@@ -313,11 +341,13 @@ def test_deferred_job_options_raise_naming_their_slice():
                state=torch.tensor(0.0), shell={}, stack_fn=_stack)
     with pytest.raises(NotImplementedError, match="roofline"):
         mgr.submit(FarmJob(**job, capture=object()))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        FarmManager.recover(object())
-    with pytest.raises(NotImplementedError, match="ledger slice"):
-        ChaosInjector().arm([Injection("process_kill", "ledger.commit",
-                                       "farm", "*", at=0)])
+    rec = FarmManager.recover(FarmLedger(str(tmp_path)), device="cpu")
+    assert rec.jobs == [] and rec.run()["jobs"] == {}
+    inj = ChaosInjector()
+    inj.arm([Injection("process_kill", "ledger.commit", "farm", "*",
+                       at=0)])
+    assert [i.kind for i in inj.pending] == ["process_kill"]
+    assert inj.fire("ledger.deliver", job="j") is None   # another point
     assert mgr.jobs == []
     with pytest.raises(ValueError, match="mode"):
         _farm(mode="threads")

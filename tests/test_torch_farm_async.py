@@ -284,6 +284,46 @@ def test_async_hung_board_abandoned_and_job_requeued():
         assert not w.is_alive()
 
 
+def test_async_farm_refuses_a_seat_another_farms_loop_holds():
+    """Seats (a slot name on a device) keep one dispatcher thread for the
+    process. While one farm's loop runs on a seat, a second farm with the
+    same slot names is refused with a FarmError naming the seat, and
+    nothing of it runs; once the first farm is done the seat is free and
+    the second farm runs on it."""
+    from repro_torch.farm import FarmError
+
+    entered, release = threading.Event(), threading.Event()
+
+    def held(state, shell, stack):
+        entered.set()
+        release.wait(timeout=30.0)
+        return _engine(state, shell, stack)
+
+    first = _farm(slots=1, mode="async", evict_stragglers=False)
+    col_first = _submit(first, n_jobs=1, engines={0: held})
+    reports = []
+    runner = threading.Thread(target=lambda: reports.append(first.run()))
+    runner.start()
+    second = _farm(slots=1, mode="async", evict_stragglers=False)
+    col_second = _submit(second, n_jobs=1)
+    try:
+        assert entered.wait(timeout=30.0)
+        with pytest.raises(FarmError, match=r"seat .* held by another"):
+            second.run()
+        assert col_second == {"job0": []}
+    finally:
+        release.set()
+        runner.join(timeout=30.0)
+    assert not runner.is_alive()
+    assert reports[0]["jobs"]["job0"]["status"] == "done"
+    base, _, _ = _run_mode("lockstep", n_jobs=1)
+    _same(base, col_first)
+    again = _farm(slots=1, mode="async", evict_stragglers=False)
+    col_again = _submit(again, n_jobs=1)
+    assert again.run()["jobs"]["job0"]["status"] == "done"
+    _same(base, col_again)
+
+
 def test_async_queue_depth_two_spreads_before_stacking():
     """With slot_queue_depth=2, admission is least-loaded-first: three
     equal jobs land on three DIFFERENT slots (full parallelism), not two

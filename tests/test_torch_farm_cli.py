@@ -124,22 +124,58 @@ def test_write_telemetry_merges_runs_by_key(tmp_path):
 
 
 # ------------------------------------------------------- refused flags --
+# The first four cases refused the ledger flags until the ledger slice;
+# they keep their ids and now run them: ``--ledger DIR`` a durable toy
+# campaign, ``--recover`` over its journal, ``--kill-after-commits`` a
+# victim (in a subprocess: it SIGKILLs its own process) and
+# ``--killrestart-smoke`` the whole gate (lockstep here; both modes in
+# test_torch_farm_ledger.py). ZP-Cert and the roofline still refuse.
 @pytest.mark.parametrize("flags,slice_", [
-    (["--ledger", "journal"], "ledger slice"),
-    (["--recover"], "ledger slice"),
-    (["--kill-after-commits", "3"], "ledger slice"),
-    (["--killrestart-smoke"], "ledger slice"),
+    (["--ledger"], None),
+    (["--recover"], None),
+    (["--kill-after-commits", "3"], None),
+    (["--killrestart-smoke", "--lockstep"], None),
     (["--certify"], "ZP-Cert"),
     (["--certify-smoke"], "ZP-Cert"),
     (["--roofline"], "roofline slice"),
-])
-def test_cli_refuses_what_waits_for_a_later_slice(flags, slice_):
+], ids=["flags0-ledger slice", "flags1-ledger slice", "flags2-ledger slice",
+        "flags3-ledger slice", "flags4-ZP-Cert", "flags5-ZP-Cert",
+        "flags6-roofline slice"])
+def test_cli_refuses_what_waits_for_a_later_slice(flags, slice_, tmp_path,
+                                                  capsys):
     """Each flag of the reference's CLI that waits for a later slice
-    exits non-zero naming it, before anything runs; none is ignored."""
-    with pytest.raises(SystemExit) as e:
+    exits non-zero naming it, before anything runs; none is ignored. The
+    ledger flags run and report ok."""
+    if slice_ is not None:
+        with pytest.raises(SystemExit) as e:
+            cli.main(flags + ["--device", "cpu"])
+        assert isinstance(e.value.code, str) and slice_ in e.value.code
+        assert flags[0] in e.value.code
+        return
+    led = ["--ledger", str(tmp_path), "--ledger-boards", "2",
+           "--ledger-windows", "6", "--device", "cpu"]
+    if flags[0] == "--kill-after-commits":
+        done = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.farm", *led, *flags],
+            cwd=ROOT, env=_env(), capture_output=True, text=True,
+            timeout=120)
+        assert done.returncode == -signal.SIGKILL, done.stderr[-2000:]
+        flags = ["--recover"]           # and the campaign still finishes
+    elif flags[0] == "--recover":
+        cli.main(led)                   # a finished campaign to recover
+        capsys.readouterr()
+    if flags[0] == "--killrestart-smoke":
         cli.main(flags + ["--device", "cpu"])
-    assert isinstance(e.value.code, str) and slice_ in e.value.code
-    assert flags[0] in e.value.code
+    else:
+        cli.main(led + [f for f in flags if f != "--ledger"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["ok"] and not out.get("problems")
+    if flags[0] == "--recover":
+        assert out["recover"] and out["windows_delivered"] == 12
+    elif flags[0] == "--ledger":
+        assert not out["recover"] and set(out["jobs"]) == {"board0",
+                                                          "board1"}
+        assert len(cli._read_window_files(str(tmp_path / "outputs"))) == 12
 
 
 # ------------------------------------------------------------ subprocess --

@@ -9,8 +9,10 @@ under vmap), a lane-batched smoke farm against its solo run, the bytes
 CUDA-graph private pools hold across serves, and the async farm's
 threads: two threads on two streams launching K1 and K2 (exact counts,
 bitwise), a window graph captured on a thread beside eager launches,
-first-use kernel builds from two threads, and the async smoke farm
-against lockstep. They skip where CUDA is absent.
+first-use kernel builds from two threads, the async smoke farm
+against lockstep, ten consecutive async farm passes leaving no bytes
+after the first, and ZP-Ledger recovering a campaign of card outputs.
+They skip where CUDA is absent.
 On a machine with an NVIDIA card:
 
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -1299,3 +1301,79 @@ def test_async_smoke_farm_equals_lockstep_bitwise(cuda):
                                      out[mode]["telemetry"]["retries"])
     for key in ("train", "decode", "verify"):
         assert out["async"][key] == out["lockstep"][key], key
+
+
+def test_async_farm_passes_leave_no_bytes_after_the_first(cuda):
+    """Ten consecutive async farm passes of glm4-9b's smoke boards (bf16)
+    on 8 seats in one process: the seats' threads and streams live for
+    the process, so from the second pass on each pass leaves exactly the
+    bytes it found (no cuBLAS workspace for a new handle and stream pair)
+    and delivers the first pass's checksums."""
+    from repro_torch.core.coemu import verify_subsystems
+    from repro_torch.farm import FarmManager
+
+    cfg = dataclasses.replace(get_smoke_config("glm4-9b"), dtype="bfloat16")
+    params = build_model(cfg).init(0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(2, 16, cfg.d_model, generator=g, device="cuda")
+          .to(torch.bfloat16) for _ in range(4)]
+    pos = torch.arange(16, dtype=torch.int32, device="cuda")[None] \
+        .expand(2, 16).contiguous()
+    left, first = [], None
+    for _ in range(10):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        mgr = FarmManager(slots=8, mode="async", evict_stragglers=False)
+        reps = verify_subsystems(params, cfg, Runtime(), xs, pos,
+                                 list(range(cfg.num_layers)), farm=mgr)
+        cks = {n: torch.cat([y for _, _, y in o])
+               for n, o in mgr.outputs.items()}
+        assert not any(r.diverged for r in reps.values())
+        del mgr, reps
+        torch.cuda.synchronize()
+        left.append(torch.cuda.memory_allocated() - before)
+        if first is None:
+            first = cks
+        assert all(torch.equal(cks[n], first[n]) for n in first)
+    assert left[1:] == [0] * 9, left
+
+
+def test_ledger_journals_a_farm_of_card_outputs(cuda, tmp_path):
+    """ZP-Ledger on the card: a durable campaign of toy boards whose
+    window outputs are CUDA tensors' host copies, cut at its third
+    window and recovered from the journal, delivers every window once
+    across both lifetimes, equal to an unjournaled run on the card."""
+    from repro_torch.farm import FarmLedger, FarmManager
+    from repro_torch.launch.farm import _read_window_files, ledger_board_spec
+
+    def campaign(d, ledger):
+        mgr = FarmManager(slots=2, mode="async", evict_stragglers=False,
+                          poll_s=0.01, ledger=ledger)
+        for i in range(2):
+            mgr.submit_spec(ledger_board_spec(f"board{i}", float(i + 1), 8,
+                                              str(d)))
+        return mgr
+
+    off = campaign(tmp_path / "off", None)
+    off.run()
+    led = FarmLedger(str(tmp_path / "on"))
+    mgr = campaign(tmp_path / "on", led)
+    for job in mgr.jobs:
+        def cut(plan, records, ys, _m=mgr):
+            assert ys.device.type == "cpu"      # the window's host copy
+            if plan.index >= 3:
+                _m.request_shutdown()
+        job.verify = cut
+    assert mgr.run(strict=False)["interrupted"]
+    led.close()
+    rec = FarmManager.recover(FarmLedger(str(tmp_path / "on")), slots=2,
+                              mode="async", evict_stragglers=False,
+                              poll_s=0.01)
+    rep = rec.run()
+    rec.ledger.close()
+    assert any(r["window"] > 0 for r in rep["telemetry"]["recoveries"])
+    st = FarmLedger(str(tmp_path / "on")).replay()
+    assert {n: (j.status, j.delivered) for n, j in st.jobs.items()} == \
+        {"board0": ("done", 8), "board1": ("done", 8)}
+    assert _read_window_files(str(tmp_path / "on" / "outputs")) == \
+        _read_window_files(str(tmp_path / "off" / "outputs"))
