@@ -391,6 +391,32 @@ freed): one dispatcher thread and one CUDA stream per slot.
                repro_torch.launch.farm --steps 8` in a subprocess (exit
                0), and one with --synthetic-straggler sent SIGINT once
                its farm runs (exit 130 with a partial report).
+ 56. farm-certify — ZP-Cert on the same weights, before they are freed:
+               (a) trace-only certification (one engine call on fake
+               tensors) of phase 50's 40 layer boards, phase 51's graphed
+               decode board and phase 53's train board, their trees (the
+               first window's stack, the train state drawn by its
+               factory) built first: no error finding on any; while it
+               runs, the allocated bytes, the allocator's peak (reset just
+               before), every kernel's launches and the build directory
+               stay exactly as they were (under no_dispatch_guard); the
+               layer boards' reports list 2 flash_attention calls a
+               window, 160 over the 40 boards' windows (phase 50's
+               launches), the decode's 40 decode_attention calls a step;
+               seconds per certification. (b) Two FarmManager(certify=
+               True) farms, lockstep then async (4 slots, a journal in a
+               temporary directory), each given layers 0-7 as boards,
+               the CLI's graphed decode board (submit_decode_job,
+               captured by prewarm) and the CLI's poison board (.item()
+               in its window body): the poison board is quarantined at
+               submit, its engine never runs, the journal holds its
+               certify_fail record and the telemetry a failed
+               certification; the boards' checksums equal phase 50's
+               solo ones and the tokens phase 3's, to the bit; K1
+               exactly 8 x 4 and K2 exactly 40 x 63 over the run. (c) In
+               subprocesses, together: `python -m repro_torch.launch.farm
+               --certify-smoke` (async and --lockstep) and `python -m
+               repro_torch.analysis --strict --archs`, each exiting 0.
 
 The last four archs run after the examples, each at full width and
 depth from random weights drawn on the card from seed 0, with every
@@ -2646,6 +2672,215 @@ def farm_cli_phase():
     return rec
 
 
+def _build_listing():
+    """The kernel build directory's files with their sizes and mtimes."""
+    from repro_torch.kernels import _build
+    d = _build.library_path("flash_attention").parent
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(d.iterdir())} if d.exists() else {}
+
+
+def farm_certify_phase(cfg, params, serve_rec, farm_rec):
+    """Phase 56: ZP-Cert at glm4-9b's full width (see the module
+    docstring). Returns the record."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.analysis import certify_job, job_trees, \
+        no_dispatch_guard, warm_fake_device
+    from repro_torch.core.coemu import submit_subsystem_jobs
+    from repro_torch.core.graphs import launch_counts
+    from repro_torch.farm import FarmLedger, FarmManager
+    from repro_torch.kernels import is_traced
+    from repro_torch.launch import farm as cli
+    from repro_torch.models import Runtime
+
+    rec: dict = {}
+    t_phase = time.perf_counter()
+    # (c) the CLI gates, in subprocesses started first, together
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = {"certify_smoke_async": ["-m", "repro_torch.launch.farm",
+                                    "--certify-smoke"],
+            "certify_smoke_lockstep": ["-m", "repro_torch.launch.farm",
+                                       "--certify-smoke", "--lockstep"],
+            "analysis_strict_archs": ["-m", "repro_torch.analysis",
+                                      "--strict", "--archs"]}
+    procs = {k: subprocess.Popen([sys.executable, *c], cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+    try:
+        # (a) trace-only certification of the full-width boards
+        torch.cuda.empty_cache()
+        xs, pos = _farm_inputs(cfg)
+        holder = FarmManager(slots=1, device="cuda")    # never run
+        with torch.inference_mode():
+            submit_subsystem_jobs(holder, params, cfg, Runtime(), xs, pos,
+                                  list(range(cfg.num_layers)),
+                                  group_size=FARM_GROUP, rtol=FARM_RTOL)
+        cli.submit_decode_job(holder, cfg, gen=GEN, interval=INTERVAL,
+                              batch=BATCH, prompt_len=PROMPT, seed=0,
+                              device="cuda", params=params)
+        cli.submit_train_job(
+            holder, dataclasses.replace(cfg, num_layers=MIXED_TRAIN_LAYERS),
+            MIXED_TRAIN_STEPS, FARM_GROUP, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            seed=0, device="cuda", lr=TRAIN_LR)
+        boards = [(job, job_trees(job)) for job in holder.jobs]
+        warm_fake_device("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {"allocated": torch.cuda.memory_allocated(),
+                  "peak": torch.cuda.max_memory_allocated(),
+                  "launches": launch_counts(), "builds": _build_listing()}
+        reports, secs, peaks = {}, {}, {}
+        with no_dispatch_guard():
+            for job, trees in boards:
+                t = time.perf_counter()
+                reports[job.name] = certify_job(job, trees=trees)
+                secs[job.name] = time.perf_counter() - t
+                if torch.cuda.max_memory_allocated() != before["peak"]:
+                    peaks.setdefault(job.name,
+                                     torch.cuda.max_memory_allocated())
+        assert not peaks, ("the peak moved while certifying", peaks)
+        after = {"allocated": torch.cuda.memory_allocated(),
+                 "peak": torch.cuda.max_memory_allocated(),
+                 "launches": launch_counts(), "builds": _build_listing()}
+        assert after == before, (before, after)
+        bad = {n: r.summary() for n, r in reports.items() if r.errors}
+        assert not bad, bad
+        layer_jobs = [j for j, _ in boards if j.name.startswith("layer")]
+        assert len(layer_jobs) == cfg.num_layers
+        assert FARM_STEPS % FARM_GROUP == 0
+        windows = FARM_STEPS // FARM_GROUP
+        k1_calls = sum(reports[j.name].kernels.get("flash_attention", 0)
+                       * windows for j in layer_jobs)
+        assert all(reports[j.name].kernels == {"flash_attention":
+                                               FARM_GROUP}
+                   for j in layer_jobs), \
+            {j.name: reports[j.name].kernels for j in layer_jobs}
+        assert k1_calls == farm_rec["solo"]["k1_launches"] \
+            == cfg.num_layers * FARM_STEPS, k1_calls
+        assert reports["decode"].kernels == {
+            "decode_attention": cfg.num_layers * INTERVAL}, \
+            reports["decode"].kernels
+        rec["trace_only"] = {
+            "boards": len(reports), "errors": 0,
+            "warnings": {n: [str(f) for f in r.warnings]
+                         for n, r in reports.items() if r.warnings},
+            "unchanged": sorted(before), "memory": after["allocated"],
+            "flash_attention_calls": k1_calls,
+            "kernels": {n: r.kernels for n, r in reports.items()
+                        if not n.startswith("layer")},
+            "writes": {n: len(r.writes) for n, r in reports.items()
+                       if not n.startswith("layer")},
+            "seconds": {"layer_boards": [secs[j.name]
+                                         for j in layer_jobs],
+                        "decode": secs["decode"], "train": secs["train"],
+                        "total": sum(secs.values())}}
+        print(f"farm-certify (a): {len(reports)} boards clean, "
+              f"{k1_calls} flash_attention calls listed, "
+              f"{sum(secs.values()):.2f} s (layer board max "
+              f"{max(secs[j.name] for j in layer_jobs):.3f} s, decode "
+              f"{secs['decode']:.2f} s, train {secs['train']:.2f} s), "
+              f"decode writes {reports['decode'].writes[:2]}...",
+              flush=True)
+        del holder, boards, reports, layer_jobs
+        torch.cuda.empty_cache()
+
+        # (b) two certify=True farms
+        for mode in ("lockstep", "async"):
+            with tempfile.TemporaryDirectory() as tmp:
+                ledger = FarmLedger(tmp)
+                mgr = FarmManager(slots=MIXED_SLOTS, mode=mode,
+                                  evict_stragglers=False, ledger=ledger,
+                                  certify=True)
+                toks = cli.submit_decode_job(
+                    mgr, cfg, gen=GEN, interval=INTERVAL, batch=BATCH,
+                    prompt_len=PROMPT, seed=0, device="cuda", params=params)
+                with torch.inference_mode():
+                    finalize = submit_subsystem_jobs(
+                        mgr, params, cfg, Runtime(), xs, pos,
+                        list(range(FARM_MIXED)), group_size=FARM_GROUP,
+                        rtol=FARM_RTOL)
+                poison = cli._poison_board()
+                ran = []
+                real = poison.engine
+
+                def engine(state, shell, stack, real=real, ran=ran):
+                    if not is_traced(state):
+                        ran.append(1)
+                    return real(state, shell, stack)
+
+                poison.engine = engine
+                mgr.submit(poison)
+                assert poison.status == "quarantined" \
+                    and "ZC101" in poison.error, poison.error
+                assert all(j.name != "poison" for j in mgr.queue)
+                cli.prewarm(mgr)
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.perf_counter()
+                rep = mgr.run(strict=False)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t
+                got = counts()
+                kinds = [r for r in ledger.records()
+                         if r["kind"] == "certify_fail"]
+                ledger.close()
+            assert not ran, "the poison board's engine ran"
+            assert [r["job"] for r in kinds] == ["poison"] \
+                and kinds[0]["rules"] == ["ZC101"], kinds
+            certs = rep["telemetry"]["certifications"]
+            assert [c["job"] for c in certs if not c["ok"]] == ["poison"], \
+                certs
+            assert rep["jobs"]["poison"]["status"] == "quarantined"
+            assert all(j["status"] == "done" for n, j in rep["jobs"].items()
+                       if n != "poison"), rep["jobs"]
+            expect_counts(got, {"k1": FARM_MIXED * FARM_STEPS,
+                                "k2": serve_rec["launches"]["k2"]},
+                          f"farm-certify {mode}")
+            assert np.concatenate(toks, axis=1).tolist() \
+                == serve_rec["tokens"], f"{mode}: tokens differ"
+            for n in (f"layer{i}" for i in range(FARM_MIXED)):
+                cks = torch.cat([y for _, _, y in mgr.outputs[n]]).tolist()
+                assert cks == farm_rec["solo_checksums"][n], (mode, n)
+            bad = {k: r.summary() for k, r in finalize().items()
+                   if r.diverged}
+            assert not bad, (mode, bad)
+            rec[mode] = {"k1_launches": got["k1"], "k2_launches": got["k2"],
+                         "seconds": run_s, "quarantined": ["poison"],
+                         "certify_fail_rules": kinds[0]["rules"],
+                         "tokens_equal_serve": True,
+                         "checksums_equal_solo": True}
+            print(f"farm-certify (b) {mode}: poison dead-lettered "
+                  f"({kinds[0]['rules']}), K1 {got['k1']}, K2 {got['k2']}, "
+                  f"{run_s:.2f} s", flush=True)
+            del mgr, finalize, rep
+            torch.cuda.empty_cache()
+
+        # (c) the CLI gates' results
+        for k, proc in procs.items():
+            out, _ = _communicate(" ".join(cmds[k]), proc, 600)
+            if k.startswith("certify_smoke"):
+                res = json.loads(out)
+                assert res["ok"] and res["jobs"]["poison"]["status"] \
+                    == "quarantined", res
+            else:
+                assert "0 board errors" in out and "0 race findings" in out, \
+                    out[-2000:]
+            rec[k] = {"returncode": proc.returncode}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"farm-certify (c): {sorted(procs)} exit 0; phase "
+          f"{rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def _subprocess_failed(what, proc, out, err):
     """Print a failed subprocess's stdout and stderr tails, then raise
     naming it."""
@@ -3834,6 +4069,15 @@ def main() -> int:
     record["farm_mixed"] = farm_mixed
     k1["launches_farm_mixed"] = farm_mixed["async"]["k1_launches"]
     k2["launches_farm_mixed"] = farm_mixed["async"]["k2_launches"]
+
+    # ------------------------------------------------- 56. farm-certify --
+    farm_certify = farm_certify_phase(cfg, params, serve_rec, farm)
+    log(phase="farm_certify", **farm_certify)
+    record["farm_certify"] = farm_certify
+    k1["launches_certify"] = {m: farm_certify[m]["k1_launches"]
+                              for m in ("lockstep", "async")}
+    k2["launches_certify"] = {m: farm_certify[m]["k2_launches"]
+                              for m in ("lockstep", "async")}
     del params, model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

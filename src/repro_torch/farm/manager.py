@@ -112,17 +112,24 @@ reproducible from a seed.
 ZP-Ledger (``FarmManager(ledger=FarmLedger(dir))``, ``farm/ledger.py``):
 every control-plane decision is journaled (fsync'd) at the reference's
 points, committed windows are delivered to ``on_drain`` as their commits
-land (``_deliver_upto``), and ``FarmManager.recover`` rebuilds a farm
-from its journal after whole-process death: each job from its journaled
+land (``_deliver_upto``; an async slot thread dispatches its next window
+only once the control plane has delivered its commit), and
+``FarmManager.recover`` rebuilds a farm from its journal after
+whole-process death: each job from its journaled
 ``JobSpec`` (``submit_spec``), resumed from the newest on-disk snapshot
 ``choose_resume`` accepts, with the windows the dead process delivered
 suppressed — ``on_drain`` stays exactly-once across process lifetimes.
 Each journal call fires the ``ledger.<kind>`` injection point after its
 record is on disk (the chaos ``process_kill`` target).
 
+ZP-Cert (``FarmManager(certify=True)``, ``analysis/boardcheck.py``): every
+submitted board is certified at admission by one trace on fake tensors (no
+dispatch); a board with an error finding is dead-lettered unrun
+(``quarantined``), with a journaled ``certify_fail`` record and a
+telemetry ``certify`` verdict, and never reaches a slot.
+
 What waits for a later slice raises NotImplementedError naming it:
-``certify=True`` (ZP-Cert), ``FarmJob.capture`` (the measured-window
-roofline).
+``FarmJob.capture`` (the measured-window roofline).
 
 The port's engines may update their state in place, so every attempt
 dispatches from fresh copies of ``FarmJob.state``/``shell`` (or from
@@ -549,7 +556,8 @@ class _SlotWorker:
         mgr.wd.heartbeat(self.slot.name, gap=False)   # picked up: alive
         if run.ready is not None:
             self.stream.wait_event(run.ready)   # the inputs are made
-        t_dispatched: Dict[int, float] = {}           # window idx -> t0
+        t_dispatched: Dict[int, tuple] = {}   # window idx -> (t0, held)
+        held = [0.0]    # seconds held for commits' delivery (ledger mode)
 
         def on_drain(k, plan, records, ys):
             if run.closed:
@@ -562,12 +570,15 @@ class _SlotWorker:
             mgr.wd.heartbeat(self.slot.name, gap=False)
             td = t_dispatched.pop(plan.index, None)
             if td is not None and plan.index > 0:
+                t0, held0 = td
                 # measured window WALL (dispatch -> results in hand) is the
                 # async straggler signal; window 0 pays one-off warm-up
                 # (kernel builds, library loads, captures), not slowness; a
                 # lane-batched window is N boards of work, normalized to
                 # per-board cost
-                wall = mgr.clock() - td
+                # time the thread was held for the control plane (a
+                # commit's delivery) is not the board's: left out
+                wall = mgr.clock() - t0 - (held[0] - held0)
                 mgr.wd.observe(self.slot.name, wall,
                                lanes=run.lane_count)
                 if run.scope_plane is not None:
@@ -613,11 +624,19 @@ class _SlotWorker:
             mgr._publish_snapshot(run, plan, state, shell)
             if mgr.ledger is not None and run.lanes is None:
                 # ledger mode: the commit makes its window deliverable
-                # now. The window's drain went to the control plane just
-                # before the commit, and the next one comes only after
-                # the next window's commit (a whole snapshot save later),
-                # so a crash in between would lose that window's delivery
-                mgr._results.put(("commit", run))
+                # now, and the board dispatches its next window only once
+                # the control plane has delivered it. Left to run ahead,
+                # a board commits faster than the control thread fsyncs
+                # its deliveries on a loaded host, and a crash then finds
+                # the delivered cursor windows behind the commits (every
+                # one of them replayed); held, it trails by at most the
+                # commit in hand
+                t0 = mgr.clock()
+                delivered = threading.Event()
+                mgr._results.put(("commit", run, delivered))
+                while not delivered.wait(mgr.poll_s) and not run.closed:
+                    pass
+                held[0] += mgr.clock() - t0
 
         inject = None
         if mgr.injector is not None:
@@ -643,7 +662,7 @@ class _SlotWorker:
                         mgr._results.put(
                             ("done", run, driver.state, driver.shell))
                     break
-                t_dispatched[plan.index] = t0
+                t_dispatched[plan.index] = (t0, held[0])
                 mgr.telemetry.dispatch(self.slot.name, mgr._key(run, plan),
                                        mgr.clock() - t0)
                 driver.advance()          # drains window i-1 on THIS thread
@@ -686,7 +705,9 @@ class FarmManager(ClientPolicy):
     ``lanes`` sets the lane capacity of auto-built slots: at admission,
     queued jobs sharing a ``lane_key`` (and :func:`lane_compatible` in
     engine/plumbing/window shape) are coalesced into ONE vmap-fused run
-    of up to that many boards per dispatch stream. ``clock`` times
+    of up to that many boards per dispatch stream. ``certify`` certifies
+    each job at submit and dead-letters it on an error finding (ZP-Cert,
+    ``_certify_submit``). ``clock`` times
     dispatch costs and window walls (the straggler signals), backoff
     gates and telemetry; tests inject one."""
 
@@ -708,10 +729,6 @@ class FarmManager(ClientPolicy):
                  device=None):
         if mode not in ("lockstep", "async"):
             raise ValueError(f"unknown farm mode: {mode!r}")
-        if certify:
-            raise NotImplementedError(
-                "certify=True waits for ZP-Cert, the static board "
-                "certifier of the port's analysis/ (the ZP-Cert slice)")
         self._slots_arg = slots
         self.device = (None if isinstance(slots, (list, tuple))
                        else resolve_device(device))
@@ -729,6 +746,7 @@ class FarmManager(ClientPolicy):
         self.poll_s = poll_s
         self.policy = policy
         self.ledger = ledger        # FarmLedger: durable journal (ZP-Ledger)
+        self.certify = certify      # ZP-Cert admission gate (boardcheck)
         self.clock = clock
         self.injector = None        # chaos harness hook (farm/chaos.py)
 
@@ -766,6 +784,8 @@ class FarmManager(ClientPolicy):
                 "FarmJob.capture (a measured-window roofline capture) "
                 "waits for the measured-window roofline slice of the port "
                 "(roofline/, WindowCapture)")
+        if self.certify and not self._certify_submit(job):
+            return job          # dead-lettered at admission, never queued
         self.jobs.append(job)
         self.queue.append(job)
         spec = None
@@ -777,6 +797,38 @@ class FarmManager(ClientPolicy):
                 # on recovery with a reason instead of raising here)
         self._journal("submit", job=job.name, spec=spec)
         return job
+
+    @control_thread_only
+    def _certify_submit(self, job: FarmJob) -> bool:
+        """ZP-Cert admission gate: statically certify the board (one trace
+        on fake tensors, no device dispatch) before it can ever reach a
+        slot. A board with error-severity findings is dead-lettered with a
+        durable ``certify_fail`` record — co-submitted healthy jobs are
+        unaffected. Warnings go to telemetry and the report but never
+        gate. Returns True if the job may enter the queue."""
+        from repro_torch.analysis.boardcheck import Finding, certify_job
+        try:
+            findings = certify_job(job).findings
+        except Exception as e:  # noqa: BLE001 — a certifier crash must
+            # not take down the farm's intake; treat it as uncertifiable
+            findings = [Finding(rule="ZC100", severity="error",
+                                summary="certification crashed",
+                                detail=repr(e))]
+        errors = [f for f in findings if f.severity == "error"]
+        warnings = [f for f in findings if f.severity == "warning"]
+        if warnings:
+            self.telemetry.certify(job.name, warnings, ok=not errors)
+        if not errors:
+            return True
+        why = "; ".join(f"{f.rule}: {f.summary}" for f in errors)
+        job.status = "quarantined"
+        job.error = f"certification failed: {why}"
+        self.jobs.append(job)
+        self.telemetry.certify(job.name, errors, ok=False)
+        self.telemetry.quarantine(job.name, job.error)
+        self._journal("certify_fail", job=job.name, why=why,
+                      rules=sorted({f.rule for f in errors}))
+        return False
 
     def submit_spec(self, spec, registry: Any = None) -> FarmJob:
         """Build and submit a serializable :class:`~repro_torch.farm.
@@ -1233,15 +1285,18 @@ class FarmManager(ClientPolicy):
             self._canary_verdict(slot_name, ok, err)
             return
         kind, run = msg[0], msg[1]
+        if kind == "commit":            # ledger mode: deliver what the
+            try:                        # commit made deliverable, then
+                self._deliver_committed(run)    # let the board go on
+            finally:
+                msg[2].set()
+            return
         if run.closed:                  # stale message from an abandoned
             return                      # thread: the run is already gone
         if kind == "drain":
             _, _, plan, records, ys = msg
             run.outputs.append((plan, records, ys))
             self._deliver_committed(run)
-            return
-        if kind == "commit":            # ledger mode: deliver what the
-            self._deliver_committed(run)    # commit made deliverable
             return
         if kind == "lane_drain":
             _, _, plan, delivered, faulted = msg

@@ -41,8 +41,9 @@ the chaos harness): per-job retry counts with their backoff, quarantined
 (dead-lettered) jobs, circuit-breaker trips/probes per slot, snapshot
 integrity fallbacks, and a fault-recovery log pairing every injected
 fault with the recovery path that absorbed it, and the crash-recovery
-log of ZP-Ledger (the jobs a dead process's journal resumed). The
-certification channel comes with ZP-Cert.
+log of ZP-Ledger (the jobs a dead process's journal resumed), and the
+ZP-Cert admission gate's verdicts (``certify``: a board dead-lettered
+unrun for error findings, or admitted with warnings).
 
 All mutation is lock-protected: slot threads record concurrently while
 the control plane reads reports. Every event log is a BOUNDED deque with
@@ -122,6 +123,8 @@ class FarmTelemetry:
         # ----- failure-policy channels -----
         self.retries = _BoundedLog(max_events)  # {job, attempt, backoff_s}
         self.quarantined = _BoundedLog(max_events)      # {job, why}
+        self.certifications = _BoundedLog(max_events)   # ZP-Cert: {job,
+        # ok, rules, findings} — admission-gate verdicts with findings
         self.breaker_events = _BoundedLog(max_events)   # {slot, event, ..}
         self.fallbacks = _BoundedLog(max_events)        # snapshot fallbacks
         self.faults = _BoundedLog(max_events)   # fault-recovery log
@@ -266,6 +269,16 @@ class FarmTelemetry:
         with self._lock:
             self.quarantined.append({"job": job, "why": why})
 
+    def certify(self, job: str, findings, ok: bool = True):
+        """ZP-Cert admission-gate verdict for ``job``: ``ok=False`` means
+        error-severity findings dead-lettered it unrun; ``ok=True`` with
+        findings records warnings that did not gate."""
+        with self._lock:
+            self.certifications.append({
+                "job": job, "ok": bool(ok),
+                "rules": sorted({f.rule for f in findings}),
+                "findings": [f.as_dict() for f in findings]})
+
     def breaker(self, slot: str, event: str, detail: str = ""):
         """Circuit-breaker transition on ``slot``: ``trip`` (benched after
         too many failures in the scoring window), ``probe`` (canary
@@ -351,6 +364,7 @@ class FarmTelemetry:
             vetoes = sum(self.vetoes.values())
             retries = [dict(r) for r in self.retries]
             quarantined = [dict(q) for q in self.quarantined]
+            certifications = [dict(c) for c in self.certifications]
             breaker_events = [dict(b) for b in self.breaker_events]
             fallbacks = [dict(f) for f in self.fallbacks]
             faults = [dict(f) for f in self.faults]
@@ -363,6 +377,7 @@ class FarmTelemetry:
                 ("occupancy", self.occupancy_samples),
                 ("retries", self.retries),
                 ("quarantined", self.quarantined),
+                ("certifications", self.certifications),
                 ("breaker_events", self.breaker_events),
                 ("fallbacks", self.fallbacks),
                 ("faults", self.faults),
@@ -385,6 +400,7 @@ class FarmTelemetry:
             "resumes": resumes,
             "retries": retries,
             "quarantined": quarantined,
+            "certifications": certifications,
             "breaker_trips": trips,
             "breaker_events": breaker_events,
             "fallbacks": fallbacks,
@@ -412,6 +428,10 @@ class FarmTelemetry:
             policy.append(f"{len(r['retries'])} retries")
         if r["quarantined"]:
             policy.append(f"{len(r['quarantined'])} quarantined")
+        if r["certifications"]:
+            n_fail = sum(not c["ok"] for c in r["certifications"])
+            policy.append(f"{n_fail} certify-failed of "
+                          f"{len(r['certifications'])} flagged")
         if r["breaker_trips"]:
             policy.append(
                 f"{sum(r['breaker_trips'].values())} breaker trips")

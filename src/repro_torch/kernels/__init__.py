@@ -4,10 +4,13 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 _SMS: dict = {}                    # device index -> streaming multiprocessors
 _COUNT_LOCK = threading.Lock()
 _TALLIES = threading.local()       # .counts: kernel wrapper -> this thread's
+_TRACED = threading.local()        # .counts: kernel name -> this thread's
+# calls on fake tensors (the board certifier's trace)
 
 
 def count_launch(fn, n: int = 1) -> None:
@@ -27,6 +30,35 @@ def count_launch(fn, n: int = 1) -> None:
 def thread_launches(fn) -> int:
     """The launches ``fn`` counted on the calling thread."""
     return getattr(_TALLIES, "counts", {}).get(fn, 0)
+
+
+def is_traced(t) -> bool:
+    """True for a fake tensor: one with a shape, a dtype and a device but
+    no storage, as the board certifier (``analysis/boardcheck.py``) traces
+    a window with. A wrapper handed one checks its shapes, returns an
+    output of the kernel's shape and dtype on the input's device, and
+    launches, builds and counts nothing (``note_traced`` records the call
+    instead). A meta tensor is not one: the wrappers refuse it, as any
+    device but the card and the host."""
+    return isinstance(t, FakeTensor)
+
+
+def note_traced(fn) -> None:
+    """Record one call of the kernel wrapper ``fn`` on traced tensors in
+    the calling thread's trace tally (``traced_counts``)."""
+    counts = getattr(_TRACED, "counts", None)
+    if counts is None:
+        counts = _TRACED.counts = {}
+    counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
+
+
+def traced_counts(reset: bool = False) -> dict:
+    """The kernel calls the calling thread made on traced tensors, by
+    kernel name (``reset``: start a new tally after reading it)."""
+    counts = dict(getattr(_TRACED, "counts", {}))
+    if reset:
+        _TRACED.counts = {}
+    return counts
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -19,8 +19,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (_build, count_launch, refuse_grad,
-                                  refuse_vmap, sm_count)
+from repro_torch.kernels import (_build, count_launch, is_traced,
+                                  note_traced, refuse_grad, refuse_vmap,
+                                  sm_count)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
@@ -90,7 +91,8 @@ def _check(q, k, v, pos, window):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+    if not is_traced(q) and (q.data_ptr() % 16 or k.data_ptr() % 16
+                             or v.data_ptr() % 16):
         raise ValueError("q, k and v must be 16-byte aligned (the kernel "
                          "copies them in 16-byte vectors)")
     if B * K > 65535:
@@ -107,6 +109,11 @@ def decode_attention(q, k, v, *, pos, window: int, softcap: float = 0.0):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos=pos, window=window,
                                     softcap=softcap)
+    if is_traced(q):                    # the certifier's trace
+        refuse_grad("decode_attention", q, k, v)
+        _check(q, k, v, pos, window)
+        note_traced(decode_attention)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, "
                          f"not {q.device}")

@@ -23,8 +23,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import (_build, count_launch, refuse_grad,
-                                  refuse_vmap, sm_count)
+from repro_torch.kernels import (_build, count_launch, is_traced,
+                                  note_traced, refuse_grad, refuse_vmap,
+                                  sm_count)
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -111,6 +112,11 @@ def grouped_gemm(x, w):
     the result in x's dtype, through the kernel ``choose_path`` names."""
     if x.device.type == "cpu":
         return grouped_gemm_ref(x, w)
+    if is_traced(x):                    # the certifier's trace
+        refuse_grad("grouped_gemm", x, w)
+        _check(x, w)
+        note_traced(grouped_gemm)
+        return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
     return _launch(x, w, None)
 
 

@@ -26,8 +26,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (_build, count_launch, refuse_grad,
-                                  refuse_vmap, sm_count)
+from repro_torch.kernels import (_build, count_launch, is_traced,
+                                  note_traced, refuse_grad, refuse_vmap,
+                                  sm_count)
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 PATHS = ("tma", "registers")
@@ -114,6 +115,11 @@ def rglru_scan(a, b, h0):
     a, b, h0 = a.float(), b.float(), h0.float()
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    if is_traced(a):                    # the certifier's trace
+        refuse_grad("rglru_scan", a, b, h0)
+        _check(a, b, h0)
+        note_traced(rglru_scan)
+        return torch.empty_like(a), torch.empty_like(h0)
     return _launch(a, b, h0, None)
 
 

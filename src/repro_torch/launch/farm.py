@@ -60,7 +60,13 @@ The gates, each exiting non-zero unless it holds:
                       replayed than committed, every window delivered
                       exactly once across both lifetimes, and the
                       per-window output files bit-identical to the
-                      oracle's.
+                      oracle's;
+  --certify-smoke     the ZP-Cert admission gate: a ``certify=True`` farm
+                      given healthy toy boards and one board with a host
+                      sync (``.item()``) in its window body must
+                      dead-letter that one at submit, unrun, with a
+                      journaled ``certify_fail`` record, while the healthy
+                      boards finish bit-identical to an uncertified run.
 
 ``--ledger DIR`` runs the durable toy workload (``--ledger-boards`` boards
 of ``--ledger-windows`` windows, journal, snapshots and per-window
@@ -70,8 +76,9 @@ the farm from DIR's journal and finishes the campaign,
 commit.
 
 ``--scope N`` runs the mixed workload with the ZP-Scope plane read every N
-drains; ``--telemetry-out PATH`` merges the run's telemetry and scope
-report into a JSON file by run key.
+drains; ``--certify`` certifies every board at admission (ZP-Cert);
+``--telemetry-out PATH`` merges the run's telemetry and scope report into
+a JSON file by run key.
 
 SIGINT (^C) and SIGTERM during a farm run are a GRACEFUL stop: every
 board is cut at its next drain boundary, committed prefixes and
@@ -80,8 +87,7 @@ printed, and the process exits ``128 + signum`` (130 for SIGINT, 143 for
 SIGTERM). A second signal kills immediately.
 
 What waits for a later slice exits non-zero with a message naming it:
-``--certify`` and ``--certify-smoke`` (ZP-Cert), ``--roofline`` (the
-measured-window roofline).
+``--roofline`` (the measured-window roofline).
 """
 from __future__ import annotations
 
@@ -117,9 +123,7 @@ from repro_torch.train.optim import OptConfig
 from repro_torch.train.step import init_state, make_group_step
 from repro_torch.utils import dtype_of, resolve_device, tree_leaves
 
-# the CLI flags of the reference that wait for a later slice of the port
-CERT_SLICE = ("waits for ZP-Cert, the static board certifier of the "
-              "port's analysis/ (the ZP-Cert slice)")
+# the CLI flag of the reference that waits for a later slice of the port
 ROOFLINE_SLICE = ("waits for the measured-window roofline slice of the "
                   "port (roofline/, WindowCapture)")
 
@@ -280,9 +284,12 @@ def prewarm(mgr) -> float:
     warm-up takes that as its eager window). Each call gets fresh copies
     of the job's state and shell, which the port's engines may update in
     place (the reference calls each engine on the job's own state); the
-    results are dropped. Returns the seconds it took."""
+    results are dropped. A job dead-lettered at submit (ZP-Cert) is
+    skipped. Returns the seconds it took."""
     t0 = time.perf_counter()
     for job in mgr.jobs:
+        if job.status == "quarantined":     # dead-lettered: never runs
+            continue
         windows = job.windows() if callable(job.windows) else job.windows
         firsts: dict = {}               # window length -> its first items
         for items in windows:
@@ -1057,6 +1064,94 @@ def run_killrestart_smoke(mode: str = "async", n_boards: int = 3,
     return out
 
 
+def _poison_board(n_windows: int = 4) -> FarmJob:
+    """A board ZP-Cert must reject at admission: the engine reads a value
+    back to the host (``.item()``) inside the window body — the silent
+    per-window host-sync class (rule ZC101)."""
+    def engine(state, shell, stack):
+        host = state.item()
+        return state + host, shell, stack * 2.0
+
+    return FarmJob(
+        name="poison", engine=engine,
+        windows=[[np.float32(i)] for i in range(n_windows)],
+        state=torch.tensor(0.0), shell={}, stack_fn=_toy_stack)
+
+
+def run_certify_smoke(work_dir: str | None = None, mode: str = "async",
+                      slots: int = 2, n_boards: int = 2,
+                      n_windows: int = 8, device=None) -> dict:
+    """The ``farm-certify-smoke`` gate: a ``certify=True`` farm given
+    ``n_boards`` healthy toy boards plus one statically broken board
+    (:func:`_poison_board`) must dead-letter the broken one AT ADMISSION —
+    an unrun quarantine with a durable ``certify_fail`` journal record —
+    while the co-submitted healthy boards finish bit-identical to a
+    ``certify=False`` oracle run of the same boards, on ``device``."""
+    import shutil
+    import tempfile
+    device = resolve_device(device)
+    base = work_dir or tempfile.mkdtemp(prefix="zp_certify_")
+    own = work_dir is None
+    problems = []
+    out = {"mode": mode, "device": str(device)}
+    kw = dict(slots=slots, mode=mode, evict_stragglers=False, poll_s=0.01,
+              device=device)
+    try:
+        cert_dir = os.path.join(base, "certified")
+        ledger = FarmLedger(cert_dir)
+        mgr = FarmManager(ledger=ledger, certify=True, **kw)
+        for i in range(n_boards):
+            mgr.submit_spec(ledger_board_spec(
+                f"board{i}", float(i + 1), n_windows, cert_dir))
+        poison = mgr.submit(_poison_board())
+        if poison.status != "quarantined":
+            problems.append("poison board was not quarantined at submit")
+        report = mgr.run(strict=False)
+        fails = [r for r in ledger.records()
+                 if r.get("kind") == "certify_fail"]
+        ledger.close()
+        if not any(r.get("job") == "poison" for r in fails):
+            problems.append("no certify_fail journal record for poison")
+        if not any(not c["ok"] for c in
+                   report["telemetry"].get("certifications", [])):
+            problems.append("no failed-certification telemetry event")
+        healthy = {k: v for k, v in report["jobs"].items()
+                   if k != "poison"}
+        if not all(j["status"] == "done" for j in healthy.values()):
+            problems.append(f"healthy boards did not finish: "
+                            f"{ {k: j['status'] for k, j in healthy.items()} }")
+
+        oracle_dir = os.path.join(base, "oracle")
+        oracle = FarmManager(**kw)
+        for i in range(n_boards):
+            oracle.submit_spec(ledger_board_spec(
+                f"board{i}", float(i + 1), n_windows, oracle_dir))
+        oracle_report = oracle.run(strict=False)
+        if not all(j["status"] == "done"
+                   for j in oracle_report["jobs"].values()):
+            problems.append("oracle run did not finish")
+        got = _read_window_files(os.path.join(cert_dir, "outputs"))
+        want = _read_window_files(os.path.join(oracle_dir, "outputs"))
+        if len(want) != n_boards * n_windows:
+            problems.append(f"oracle produced {len(want)} window files, "
+                            f"expected {n_boards * n_windows}")
+        if got != want:
+            problems.append("certified run's outputs diverged from the "
+                            "uncertified oracle")
+        out.update(
+            jobs=report["jobs"],
+            certify_fail_records=fails,
+            certifications=report["telemetry"].get("certifications", []),
+            windows_delivered=sum(j["windows_delivered"]
+                                  for j in healthy.values()))
+    finally:
+        if own:
+            shutil.rmtree(base, ignore_errors=True)
+    out["problems"] = problems
+    out["ok"] = not problems
+    return out
+
+
 def write_telemetry(path: str, out: dict, run_key: str) -> str:
     """Dump a farm run's merged telemetry + scope report as JSON, keyed
     by run so repeated invocations MERGE into one file (one mergeable
@@ -1096,9 +1191,10 @@ def run_farm(arch: str, steps: int, slots, interval: int = 2,
              synthetic_straggler: bool = False, straggler_factor: float = 6.0,
              seed: int = 0, mode: str = "async",
              handle_sigint: bool = False, scope: ScopeSpec = None,
-             device=None) -> dict:
+             certify: bool = False, device=None) -> dict:
     """The mixed workload — a train board, a decode board and two verify
-    boards of ``arch``'s smoke config — through one farm pass."""
+    boards of ``arch``'s smoke config — through one farm pass
+    (``certify``: each board certified at admission, ZP-Cert)."""
     device = resolve_device(device)
     cfg = get_smoke_config(arch)
     # min_s floors the straggler RATIO check: the mixed workload's boards
@@ -1106,7 +1202,8 @@ def run_farm(arch: str, steps: int, slots, interval: int = 2,
     # a one-layer verify window), so sub-200ms medians are never flagged
     # however large the ratio — only genuinely slow boards are evictable
     mgr = FarmManager(slots=slots, straggler_factor=straggler_factor,
-                      straggler_min_s=0.2, mode=mode, device=device)
+                      straggler_min_s=0.2, mode=mode, certify=certify,
+                      device=device)
 
     losses = submit_train_job(mgr, cfg, steps, interval, seed=seed,
                               device=device)
@@ -1212,13 +1309,7 @@ def run_farm(arch: str, steps: int, slots, interval: int = 2,
 
 def _refused(args) -> str | None:
     """The message for a flag that waits for a later slice, if any."""
-    for flag, on, slice_ in (
-            ("--certify", args.certify, CERT_SLICE),
-            ("--certify-smoke", args.certify_smoke, CERT_SLICE),
-            ("--roofline", args.roofline, ROOFLINE_SLICE)):
-        if on:
-            return f"farm: {flag} {slice_}"
-    return None
+    return f"farm: --roofline {ROOFLINE_SLICE}" if args.roofline else None
 
 
 def _emit(out: dict):
@@ -1292,12 +1383,17 @@ def main(argv=None):
                          "subprocess; exit non-zero unless recovery "
                          "resumed mid-stream with bit-identical outputs "
                          "and exactly-once delivery across lifetimes")
+    ap.add_argument("--certify-smoke", action="store_true",
+                    help="ZP-Cert admission gate: a certify=True farm "
+                         "must dead-letter a host-syncing board at "
+                         "submit (durable certify_fail record) while "
+                         "healthy boards finish oracle-identical")
+    ap.add_argument("--certify", action="store_true",
+                    help="statically certify every submitted board "
+                         "(ZP-Cert boardcheck) before it can reach a "
+                         "slot; error findings dead-letter the job")
     # what waits for a later slice: accepted so that it is refused by
     # name, never silently ignored
-    ap.add_argument("--certify", action="store_true",
-                    help="static board certification (ZP-Cert)")
-    ap.add_argument("--certify-smoke", action="store_true",
-                    help="ZP-Cert admission gate (ZP-Cert)")
     ap.add_argument("--roofline", action="store_true",
                     help="measured-window roofline (the measured-window "
                          "roofline slice)")
@@ -1317,6 +1413,9 @@ def main(argv=None):
         sys.exit(refused)
 
     dev = args.device
+    if args.certify_smoke:
+        return _emit(run_certify_smoke(mode=args.mode, slots=args.slots,
+                                       device=dev))
     if args.killrestart_smoke:
         return _emit(run_killrestart_smoke(mode=args.mode, device=dev))
     if args.ledger:
@@ -1354,7 +1453,7 @@ def main(argv=None):
                        synthetic_straggler=args.synthetic_straggler,
                        straggler_factor=args.straggler_factor,
                        mode=args.mode, handle_sigint=True, scope=scope,
-                       device=dev)
+                       certify=args.certify, device=dev)
     except KeyboardInterrupt:
         # ^C before the farm was running (job setup) or a second ^C
         # during the graceful drain: nothing to keep, exit the

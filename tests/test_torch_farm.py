@@ -288,22 +288,24 @@ def test_empty_farm_reports_nothing():
 
 
 # ---------------------------------------------------- deferred options --
-# The first three cases refused ``ledger=`` until the ledger slice; they
-# keep their ids and now hold that the journal works in either host loop
-# and under a failure policy. ZP-Cert still refuses by name.
+# The first three cases refused ``ledger=`` until the ledger slice, the
+# fourth ``certify=True`` until ZP-Cert; they keep their ids and now hold
+# that the journal works in either host loop, under a failure policy and
+# behind the certification gate (clean boards pass it unchanged).
 @pytest.mark.parametrize("kw,match", [
     ({"mode": "async"}, None),
     ({"policy": FailurePolicy()}, None),
     ({}, None),
-    ({"certify": True}, "ZP-Cert"),
+    ({"certify": True}, None),
 ], ids=["kw0-next slice", "kw1-next slice", "kw2-next slice",
         "kw3-ZP-Cert"])
 def test_deferred_farm_options_raise_naming_their_slice(kw, match,
                                                         tmp_path):
-    """ZP-Cert refuses by name; ``ledger=`` journals the pass (submit,
-    admit, done for every job), delivers what an unjournaled farm
-    delivers, and its journal replays to every job done with every
-    window delivered."""
+    """``ledger=`` journals the pass (submit, admit, done for every job),
+    delivers what an unjournaled farm delivers, and its journal replays to
+    every job done with every window delivered; with ``certify=True`` the
+    clean boards are admitted as before and no ``certify_fail`` record is
+    written."""
     from repro_torch.farm import FarmLedger
 
     if match is not None:
@@ -324,6 +326,7 @@ def test_deferred_farm_options_raise_naming_their_slice(kw, match,
     st = FarmLedger(str(tmp_path)).replay()
     kinds = Counter(r["kind"] for r in FarmLedger(str(tmp_path)).records())
     assert kinds["submit"] == kinds["admit"] == kinds["done"] == 3
+    assert kinds["certify_fail"] == 0
     assert {n: (j.status, j.delivered) for n, j in st.jobs.items()} == \
         {n: ("done", len(_windows(0))) for n in col}
 

@@ -15,6 +15,7 @@ microseconds of host time.
 """
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -192,8 +193,24 @@ def test_flapping_slot_trips_breaker_and_readmits_after_canary():
     slots = enumerate_slots(min_slots=2, device="cpu")
     mgr = _farm(slots=slots, mode="async", evict_stragglers=False,
                 poll_s=0.01, policy=policy)
-    flappy = slots[0].name
-    inj = ChaosInjector(telemetry=mgr.telemetry)
+    flappy, healthy = slots[0].name, slots[1].name
+
+    class HoldHealthy(ChaosInjector):
+        """Holds the healthy slot's dispatches until the control plane has
+        handled the flapping slot's first crash (the crashed job is back
+        in the queue): otherwise the healthy slot can take every job
+        first, and the flapping slot never gets the second job it must
+        crash on to trip its breaker."""
+
+        def fire(self, point, job=None, slot=None, **ctx):
+            if point == "slot.dispatch" and slot == healthy:
+                deadline = time.monotonic() + 30.0
+                while not any(j.requeues for j in mgr.jobs) \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.001)
+            return super().fire(point, job=job, slot=slot, **ctx)
+
+    inj = HoldHealthy(telemetry=mgr.telemetry)
     inj.arm([
         Injection("slot_crash", "slot.dispatch", "slot", flappy, at=0),
         Injection("slot_crash", "slot.dispatch", "slot", flappy, at=1),

@@ -129,14 +129,17 @@ def test_write_telemetry_merges_runs_by_key(tmp_path):
 # campaign, ``--recover`` over its journal, ``--kill-after-commits`` a
 # victim (in a subprocess: it SIGKILLs its own process) and
 # ``--killrestart-smoke`` the whole gate (lockstep here; both modes in
-# test_torch_farm_ledger.py). ZP-Cert and the roofline still refuse.
+# test_torch_farm_ledger.py). The next two refused until ZP-Cert and now
+# run: ``--certify`` the mixed farm behind the certification gate (every
+# board admitted), ``--certify-smoke`` the admission gate (both modes in
+# test_torch_certify_farm.py). The roofline still refuses.
 @pytest.mark.parametrize("flags,slice_", [
     (["--ledger"], None),
     (["--recover"], None),
     (["--kill-after-commits", "3"], None),
     (["--killrestart-smoke", "--lockstep"], None),
-    (["--certify"], "ZP-Cert"),
-    (["--certify-smoke"], "ZP-Cert"),
+    (["--certify", "--lockstep", "--steps", "4"], None),
+    (["--certify-smoke", "--lockstep"], None),
     (["--roofline"], "roofline slice"),
 ], ids=["flags0-ledger slice", "flags1-ledger slice", "flags2-ledger slice",
         "flags3-ledger slice", "flags4-ZP-Cert", "flags5-ZP-Cert",
@@ -145,7 +148,7 @@ def test_cli_refuses_what_waits_for_a_later_slice(flags, slice_, tmp_path,
                                                   capsys):
     """Each flag of the reference's CLI that waits for a later slice
     exits non-zero naming it, before anything runs; none is ignored. The
-    ledger flags run and report ok."""
+    ledger and ZP-Cert flags run and report ok."""
     if slice_ is not None:
         with pytest.raises(SystemExit) as e:
             cli.main(flags + ["--device", "cpu"])
@@ -164,13 +167,20 @@ def test_cli_refuses_what_waits_for_a_later_slice(flags, slice_, tmp_path,
     elif flags[0] == "--recover":
         cli.main(led)                   # a finished campaign to recover
         capsys.readouterr()
-    if flags[0] == "--killrestart-smoke":
+    if flags[0] in ("--killrestart-smoke", "--certify", "--certify-smoke"):
         cli.main(flags + ["--device", "cpu"])
     else:
         cli.main(led + [f for f in flags if f != "--ledger"])
     out = json.loads(capsys.readouterr().out)
     assert out["ok"] and not out.get("problems")
-    if flags[0] == "--recover":
+    if flags[0] == "--certify":
+        assert all(j["status"] == "done" for j in out["jobs"].values())
+        assert not any(c for c in out["telemetry"]["certifications"]
+                       if not c["ok"])
+    elif flags[0] == "--certify-smoke":
+        assert [r["job"] for r in out["certify_fail_records"]] == ["poison"]
+        assert out["jobs"]["poison"]["status"] == "quarantined"
+    elif flags[0] == "--recover":
         assert out["recover"] and out["windows_delivered"] == 12
     elif flags[0] == "--ledger":
         assert not out["recover"] and set(out["jobs"]) == {"board0",

@@ -1377,3 +1377,103 @@ def test_ledger_journals_a_farm_of_card_outputs(cuda, tmp_path):
         {"board0": ("done", 8), "board1": ("done", 8)}
     assert _read_window_files(str(tmp_path / "on" / "outputs")) == \
         _read_window_files(str(tmp_path / "off" / "outputs"))
+
+
+# ------------------------------------------------------------- ZP-Cert --
+def _traced_calls(dev):
+    """Each wrapper on fake tensors of real CUDA inputs (the certifier's
+    trace): (kernel key, call, expected output shapes)."""
+    bf = torch.bfloat16
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev).to(dtype)
+    return {
+        "k1": (lambda m: fa_ops.flash_attention(
+            *(m.from_tensor(x) for x in (t(2, 64, 4, 128, dtype=bf),
+                                         t(2, 64, 2, 128, dtype=bf),
+                                         t(2, 64, 2, 128, dtype=bf)))),
+               [(2, 64, 4, 128)]),
+        "k2": (lambda m: ops.decode_attention(
+            m.from_tensor(t(2, 32, 128, dtype=bf)),
+            m.from_tensor(t(2, 96, 2, 128, dtype=bf)),
+            m.from_tensor(t(2, 96, 2, 128, dtype=bf)),
+            pos=m.from_tensor(torch.tensor(40, dtype=torch.int32,
+                                           device=dev)), window=96),
+               [(2, 32, 128)]),
+        "k3": (lambda m: ssm_ops.ssm_scan(
+            *(m.from_tensor(x) for x in (t(2, 16, 64), t(64, 16),
+                                         t(2, 16, 16), t(2, 16, 16),
+                                         t(2, 16, 64)))),
+               [(2, 16, 64), (2, 64, 16)]),
+        "k4": (lambda m: lru_ops.rglru_scan(
+            *(m.from_tensor(x) for x in (t(2, 16, 64), t(2, 16, 64),
+                                         t(2, 64)))),
+               [(2, 16, 64), (2, 64)]),
+        "k5": (lambda m: gg_ops.grouped_gemm(
+            m.from_tensor(t(4, 8, 64, dtype=bf)),
+            m.from_tensor(t(4, 64, 32, dtype=bf))), [(4, 8, 32)]),
+    }
+
+
+@pytest.mark.parametrize("key", ["k1", "k2", "k3", "k4", "k5"])
+def test_kernel_traced_branch_launches_nothing(cuda, key):
+    """A wrapper handed fakes of real CUDA tensors returns fakes of the
+    kernel's shape on the card, launches, builds and allocates nothing,
+    and notes the call in the trace tally."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    from repro_torch.analysis import no_dispatch_guard
+    from repro_torch.kernels import traced_counts
+
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    call, shapes = _traced_calls(cuda)[key]
+    torch.cuda.synchronize()
+    before = {k: fn.launches for k, fn in KERNELS.items()}
+    traced_counts(reset=True)
+    with no_dispatch_guard(), mode:
+        out = call(mode)
+    outs = out if isinstance(out, tuple) else (out,)
+    assert [tuple(o.shape) for o in outs] == shapes
+    assert all(isinstance(o, FakeTensor) and o.device.type == "cuda"
+               for o in outs)
+    assert traced_counts(reset=True) == {KERNELS[key].__name__: 1}
+    assert {k: fn.launches for k, fn in KERNELS.items()} == before
+
+
+def test_certify_card_boards_trace_only(cuda):
+    """The smoke decode board (graphed) and a subsystem board on the card
+    certify clean under the no-dispatch guard, listing their K2 and K1
+    calls, with the card's allocated bytes and peak unchanged."""
+    from repro_torch.analysis import certify_job, job_trees, \
+        no_dispatch_guard, warm_fake_device
+    from repro_torch.core.coemu import submit_subsystem_jobs
+    from repro_torch.farm import FarmManager
+    from repro_torch.launch.farm import submit_decode_job
+
+    cfg = get_smoke_config("glm4-9b")
+    params = build_model(cfg).init(0, device=cuda)
+    mgr = FarmManager(slots=1, device=cuda)
+    submit_decode_job(mgr, cfg, gen=9, interval=4, batch=2, prompt_len=8,
+                      seed=0, device=cuda, params=params)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xs = [torch.randn(2, 16, cfg.d_model, generator=g,
+                      device=cuda).bfloat16() for _ in range(2)]
+    pos = torch.arange(16, dtype=torch.int32, device=cuda)[None] \
+        .expand(2, 16).contiguous()
+    with torch.inference_mode():
+        submit_subsystem_jobs(mgr, params, cfg, Runtime(), xs, pos, [0],
+                              group_size=2)
+    trees = [(j, job_trees(j)) for j in mgr.jobs]
+    warm_fake_device(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    with no_dispatch_guard():
+        reports = {j.name: certify_job(j, trees=t) for j, t in trees}
+    assert (torch.cuda.memory_allocated(),
+            torch.cuda.max_memory_allocated()) == mem
+    assert all(r.ok for r in reports.values()), \
+        {n: r.summary() for n, r in reports.items()}
+    assert reports["decode"].kernels == {
+        "decode_attention": cfg.num_layers * 4}
+    assert reports["layer0"].kernels == {"flash_attention": 2}
