@@ -417,6 +417,34 @@ freed): one dispatcher thread and one CUDA stream per slot.
                subprocesses, together: `python -m repro_torch.launch.farm
                --certify-smoke` (async and --lockstep) and `python -m
                repro_torch.analysis --strict --archs`, each exiting 0.
+ 57. roofline — the measured-window roofline (roofline/) on the same
+               weights. (a) Phase 3's graphed serve carries its capture:
+               8 windows and 63 steps; one step's counted FLOPs within 2 %
+               of the analytic count (2 x the products' parameters x B,
+               and K2's 4·B·H·ring·hd a layer: testing.decode_step_flops);
+               a step's counted bytes at least the weights' bf16 bytes;
+               its tokens equal the eager run's to the bit. The cost pass
+               alone, on the graphed run's own decode cache right after
+               it, under no_dispatch_guard: the allocated bytes, the peak
+               (reset just before), the launches and the build directory
+               unchanged, its seconds printed, its FLOPs x 63 the capture's.
+               The HBM and bf16 shares over the pipelined wall and over
+               the windows' device time (CUDA events). (b) Phase 39's
+               clean train_loop with its capture: its windows and steps
+               the loop's, each window's device time above 0, their sum
+               within the loop's wall. (c) A capture on layer 0's board of
+               a farm of phase 50's boards 0, 1, 38 and 39 (K1 on its
+               path), force-evicted once, lockstep then async: its rows
+               exactly the windows delivered (0 and 1), each with a device
+               time; K1 exactly 2 a window dispatch, 16 for the four
+               boards plus the evicted attempt's; the checksums equal
+               phase 50's solo ones to the bit. Beside them, in
+               subprocesses: `python -m repro_torch.launch.farm --roofline`
+               (async and --lockstep), each exiting 0 and printing
+               "roofline". (d) Every kernel's bound in phases 5, 10, 17,
+               25-27, 34, 35 and 49 is its module's cost (kernels/*/ops.py
+               ::cost) over roofline/hw.py's rates (K3's exponentials at
+               hw.exp_rate of the card's SMs and maximum SM clock).
 
 The last four archs run after the examples, each at full width and
 depth from random weights drawn on the card from seed 0, with every
@@ -531,14 +559,6 @@ ROOT = Path(__file__).resolve().parent
 # run, and deterministic mode (the train phase) allows cuBLAS
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, str(ROOT / "src"))
-
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-# exponentials (MUFU.EX2) a clock per SM on compute capability 9.0: the
-# arithmetic-instruction throughput table of the CUDA C++ Programming
-# Guide; times the SMs and the maximum SM clock the card reports
-SFU_PER_CLOCK_PER_SM = 16
 
 # glm4-9b serve cell; its decode is profiled from window TRACED on
 ARCH, BATCH, PROMPT, GEN, INTERVAL = "glm4-9b", 8, 2048, 64, 8
@@ -986,7 +1006,7 @@ def _serve_run(cfg, params, graph):
     return out, timer, got, peak, trace
 
 
-def serve_phase(cfg, params):
+def serve_phase(cfg, params, roofline_gate=False):
     """serve() on ``cfg`` at the serve cell with ``params``, twice: with
     the eager engine (``graph=False``), then with every decode window one
     CUDA-graph replay (the full window and the tail captured before the
@@ -999,8 +1019,11 @@ def serve_phase(cfg, params):
     must have run once per attention layer and K5 three times per MoE
     layer per decode step besides (``testing.serve_kernels``), counted as
     replays in the graph run. The two runs must agree to the bit (tokens,
-    every drained FIFO row and CSR, the final cache). Returns the graph
-    run's record (the eager run's under "eager") and its trace."""
+    every drained FIFO row and CSR, the final cache). Each record keeps
+    its run's measured-window roofline; ``roofline_gate`` runs phase 57
+    (a) on the graph run (``serve_roofline_gate``, on its own decode
+    cache before it leaves the card). Returns the graph run's record (the
+    eager run's under "eager") and its trace."""
     from repro_torch.testing import assert_serve_equal, serve_kernels
     from repro_torch.utils import tree_map
 
@@ -1011,6 +1034,9 @@ def serve_phase(cfg, params):
     for engine in ("eager", "graph"):
         out, timer, got, peak, trace = _serve_run(cfg, params,
                                                   engine == "graph")
+        gate = None
+        if roofline_gate and engine == "graph":
+            gate = serve_roofline_gate(cfg, params, out)
         # the final cache waits for the comparison on the host, so the
         # next run's prefill has its memory (2.6 GB at command-r-35b)
         out["cache"] = tree_map(lambda t: t.cpu(), out["cache"])
@@ -1035,7 +1061,9 @@ def serve_phase(cfg, params):
                                    "decode_tok_per_s", "decode_window_ms",
                                    "decode_fifo_rows", "generated",
                                    "tokens", "engine", "windows_by_engine",
-                                   "capture_s")}
+                                   "capture_s", "roofline")}
+        if gate is not None:
+            rec["roofline_gate"] = gate
         rec.update(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                    sample_interval=INTERVAL, layers=cfg.num_layers,
                    launches=got, launches_in_prefill=timer.counts_at_decode,
@@ -1044,9 +1072,86 @@ def serve_phase(cfg, params):
     assert_serve_equal(runs["graph"][0], runs["eager"][0],
                        f"{cfg.name} serve, graph vs eager")
     rec, trace = runs["graph"][1], runs["graph"][2]
+    if roofline_gate:
+        # the capture rode both runs and moved no token (phase 57 (a))
+        rec["roofline_gate"]["tokens_bitwise_vs_eager"] = True
     rec["eager"] = runs["eager"][1]
     rec["bitwise_vs_eager"] = True
     return rec, trace
+
+
+def serve_roofline_gate(cfg, params, out):
+    """Phase 57 (a) on a graphed serve record ``out`` of the serve cell
+    (with its final decode cache, still on the card): the capture's
+    windows and steps, one step's counted FLOPs against the analytic
+    count, a step's counted bytes against the weights' bytes, and the
+    cost pass alone under no_dispatch_guard on that cache (nothing
+    allocated, launched or built; its FLOPs x 63 the capture's). Returns
+    the record."""
+    import torch
+
+    from repro_torch.analysis import no_dispatch_guard, warm_fake_device
+    from repro_torch.core.pshell import shell_init
+    from repro_torch.launch.serve import (decode_shell_config,
+                                          make_decode_engine)
+    from repro_torch.models import build_model
+    from repro_torch.roofline import HW_H100
+    from repro_torch.roofline.cost import count_cost
+    from repro_torch.testing import decode_step_flops
+    from repro_torch.utils import tree_leaves
+
+    roof = out["roofline"]
+    steps = GEN - 1
+    assert (roof["windows"], roof["steps"]) == (-(-steps // INTERVAL),
+                                                steps) == (8, 63), roof
+    ring = PROMPT + GEN + 8
+    want = decode_step_flops(cfg, BATCH, ring)
+    per_step = roof["hlo_flops"] / steps
+    assert abs(per_step / want - 1) <= 0.02, (per_step, want)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                  if torch.is_tensor(t))
+    assert roof["hlo_bytes"] / steps >= weights, (roof["hlo_bytes"],
+                                                  weights)
+    assert roof["device_s"] > 0, roof
+    # the cost pass alone, on this run's decode cache
+    dev = torch.device("cuda")
+    tok = torch.tensor([r[-1] for r in out["tokens"]], dtype=torch.int32,
+                       device=dev)[:, None]
+    sh = shell_init(decode_shell_config(INTERVAL), dev)
+    engine = make_decode_engine(build_model(cfg), params)
+    warm_fake_device(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    builds = _build_listing()
+    with torch.inference_mode(), no_dispatch_guard():
+        t = time.perf_counter()
+        cost = count_cost(engine, (out["cache"], tok), sh, np.arange(1))
+        cost_s = time.perf_counter() - t
+    assert (torch.cuda.memory_allocated(),
+            torch.cuda.max_memory_allocated()) == mem, mem
+    assert _build_listing() == builds
+    assert cost["flops"] * steps == roof["hlo_flops"], (cost, roof)
+    assert cost["bytes"] * steps == roof["hlo_bytes"], (cost, roof)
+    rec = {
+        "windows": roof["windows"], "steps": roof["steps"],
+        "flops_per_step": per_step, "analytic_flops_per_step": want,
+        "flops_rel_err": per_step / want - 1,
+        "bytes_per_step": roof["hlo_bytes"] / steps,
+        "weight_bytes": weights, "cost_pass_s": cost_s,
+        "device_s": roof["device_s"],
+        "device_s_per_step": roof["device_s_per_step"],
+        "wall_s_per_step": roof["s_per_step"],
+        "hbm_share_wall": roof["peak_hbm_fraction"],
+        "bf16_share_wall": roof["peak_flops_fraction"],
+        "hbm_share_device": roof["hlo_bytes"] / roof["device_s"]
+        / HW_H100.hbm_bw,
+        "bf16_share_device": roof["hlo_flops"] / roof["device_s"]
+        / HW_H100.peak_flops_bf16,
+        "unchanged_under_cost_pass": ["allocated", "peak", "launches",
+                                      "builds"]}
+    print(f"roofline serve: {rec}", flush=True)
+    return rec
 
 
 def serve_parity(archs):
@@ -1128,6 +1233,7 @@ def k3_time(cfg, B, S, exp_per_s, ptxas=None):
     from repro_torch.kernels import sm_count
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.roofline.hw import bound
 
     Din, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -1145,24 +1251,16 @@ def k3_time(cfg, B, S, exp_per_s, ptxas=None):
     ms = time_ms(torch, lambda i: ssm_ops.ssm_scan(*sets[i]), 2, reps=5)
     plain_ms = time_ms(torch, lambda i: ssm_scan_ref(*sets[i]), 1, reps=1)
     ms_2 = time_ms(torch, lambda i: ssm_ops.ssm_scan(*sets[i]), 2, reps=5)
-    elems = B * S * Din
-    # dt, x in and y out; A, B_, C_ in and h_last out, all f32
-    nbytes = 4 * (3 * elems + Din * N + 2 * B * S * N + B * Din * N)
-    exps = elems * N
-    # per state: dt*A, (dt*x)*B, the state's multiply-add, y's
-    # multiply-add; and dt*x per channel and step
-    flops = elems * (6 * N + 1)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    exp_ms = exps / exp_per_s * 1e3
-    flop_ms = flops / F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, exp_ms, flop_ms)
+    # the bound from roofline/: K3's cost of these inputs (f32 bytes,
+    # FLOPs and exponentials) over the card's rates
+    cost = ssm_ops.cost(*sets[0])
+    b = bound(cost, torch.float32, exps_per_s=exp_per_s)
     return {"ms": ms, "ms_repeat": ms_2, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= max(exp_ms, flop_ms)
-            else "operations",
-            "bound_share": bound_ms / ms, "bytes": nbytes, "bytes_ms": bytes_ms,
-            "exps": exps, "exp_ms": exp_ms, "flops": flops,
-            "flop_ms": flop_ms, "plan": plan,
+            "bound_ms": b["bound_s"] * 1e3, "bound_by": b["bound_by"],
+            "bound_share": b["bound_s"] * 1e3 / ms, "bytes": cost["bytes"],
+            "bytes_ms": b["bytes_s"] * 1e3, "exps": cost["exps"],
+            "exp_ms": b["exps_s"] * 1e3, "flops": cost["flops"],
+            "flop_ms": b["flops_s"] * 1e3, "plan": plan,
             "ptxas": (ptxas or {}).get(
                 f"ssm_scan_kernel<{N},{plan['group']}>"),
             "shape": {"B": B, "S": S, "Din": Din, "N": N,
@@ -1185,6 +1283,7 @@ def k2_time(B, H, K, W, hd, pos_val, n_sets, seed):
 
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.roofline.hw import bound
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1227,17 +1326,14 @@ def k2_time(B, H, K, W, hd, pos_val, n_sets, seed):
         if plan[1] not in sweep:
             sweep[plan[1]] = graph_ms(torch, lambda i, plan=plan: ops.launch(
                 qs[i], ks[i], vs[i], pos, W, 0.0, *plan), n_sets, reps=20)
-    n_slots = W if pos_val + 1 >= W else min(W, pos_val + 1)
-    elt = 2                                             # bf16
-    nbytes = (2 * B * H * hd * elt                      # q in, out
-              + 2 * B * n_slots * K * hd * elt          # k, v slots read
-              + 4)                                      # pos
-    flops = 4 * B * H * n_slots * hd                    # QK^T and PV
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    # the bound from roofline/: K2's cost over the slots this run's pos
+    # makes live (the ring's min(W, pos + 1)) over the card's rates
+    cost = ops.cost(qs[0], ks[0], vs[0], slots=pos_val + 1)
+    b = bound(cost, torch.bfloat16)
+    bound_ms, nbytes, flops = b["bound_s"] * 1e3, cost["bytes"], \
+        cost["flops"]
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": b["bound_by"],
             "library_ms": library_ms, "ms_repeat": kernel_ms_2,
             "host_paced_ms": host_paced_ms,
             "library_host_paced_ms": library_host_paced_ms,
@@ -1267,6 +1363,7 @@ def k1_time(B, S, H, K, hd, window, n_sets, seed):
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.roofline.hw import bound
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1307,16 +1404,14 @@ def k1_time(B, S, H, K, hd, window, n_sets, seed):
     plain_ms = time_ms(torch, plain, n_sets, reps=1)
     library_ms = time_ms(torch, library, n_sets, reps=5)
     ms_2 = time_ms(torch, kernel, n_sets, reps=2)
-    # unmasked (query, key) pairs: row r sees min(r + 1, window) keys
-    w = window if window > 0 else S
-    pairs = sum(min(r + 1, w) for r in range(S))
-    flops = 4 * B * H * pairs * hd                 # QK^T and PV
-    nbytes = (2 * B * S * H * hd + 2 * B * S * K * hd) * 2  # q,out,k,v
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    # the bound from roofline/: K1's cost (the unmasked pairs' products;
+    # q, k, v and the output once each) over the card's rates
+    cost = fa_ops.cost(qs[0], ks[0], vs[0], causal=True, window=window)
+    b = bound(cost, torch.bfloat16)
+    bound_ms, nbytes, flops = b["bound_s"] * 1e3, cost["bytes"], \
+        cost["flops"]
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": b["bound_by"],
             "library_ms": library_ms, "ms_repeat": ms_2,
             "bound_share": bound_ms / ms, "bytes": nbytes, "flops": flops,
             "shape": {"B": B, "S": S, "T": S, "H": H, "K": K, "hd": hd,
@@ -1394,6 +1489,7 @@ def k4_time(cfg, B, S, ptxas=None):
     from repro_torch.kernels import sm_count
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.roofline.hw import bound
 
     W = cfg.lru_width
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1413,18 +1509,18 @@ def k4_time(cfg, B, S, ptxas=None):
     dst = torch.empty_like(sets[0][0])
     copy_ms = time_ms(torch, lambda i: dst.copy_(sets[i][0]), 2, reps=10)
     host = host_us(torch, lambda: lru_ops.rglru_scan(*sets[0]))
-    nbytes = 4 * (3 * B * S * W + 2 * B * W)
-    flops = 2 * B * S * W
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flops / F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, flop_ms)
+    # the bound from roofline/: K4's cost over the card's rates
+    cost = lru_ops.cost(*sets[0])
+    b = bound(cost, torch.float32)
+    nbytes, flops = cost["bytes"], cost["flops"]
+    bytes_ms, flop_ms = b["bytes_s"] * 1e3, b["flops_s"] * 1e3
+    bound_ms = b["bound_s"] * 1e3
     return {"ms": ms, "ms_repeat": ms_2, "plain_ms": plain_ms,
             "path_ms": path_ms, "plan": plan, "copy_ms": copy_ms,
             "copy_tb_per_s": 8 * B * S * W / copy_ms / 1e9,
             "tb_per_s": nbytes / ms / 1e9,
             "host_us_per_call": host,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= flop_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": b["bound_by"],
             "bound_share": bound_ms / ms, "bytes": nbytes,
             "bytes_ms": bytes_ms, "flops": flops, "flop_ms": flop_ms,
             "ptxas": ptxas,
@@ -1522,6 +1618,7 @@ def k5_time(E, M, K, N, seed, paths=()):
 
     from repro_torch.kernels.grouped_gemm import ops as gg_ops
     from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+    from repro_torch.roofline.hw import bound
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
@@ -1547,15 +1644,16 @@ def k5_time(E, M, K, N, seed, paths=()):
     ms_2 = time_ms(torch, kernel, 2, reps=10)
     path_ms = {p: time_ms(torch, lambda i, p=p: kernel(i, p), 2, reps=10)
                for p in paths}
-    flops = 2 * E * M * K * N
-    nbytes = 2 * (E * M * K + E * K * N + E * M * N)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    # the bound from roofline/: K5's cost over the card's rates
+    cost = gg_ops.cost(*sets[0])
+    b = bound(cost, bf16)
+    flops, nbytes = cost["flops"], cost["bytes"]
+    bytes_ms, ops_ms = b["bytes_s"] * 1e3, b["flops_s"] * 1e3
+    bound_ms = b["bound_s"] * 1e3
     x, w = sets[0]
     return {"ms": ms, "ms_repeat": ms_2, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": b["bound_by"],
             "bound_share": bound_ms / ms, "bytes": nbytes,
             "bytes_ms": bytes_ms, "flops": flops, "flop_ms": ops_ms,
             "path": gg_ops.choose_path(bf16, M, K, N, x.data_ptr(),
@@ -1939,6 +2037,7 @@ def loop_phase():
     from repro_torch.configs import get_config
     from repro_torch.core.coemu import CommitDivergence
     from repro_torch.models import Runtime, build_model
+    from repro_torch.roofline import WindowCapture
     from repro_torch.testing import deterministic
     from repro_torch.train import (LoopConfig, init_state, make_train_step,
                                    train_loop)
@@ -1960,11 +2059,26 @@ def loop_phase():
         with deterministic():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            clean = train_loop(model, lc, resume=False, oracle_step=oracle)
+            capture = WindowCapture()
+            clean = train_loop(model, lc, resume=False, oracle_step=oracle,
+                               capture=capture)
             torch.cuda.synchronize()
             rec["clean"] = {"seconds": time.perf_counter() - t0,
                             "profile": clean["profile"],
                             "losses": clean["losses"]}
+            # phase 57 (b): the loop's capture, one row a window, each
+            # timed on the card, within the loop's wall
+            roof = clean["roofline"]
+            assert (roof["windows"], roof["steps"]) == (
+                LOOP_STEPS // LOOP_INTERVAL, LOOP_STEPS), roof
+            dev_s = [r["device_s"] for r in capture.rows]
+            assert [r["window"] for r in capture.rows] == list(
+                range(LOOP_STEPS // LOOP_INTERVAL)), capture.rows
+            assert all(d is not None and d > 0 for d in dev_s), dev_s
+            assert sum(dev_s) <= rec["clean"]["seconds"], (
+                dev_s, rec["clean"]["seconds"])
+            rec["roofline"] = {**roof, "window_device_s": dev_s}
+            print(f"roofline loop: {rec['roofline']}", flush=True)
             assert CheckpointManager(str(run)).steps() == [4, 8]
             assert np.isfinite(clean["losses"]).all(), clean["losses"]
             rec["state_bytes"] = _nbytes(clean["state"])
@@ -2669,6 +2783,96 @@ def farm_cli_phase():
     rec["sigint"] = {"returncode": proc.returncode,
                      "jobs": {n: j["status"]
                               for n, j in partial["jobs"].items()}}
+    return rec
+
+
+def roofline_farm_phase(cfg, params, farm_rec):
+    """Phase 57 (c): a capture on layer 0's board of a farm of phase 50's
+    boards FARM_FAULT_LAYERS, force-evicted once, lockstep then async,
+    with the farm CLI's --roofline in subprocesses (both modes) beside
+    them. Returns the record."""
+    import torch
+
+    from repro_torch.core.coemu import submit_subsystem_jobs
+    from repro_torch.farm import FarmManager
+    from repro_torch.models import Runtime
+    from repro_torch.roofline import WindowCapture
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.farm", "--roofline"]
+    procs = {m: subprocess.Popen(cmd + ([] if m == "async" else
+                                        ["--lockstep"]),
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for m in ("async", "lockstep")}
+    rec: dict = {"layers": list(FARM_FAULT_LAYERS), "captured": "layer0"}
+    xs, pos = _farm_inputs(cfg)
+    windows = FARM_STEPS // FARM_GROUP
+    try:
+        for mode in ("lockstep", "async"):
+            mgr = FarmManager(slots=FARM_SLOTS, evict_stragglers=False,
+                              mode=mode)
+            cap = WindowCapture()
+            with torch.inference_mode():
+                finalize = submit_subsystem_jobs(
+                    mgr, params, cfg, Runtime(), xs, pos,
+                    list(FARM_FAULT_LAYERS), group_size=FARM_GROUP,
+                    rtol=FARM_RTOL)
+                job = next(j for j in mgr.jobs if j.name == "layer0")
+                job.capture = cap
+                cap.attach_engine(job.engine)
+                mgr.force_evict("layer0")
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.perf_counter()
+                rep = mgr.run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                got = counts()
+            assert all(j["status"] == "done" for j in rep["jobs"].values())
+            assert rep["jobs"]["layer0"]["requeues"] >= 1, rep["jobs"]
+            outs = mgr.outputs["layer0"]
+            delivered = [p.index for p, _, _ in outs]
+            assert delivered == list(range(windows)), delivered
+            assert [r["window"] for r in cap.rows] == delivered, cap.rows
+            assert all(r["device_s"] is not None and r["device_s"] > 0
+                       for r in cap.rows), cap.rows
+            assert all(r["flops"] > 0 for r in cap.rows), cap.rows
+            for name, o in mgr.outputs.items():
+                got_ck = torch.cat([y for _, _, y in o]).tolist()
+                assert got_ck == farm_rec["solo_checksums"][name], name
+            dispatches = sum(d["dispatch_ms"]["n"]
+                             for d in rep["telemetry"]["devices"].values())
+            n_boards = len(FARM_FAULT_LAYERS)
+            assert dispatches > n_boards * windows, dispatches
+            expect_counts(got, {"k1": FARM_GROUP * dispatches},
+                          f"roofline farm ({mode})")
+            reports = finalize()
+            assert not any(r.diverged for r in reports.values())
+            rec[mode] = {"seconds": secs, "k1_launches": got["k1"],
+                         "window_dispatches": dispatches,
+                         "requeues": rep["jobs"]["layer0"]["requeues"],
+                         "rows": [{k: r[k] for k in ("window", "size",
+                                                     "wall_s", "device_s")}
+                                  for r in cap.rows],
+                         "roofline": cap.report()}
+            print(f"roofline farm ({mode}): {rec[mode]}", flush=True)
+            del mgr, finalize, job, outs, reports
+            torch.cuda.empty_cache()
+        for mode, proc in procs.items():
+            t = time.perf_counter()
+            out, _ = _communicate(f"python -m repro_torch.launch.farm "
+                                  f"--roofline ({mode})", proc, 600)
+            cli = json.loads(out)
+            assert cli["ok"] and cli["roofline"]["windows"] > 0, cli
+            assert cli["roofline"]["device_s"] > 0, cli["roofline"]
+            rec[f"cli_{mode}"] = {"wait_s": time.perf_counter() - t,
+                                  "roofline": cli["roofline"]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return rec
 
 
@@ -3838,6 +4042,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.grouped_gemm import ops as gg_ops
     from repro_torch.models import build_model
+    from repro_torch.roofline.hw import device_exp_rate
     from repro_torch.testing import (check_decode_attention,
                                      check_decode_determinism,
                                      check_flash_attention, layer_kernels,
@@ -3860,7 +4065,9 @@ def main() -> int:
 
     smi = smi_query("name,power.limit")
     sm_clock_mhz = float(smi_query("clocks.max.sm").split()[0])
-    exp_per_s = SFU_PER_CLOCK_PER_SM * sms * sm_clock_mhz * 1e6
+    # the special-function units' exponential rate (K3's bound), from
+    # roofline/: SFU_PER_CLOCK_PER_SM x SMs x the maximum SM clock
+    exp_per_s = device_exp_rate()
     print(f"device: {name} count={count} sms={sms} "
           f"max_sm_clock_mhz={sm_clock_mhz}", flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
@@ -3942,7 +4149,7 @@ def main() -> int:
     # ----------------------------------------------------------- 3. serve --
     cfg = get_config(ARCH)
     params = build_model(cfg).init(0, device="cuda")   # kept for 7 and 8
-    serve_rec, trace = serve_phase(cfg, params)
+    serve_rec, trace = serve_phase(cfg, params, roofline_gate=True)
     launches = serve_rec["launches"]["k2"]
     serve_rec["k2_launches"] = launches
     log(phase="serve", **serve_rec)
@@ -4078,6 +4285,16 @@ def main() -> int:
                               for m in ("lockstep", "async")}
     k2["launches_certify"] = {m: farm_certify[m]["k2_launches"]
                               for m in ("lockstep", "async")}
+
+    # ------------------------------------------------------ 57. roofline --
+    t = time.perf_counter()
+    roofline = {"serve": serve_rec["roofline_gate"],
+                "farm": roofline_farm_phase(cfg, params, farm)}
+    roofline["farm_s"] = time.perf_counter() - t
+    log(phase="roofline", **roofline)
+    record["roofline"] = roofline
+    k1["launches_roofline_farm"] = {m: roofline["farm"][m]["k1_launches"]
+                                    for m in ("lockstep", "async")}
     del params, model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

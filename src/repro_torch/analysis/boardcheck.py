@@ -66,7 +66,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -77,7 +77,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_map_only
 
 from repro_torch.core.graphs import WindowGraphs
-from repro_torch.kernels import traced_counts
+from repro_torch.kernels import traced_cost, traced_counts
 from repro_torch.utils import tree_leaves, tree_map, tree_structure
 
 #: rule id -> (severity, one-line catalog entry)
@@ -445,24 +445,35 @@ def _compare_carry(label: str, tree_in, tree_out) -> List[Finding]:
     return findings
 
 
-# -------------------------------------------------------------- certify --
-def certify_engine(engine: Callable, state, shell, stack, *,
-                   scope=None, state_is_factory: bool = False,
-                   replay_copy: bool = False,
-                   name: str = "engine") -> CertReport:
-    """Certify one engine against the rule catalog by one call on fake
-    tensors. ``state``/``shell``/``stack`` are the initial trees (real or
-    already-fake leaves). ``state_is_factory`` says the job rebuilds its
-    initial state per attempt (``FarmJob.state`` is callable) and
-    ``replay_copy`` that the farm always dispatches it from a copy (a solo
-    job); either makes an in-place state update replay-safe (ZC103).
-    ``scope`` is the job's ScopeSpec (or None) for the fused-plane rule
-    (ZC107)."""
-    report = CertReport(name=name)
-    if engine is None:
-        report.findings.append(_finding(
-            "ZC100", "job has no engine", "nothing to certify"))
-        return report
+# ---------------------------------------------------------------- trace --
+@dataclasses.dataclass
+class Trace:
+    """One engine call on fake tensors (:func:`trace_engine`): the fake
+    ``(state, shell, stack)`` it was handed and their leaves, the
+    generators among them with their states before the call, what it
+    returned or raised, the recorder's findings, and the kernel calls
+    (by name) and their summed cost (``kernels.note_traced``)."""
+    fakes: tuple
+    ins: list
+    gens: list
+    out: Any
+    failure: Optional[BaseException]
+    rec: _Recorder
+    kernels: Dict[str, int]
+    kernel_cost: Dict[str, float]
+
+
+def trace_engine(engine: Callable, state, shell, stack, *,
+                 top: Optional[TorchDispatchMode] = None) -> Trace:
+    """Call ``engine`` once on fakes of ``state``/``shell``/``stack``
+    (real or already-fake leaves) under the fake mode, with the recorder
+    on top of it and ``top`` (a dispatch mode, e.g. the roofline's cost
+    counter) above both, so that ``top`` sees every operator first.
+    Nothing is launched, built or allocated on a card; parameters the
+    engine closes over are read as their fakes, and a write to one lands
+    on its fake. A ``WindowGraphs`` is traced through its ``.engine``
+    (calling it would replay or capture a graph). An exception the
+    engine raises is returned in ``failure``, not raised."""
     if isinstance(engine, WindowGraphs):
         engine = engine.engine  # its __call__ replays or captures a graph
     mode = _fake_mode((state, shell, stack))
@@ -478,15 +489,46 @@ def certify_engine(engine: Callable, state, shell, stack, *,
         gens = [(g, g.get_state()) for t in ins for g in t
                 if isinstance(g, torch.Generator)]
         traced_counts(reset=True)
+        traced_cost(reset=True)
+        modes = (mode, rec) + ((top,) if top is not None else ())
         try:
-            with _certifying(rec), mode, rec:
+            with _certifying(rec), contextlib.ExitStack() as stack_:
+                for m in modes:
+                    stack_.enter_context(m)
                 out = engine(*fakes)
-        except Exception as e:      # noqa: BLE001 — uncertifiable, not fatal
+        except Exception as e:      # noqa: BLE001 — reported, not fatal
             failure = e
         finally:
-            report.kernels = traced_counts(reset=True)
+            kernels = traced_counts(reset=True)
+            kernel_cost = traced_cost(reset=True)
     finally:
         mode.allow_non_fake_inputs = allowed
+    return Trace(fakes=fakes, ins=ins, gens=gens, out=out, failure=failure,
+                 rec=rec, kernels=kernels, kernel_cost=kernel_cost)
+
+
+# -------------------------------------------------------------- certify --
+def certify_engine(engine: Callable, state, shell, stack, *,
+                   scope=None, state_is_factory: bool = False,
+                   replay_copy: bool = False,
+                   name: str = "engine") -> CertReport:
+    """Certify one engine against the rule catalog by one call on fake
+    tensors (:func:`trace_engine`). ``state``/``shell``/``stack`` are the
+    initial trees (real or already-fake leaves). ``state_is_factory``
+    says the job rebuilds its initial state per attempt (``FarmJob.state``
+    is callable) and ``replay_copy`` that the farm always dispatches it
+    from a copy (a solo job); either makes an in-place state update
+    replay-safe (ZC103). ``scope`` is the job's ScopeSpec (or None) for
+    the fused-plane rule (ZC107)."""
+    report = CertReport(name=name)
+    if engine is None:
+        report.findings.append(_finding(
+            "ZC100", "job has no engine", "nothing to certify"))
+        return report
+    tr = trace_engine(engine, state, shell, stack)
+    fakes, ins, gens, out, failure, rec = (tr.fakes, tr.ins, tr.gens,
+                                           tr.out, tr.failure, tr.rec)
+    report.kernels = tr.kernels
 
     # ---- host syncs (recorded even where the trace then failed)
     for what in dict.fromkeys(rec.syncs):

@@ -37,8 +37,11 @@ optional, the bare 4-tuple form is unchanged):
     shell-less (verify) boards;
   * device-aware dispatch — ``place_fn(k, stack)`` runs right before
     client *k*'s engine call (the farm moves the window payload onto the
-    client's device there), and ``on_dispatch(k, plan, state)`` fires
-    right after the dispatch is enqueued;
+    client's device there), ``on_enqueue(k, plan, engine, state, shell,
+    stack)`` returns a context manager held around the engine call alone
+    (the roofline capture brackets it with CUDA events there), and
+    ``on_dispatch(k, plan, state)`` fires right after the dispatch is
+    enqueued;
   * pluggable completion policy — a :class:`ClientPolicy` is consulted at
     every round boundary (the farm's drain boundary): ``admit`` grows the
     pass with new clients, ``evict`` cancels a straggling/faulted client
@@ -56,7 +59,7 @@ another while claiming to be fused.
 from __future__ import annotations
 
 import dataclasses
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import (Any, Callable, Dict, Iterable, List, Optional,
                     Sequence)
 
@@ -281,14 +284,18 @@ class WindowScheduler:
             on_dispatch: Optional[Callable] = None,
             on_window: Optional[Callable] = None,
             barriers: Sequence[DrainBarrier] = (),
-            scope: Any = None):
+            scope: Any = None,
+            on_enqueue: Optional[Callable] = None):
         """Drive ``engine`` over ``windows`` (an iterable of per-step item
         lists). Returns ``(state, last_ys, shell)``. ``start_step`` is the
         global index of the first window's first step (a resumed run):
         plans, drain ids and barrier boundaries count from it.
 
-        Callbacks: ``on_dispatch(plan, state)`` fires right after a
-        window's dispatch is enqueued; ``on_drain(plan, records, ys)`` fires
+        Callbacks: ``on_enqueue(plan, engine, state, shell, stack)``
+        returns a context manager held around the window's engine call
+        and nothing else (``WindowCapture.on_enqueue``: CUDA events
+        bracket the enqueue there); ``on_dispatch(plan, state)`` fires
+        right after a window's dispatch is enqueued; ``on_drain(plan, records, ys)`` fires
         once per window in window order with the drained shell records and
         the window's ys as host tensors — raising here vetoes any barrier
         commit that depends on the window; ``on_window(plan, state)`` fires
@@ -306,14 +313,18 @@ class WindowScheduler:
         The pass is one :class:`ClientDriver` driven to its end: the same
         pipeline ``run_many`` composes per client.
         """
-        relay = None
+        relay = enqueue = None
         if on_dispatch is not None:
             def relay(_key, plan, st):
                 on_dispatch(plan, st)
+        if on_enqueue is not None:
+            def enqueue(_key, *args):
+                return on_enqueue(*args)
         d = self.driver(Client(engine, windows, state, shell,
                                barriers=barriers, start_step=start_step,
                                scope=scope),
-                        on_drain=on_drain, on_dispatch=relay)
+                        on_drain=on_drain, on_dispatch=relay,
+                        on_enqueue=enqueue)
         while (plan := d.dispatch()) is not None:
             d.advance()
             if on_window is not None:
@@ -357,19 +368,22 @@ class WindowScheduler:
                on_dispatch: Optional[Callable] = None,
                place_fn: Optional[Callable] = None,
                on_commit: Optional[Callable] = None,
-               inject: Optional[Callable] = None) -> "ClientDriver":
+               inject: Optional[Callable] = None,
+               on_enqueue: Optional[Callable] = None) -> "ClientDriver":
         """A thread-confinable per-client pipeline over this scheduler's
         window/overlap settings (see :class:`ClientDriver`)."""
         return ClientDriver(self, client, key=key, on_drain=on_drain,
                             on_dispatch=on_dispatch, place_fn=place_fn,
-                            on_commit=on_commit, inject=inject)
+                            on_commit=on_commit, inject=inject,
+                            on_enqueue=on_enqueue)
 
     def run_many(self, clients, on_drain: Optional[Callable] = None, *,
                  on_dispatch: Optional[Callable] = None,
                  place_fn: Optional[Callable] = None,
                  policy: Optional[ClientPolicy] = None,
                  on_commit: Optional[Callable] = None,
-                 inject: Optional[Callable] = None):
+                 inject: Optional[Callable] = None,
+                 on_enqueue: Optional[Callable] = None):
         """ZP-Farm pass: ``clients`` is a list of ``(engine, windows,
         state, shell)`` tuples or :class:`Client`\\ s (per-client drain /
         stack / reset / barriers). Window *w* of EVERY client is dispatched
@@ -388,7 +402,10 @@ class WindowScheduler:
         as ``run`` delivers them); ``on_dispatch(client_idx, plan, state)``
         fires right after a client's window dispatch is enqueued;
         ``place_fn(client_idx, stack)`` maps the stacked window payload
-        right before the engine call (device placement); ``policy`` is a
+        right before the engine call (device placement);
+        ``on_enqueue(client_idx, plan, engine, state, shell, stack)``
+        returns a context manager held around the engine call;
+        ``policy`` is a
         :class:`ClientPolicy` for dynamic admission / eviction / slot-free
         notification; ``on_commit(client_idx, plan, state, shell)`` fires
         after a client's barrier actions committed a window boundary (the
@@ -403,7 +420,8 @@ class WindowScheduler:
         def make(c):
             return self.driver(c, key=len(drivers), on_drain=on_drain,
                                on_dispatch=on_dispatch, place_fn=place_fn,
-                               on_commit=on_commit, inject=inject)
+                               on_commit=on_commit, inject=inject,
+                               on_enqueue=on_enqueue)
 
         def absorb(d, exc):
             # a crashing board: discard its in-flight windows and let the
@@ -534,6 +552,11 @@ class ClientDriver:
     cursor, so a driver over the TAIL of a window stream emits plans with
     the same global ids an uninterrupted run would.
 
+    Enqueue hook: ``on_enqueue(key, plan, engine, state, shell, stack)``
+    (optional) returns a context manager the driver holds around the
+    engine call alone, after the ``"dispatch"`` injection point and
+    before the shell reset and the host copies.
+
     Fault injection: ``inject(key, point, plan)`` (optional, ``None`` in
     production) fires at the driver's three named points — ``"dispatch"``
     right before the engine call, ``"drain"`` as ``advance()`` starts
@@ -547,7 +570,8 @@ class ClientDriver:
                  on_dispatch: Optional[Callable] = None,
                  place_fn: Optional[Callable] = None,
                  on_commit: Optional[Callable] = None,
-                 inject: Optional[Callable] = None):
+                 inject: Optional[Callable] = None,
+                 on_enqueue: Optional[Callable] = None):
         self.sched = sched
         self.c = sched._normalize_client(client)
         self.key = key
@@ -556,6 +580,7 @@ class ClientDriver:
         self.place_fn = place_fn
         self.on_commit = on_commit
         self.inject = inject
+        self.on_enqueue = on_enqueue
         self._it = iter(self.c.windows)
         self.state = self.c.state
         self.shell = self.c.shell
@@ -587,7 +612,11 @@ class ClientDriver:
         if self.inject is not None:
             self.inject(self.key, "dispatch", plan)
         with timer.phase("device"):
-            self.state, snap, ys = c.engine(self.state, self.shell, stack)
+            with (nullcontext() if self.on_enqueue is None
+                  else self.on_enqueue(self.key, plan, c.engine, self.state,
+                                       self.shell, stack)):
+                self.state, snap, ys = c.engine(self.state, self.shell,
+                                                stack)
             self.last_ys = ys
             event = None
             if self.sched.overlap:

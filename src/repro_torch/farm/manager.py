@@ -128,8 +128,14 @@ dispatch); a board with an error finding is dead-lettered unrun
 (``quarantined``), with a journaled ``certify_fail`` record and a
 telemetry ``certify`` verdict, and never reaches a slot.
 
-What waits for a later slice raises NotImplementedError naming it:
-``FarmJob.capture`` (the measured-window roofline).
+``FarmJob.capture`` (a ``roofline.WindowCapture``) records the job's
+windows: both host loops fire its enqueue hook around each window's
+engine call (CUDA events on the dispatching stream: the slot's own in
+async mode), its ``on_dispatch`` after the enqueue and its ``on_drain``
+at the window's drain (the slot thread in async mode), and an eviction
+resets it to the resume cursor (``reset(upto=cursor)``; a full replay
+clears it), so its rows are exactly the windows delivered. A job with a
+capture runs solo (``lane_compatible``: "capture").
 
 The port's engines may update their state in place, so every attempt
 dispatches from fresh copies of ``FarmJob.state``/``shell`` (or from
@@ -297,6 +303,8 @@ def lane_compatible(a: "FarmJob", b: "FarmJob") -> Optional[str]:
     if a.drain_fn is not None and a.reset is None \
             and a.drain_fn is not _shell_drain:
         return "drain_fn without reset"     # fused drains are deferred
+    if a.capture is not None or b.capture is not None:
+        return "capture"
     if a.snapshot is not None or b.snapshot is not None \
             or a.committed_outputs or b.committed_outputs \
             or a.windows_delivered or b.windows_delivered:
@@ -338,8 +346,9 @@ class FarmJob:
     protocol) to ride the same resume point. ``drain_fn`` / ``stack_fn``
     / ``reset`` are the per-client scheduler plumbing (``None`` =
     shell-less). ``spec`` is the registry's ``JobSpec`` the job was built
-    from (``submit_spec``); ``capture`` (the roofline's
-    ``WindowCapture``) is refused at submit until the roofline slice."""
+    from (``submit_spec``); ``capture`` is a ``roofline.WindowCapture``
+    fed every window of the job (rows reset to the resume cursor on
+    eviction)."""
     name: str
     engine: Callable
     windows: Any
@@ -351,7 +360,7 @@ class FarmJob:
     stack_fn: Optional[Callable] = None
     reset: Optional[Callable] = None
     barriers: Sequence[DrainBarrier] = ()
-    capture: Any = None                 # roofline.WindowCapture (refused)
+    capture: Any = None                 # roofline.WindowCapture, optional
     max_requeues: int = 1
     snapshot_store: Any = None          # CheckpointManager-like, per job
     lane_key: Optional[str] = None      # non-None: coalescible with same-key
@@ -559,6 +568,17 @@ class _SlotWorker:
         t_dispatched: Dict[int, tuple] = {}   # window idx -> (t0, held)
         held = [0.0]    # seconds held for commits' delivery (ledger mode)
 
+        capture = job.capture
+
+        def on_dispatch(k, plan, state):
+            if not run.closed:
+                capture.on_dispatch(plan, state)
+
+        def on_enqueue(k, plan, engine, state, shell, stack):
+            # on this slot's thread, around the engine call: the events
+            # go on the slot's own stream (its current one here)
+            return capture.on_enqueue(plan, engine, state, shell, stack)
+
         def on_drain(k, plan, records, ys):
             if run.closed:
                 return
@@ -586,6 +606,8 @@ class _SlotWorker:
                     # consumed (and zeroed) when the plane's next sample
                     # drains (_scope_observe)
                     run.scope_wall_acc += wall
+            if capture is not None:
+                capture.on_drain(plan, records, ys)
             if run.lanes is not None:
                 # per-lane fan-out + verify on the slot thread; a veto
                 # masks ITS lane only (this thread owns lane_faults, so
@@ -649,7 +671,9 @@ class _SlotWorker:
                 client, key=run.idx, on_drain=on_drain,
                 on_commit=on_commit,
                 place_fn=lambda k, stack: place_stack(stack, self.slot),
-                inject=inject)
+                inject=inject,
+                on_dispatch=None if capture is None else on_dispatch,
+                on_enqueue=None if capture is None else on_enqueue)
             while True:
                 t0 = mgr.clock()
                 plan = driver.dispatch()
@@ -779,11 +803,6 @@ class FarmManager(ClientPolicy):
     # ------------------------------------------------------------- intake --
     @control_thread_only
     def submit(self, job: FarmJob) -> FarmJob:
-        if job.capture is not None:
-            raise NotImplementedError(
-                "FarmJob.capture (a measured-window roofline capture) "
-                "waits for the measured-window roofline slice of the port "
-                "(roofline/, WindowCapture)")
         if self.certify and not self._certify_submit(job):
             return job          # dead-lettered at admission, never queued
         self.jobs.append(job)
@@ -1083,6 +1102,7 @@ class FarmManager(ClientPolicy):
                                 on_dispatch=self._on_dispatch,
                                 place_fn=self._place, policy=self,
                                 on_commit=self._on_commit,
+                                on_enqueue=self._on_enqueue,
                                 inject=(self._inject_lockstep
                                         if self.injector else None))
             if self._shutdown.is_set():
@@ -2154,12 +2174,23 @@ class FarmManager(ClientPolicy):
                 # _scope_observe at the next read-rate sample
                 run.scope_wall_acc += cost
         self.telemetry.dispatch(run.slot.name, self._key(run, plan), cost)
+        if run.job.capture is not None:
+            run.job.capture.on_dispatch(plan, state)
+
+    @control_thread_only
+    def _on_enqueue(self, k: int, plan, engine, state, shell, stack):
+        capture = self._running[k].job.capture
+        if capture is None:
+            return contextlib.nullcontext()
+        return capture.on_enqueue(plan, engine, state, shell, stack)
 
     @control_thread_only
     def _on_drain(self, k: int, plan, records, ys):
         run = self._running[k]
         self.wd.heartbeat(run.slot.name, gap=False)
         self.telemetry.drain(run.slot.name, self._key(run, plan))
+        if run.job.capture is not None:
+            run.job.capture.on_drain(plan, records, ys)
         if run.lanes is not None:
             delivered, faulted = self._lane_ingest(run, plan, records, ys)
             for lane, rec, y in delivered:
@@ -2342,4 +2373,6 @@ class FarmManager(ClientPolicy):
         self.telemetry.eviction(run.slot.name, job.name, why)
         self._journal("evict", job=job.name, slot=run.slot.name,
                       why=str(why))
+        if job.capture is not None:
+            job.capture.reset(upto=cursor)  # committed rows stay
         self._requeue_member(job, run.slot.name, why)

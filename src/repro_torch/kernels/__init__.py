@@ -10,7 +10,8 @@ _SMS: dict = {}                    # device index -> streaming multiprocessors
 _COUNT_LOCK = threading.Lock()
 _TALLIES = threading.local()       # .counts: kernel wrapper -> this thread's
 _TRACED = threading.local()        # .counts: kernel name -> this thread's
-# calls on fake tensors (the board certifier's trace)
+# calls on fake tensors (the board certifier's trace, the roofline's cost
+# pass); .cost: their summed cost (flops, bytes, exps)
 
 
 def count_launch(fn, n: int = 1) -> None:
@@ -43,13 +44,24 @@ def is_traced(t) -> bool:
     return isinstance(t, FakeTensor)
 
 
-def note_traced(fn) -> None:
+def note_traced(fn, cost: dict) -> dict:
     """Record one call of the kernel wrapper ``fn`` on traced tensors in
-    the calling thread's trace tally (``traced_counts``)."""
+    the calling thread's trace tally: the call (``traced_counts``) and
+    its ``cost`` (the wrapper's module's ``cost`` of the call's shapes:
+    ``flops``, ``bytes`` and, for K3, ``exps``), added into the tally's
+    summed cost (``traced_cost``). A launch is a ctypes call the dispatch
+    modes of a trace never see, so this is how a window's count
+    (``roofline/cost.py``) includes its kernels. Returns ``cost``."""
     counts = getattr(_TRACED, "counts", None)
     if counts is None:
         counts = _TRACED.counts = {}
     counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
+    total = getattr(_TRACED, "cost", None)
+    if total is None:
+        total = _TRACED.cost = {}
+    for k, v in cost.items():
+        total[k] = total.get(k, 0) + v
+    return cost
 
 
 def traced_counts(reset: bool = False) -> dict:
@@ -59,6 +71,21 @@ def traced_counts(reset: bool = False) -> dict:
     if reset:
         _TRACED.counts = {}
     return counts
+
+
+def traced_cost(reset: bool = False) -> dict:
+    """The summed cost of the kernel calls the calling thread made on
+    traced tensors (``reset``: start a new sum after reading it)."""
+    cost = dict(getattr(_TRACED, "cost", {}))
+    if reset:
+        _TRACED.cost = {}
+    return cost
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of ``tensors``, each counted once as it lies (numel x
+    element size)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def refuse_grad(name: str, *tensors) -> None:

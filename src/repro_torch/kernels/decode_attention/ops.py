@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (_build, count_launch, is_traced,
+from repro_torch.kernels import (_build, count_launch, is_traced, nbytes,
                                   note_traced, refuse_grad, refuse_vmap,
                                   sm_count)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -101,6 +101,20 @@ def _check(q, k, v, pos, window):
         raise ValueError("window and cache length must be positive")
 
 
+def cost(q, k, v, *, slots: int | None = None) -> dict:
+    """What one launch does over ``slots`` live cache slots (default: the
+    whole ring, W; the kernel reads min(W, pos + 1) until the ring is
+    full, which a trace, holding no value of ``pos``, cannot know):
+    the QK^T and PV products (4·B·H·slots·hd FLOPs), q and pos read, the
+    live slots of k and v read and the output written, once each."""
+    B, H, hd = q.shape
+    W, K = k.shape[1], k.shape[2]
+    n = W if slots is None else min(W, slots)
+    return {"flops": 4 * B * H * n * hd,
+            "bytes": 2 * nbytes(q) + 2 * B * n * K * hd * k.element_size()
+            + 4}
+
+
 def decode_attention(q, k, v, *, pos, window: int, softcap: float = 0.0):
     """q: (B,H,hd); k/v: (B,W,K,hd); pos: 0-d int32 tensor -> (B,H,hd).
 
@@ -112,7 +126,7 @@ def decode_attention(q, k, v, *, pos, window: int, softcap: float = 0.0):
     if is_traced(q):                    # the certifier's trace
         refuse_grad("decode_attention", q, k, v)
         _check(q, k, v, pos, window)
-        note_traced(decode_attention)
+        note_traced(decode_attention, cost(q, k, v))
         return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, "

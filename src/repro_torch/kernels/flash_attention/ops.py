@@ -24,11 +24,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import (_build, count_launch, fold_lane_axis,
-                                  is_lane_batched, is_traced, note_traced,
-                                  refuse_grad)
+                                  is_lane_batched, is_traced, nbytes,
+                                  note_traced, refuse_grad)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
@@ -83,6 +84,25 @@ def _check(q, k, v, window):
                              "reads it in 16-byte vectors)")
 
 
+def pairs(S: int, T: int, causal: bool = True, window: int = 0) -> int:
+    """The unmasked (query, key) pairs of one (batch row, head): row r
+    sees the keys j <= r (causal) with j > r - window (window > 0), of
+    0..T-1."""
+    r = np.arange(S, dtype=np.int64)
+    hi = np.minimum(r, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, r - window + 1) if window > 0 else np.zeros(S)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def cost(q, k, v, *, causal: bool = True, window: int = 0) -> dict:
+    """What one launch does, from the shapes: the QK^T and PV products
+    of the unmasked pairs (4·B·H·pairs·hd FLOPs: the masked tiles are
+    skipped) and q, k, v read and the output written once each."""
+    B, S, H, hd = q.shape
+    return {"flops": 4 * B * H * pairs(S, k.shape[1], causal, window) * hd,
+            "bytes": nbytes(q, k, v) + nbytes(q)}
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: (B,S,H,hd); k/v: (B,T,K,hd) -> (B,S,H,hd) in q's dtype.
@@ -97,7 +117,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if is_traced(q):                    # the certifier's trace
         refuse_grad("flash_attention", q, k, v)
         _check(q, k, v, window)
-        note_traced(flash_attention)
+        note_traced(flash_attention, cost(q, k, v, causal=causal,
+                                          window=window))
         return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "

@@ -108,6 +108,15 @@ def _check(a, b, h0):
             raise ValueError(f"{name} must be contiguous")
 
 
+def cost(a, b, h0) -> dict:
+    """What one launch does, from the shapes, in f32: a, b and h0 read
+    and h_all and h_last written once each; a multiply-add an element
+    (2·B·S·W FLOPs)."""
+    Bsz, S, W = a.shape
+    return {"flops": 2 * Bsz * S * W,
+            "bytes": 4 * (3 * Bsz * S * W + 2 * Bsz * W)}
+
+
 def rglru_scan(a, b, h0):
     """a/b: (B,S,W); h0: (B,W) -> (h_all (B,S,W) f32, h_last (B,W) f32):
 
@@ -118,7 +127,7 @@ def rglru_scan(a, b, h0):
     if is_traced(a):                    # the certifier's trace
         refuse_grad("rglru_scan", a, b, h0)
         _check(a, b, h0)
-        note_traced(rglru_scan)
+        note_traced(rglru_scan, cost(a, b, h0))
         return torch.empty_like(a), torch.empty_like(h0)
     return _launch(a, b, h0, None)
 

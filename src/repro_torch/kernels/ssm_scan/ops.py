@@ -108,6 +108,22 @@ def _check(dt, A, B_, C_, x):
             raise ValueError(f"{name} must be contiguous")
 
 
+def cost(dt, A, B_, C_, x) -> dict:
+    """What one launch does, from the shapes, in f32: dt, x, A, B_ and C_
+    read and y and h_last written once each; exp(dt·A) for every state
+    of every (row, step, channel) (``exps``, at the special-function
+    units' rate); per state dt·A, (dt·x)·B, the state's multiply-add and
+    y's multiply-add, and dt·x per channel and step (6·N + 1 FLOPs an
+    element of x)."""
+    Bsz, S, Din = dt.shape
+    N = A.shape[1]
+    elems = Bsz * S * Din
+    return {"flops": elems * (6 * N + 1),
+            "bytes": 4 * (3 * elems + Din * N + 2 * Bsz * S * N
+                          + Bsz * Din * N),
+            "exps": elems * N}
+
+
 def ssm_scan(dt, A, B_, C_, x):
     """Selective scan. dt/x: (B,S,Din); A: (Din,N); B_/C_: (B,S,N).
     Returns (y (B,S,Din) f32, h_last (B,Din,N) f32), from a zero state:
@@ -119,7 +135,7 @@ def ssm_scan(dt, A, B_, C_, x):
     if is_traced(dt):                   # the certifier's trace
         refuse_grad("ssm_scan", dt, A, B_, C_, x)
         _check(dt, A, B_, C_, x)
-        note_traced(ssm_scan)
+        note_traced(ssm_scan, cost(dt, A, B_, C_, x))
         Bsz, _, Din = dt.shape
         return torch.empty_like(dt), dt.new_empty((Bsz, Din, A.shape[1]))
     return _launch(dt, A, B_, C_, x, None)

@@ -86,8 +86,10 @@ published snapshots are kept, the partial report + telemetry summary are
 printed, and the process exits ``128 + signum`` (130 for SIGINT, 143 for
 SIGTERM). A second signal kills immediately.
 
-What waits for a later slice exits non-zero with a message naming it:
-``--roofline`` (the measured-window roofline).
+``--roofline`` puts a measured-window roofline capture
+(``roofline.WindowCapture``) on the train board: its cost counted on fake
+tensors at its first window, each window's wall and device time; the
+report comes back under "roofline".
 """
 from __future__ import annotations
 
@@ -118,15 +120,11 @@ from repro_torch.farm.chaos import ChaosHarness, ChaosInjector, Injection
 from repro_torch.launch.serve import (_FRONTEND_INPUTS, decode_shell_config,
                                       make_decode_engine)
 from repro_torch.models import Runtime, build_model
+from repro_torch.roofline import WindowCapture
 from repro_torch.serve import make_prefill_step
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.step import init_state, make_group_step
 from repro_torch.utils import dtype_of, resolve_device, tree_leaves
-
-# the CLI flag of the reference that waits for a later slice of the port
-ROOFLINE_SLICE = ("waits for the measured-window roofline slice of the "
-                  "port (roofline/, WindowCapture)")
-
 
 class _SignalDrain:
     """Graceful-stop signal plumbing for a farm run. First SIGINT *or*
@@ -218,9 +216,11 @@ def train_board_spec(arch: str, steps: int, interval: int,
 
 
 def submit_train_job(mgr, cfg, steps, interval, batch=2, seq=16, seed=0,
-                     device=None, lr=None):
+                     device=None, lr=None, capture=None):
     """Fused train engine as a farm job (see ``_train_board_parts``);
-    returns the list its sink fills with every step's loss."""
+    returns the list its sink fills with every step's loss. ``capture``
+    (a ``WindowCapture``) records the board's windows, its cost counted
+    on fake tensors at the board's first window."""
     parts = _train_board_parts(cfg, steps, interval, batch=batch, seq=seq,
                                seed=seed, device=device, lr=lr)
     losses: list = []
@@ -228,7 +228,10 @@ def submit_train_job(mgr, cfg, steps, interval, batch=2, seq=16, seed=0,
     def sink(plan, records, metrics):
         losses.extend(metrics["loss"].float().tolist())
 
-    mgr.submit(FarmJob(name="train", on_drain=sink, **parts))
+    if capture is not None:
+        parts["engine"] = capture.attach_engine(parts["engine"])
+    mgr.submit(FarmJob(name="train", on_drain=sink, capture=capture,
+                       **parts))
     return losses
 
 
@@ -1189,12 +1192,14 @@ def verify_inputs(cfg, n: int, batch: int, seq: int, seed: int, device):
 
 def run_farm(arch: str, steps: int, slots, interval: int = 2,
              synthetic_straggler: bool = False, straggler_factor: float = 6.0,
-             seed: int = 0, mode: str = "async",
+             roofline: bool = False, seed: int = 0, mode: str = "async",
              handle_sigint: bool = False, scope: ScopeSpec = None,
              certify: bool = False, device=None) -> dict:
     """The mixed workload — a train board, a decode board and two verify
     boards of ``arch``'s smoke config — through one farm pass
-    (``certify``: each board certified at admission, ZP-Cert)."""
+    (``certify``: each board certified at admission, ZP-Cert;
+    ``roofline``: a ``WindowCapture`` on the train board, its report
+    under "roofline")."""
     device = resolve_device(device)
     cfg = get_smoke_config(arch)
     # min_s floors the straggler RATIO check: the mixed workload's boards
@@ -1205,8 +1210,9 @@ def run_farm(arch: str, steps: int, slots, interval: int = 2,
                       straggler_min_s=0.2, mode=mode, certify=certify,
                       device=device)
 
+    capture = WindowCapture() if roofline else None
     losses = submit_train_job(mgr, cfg, steps, interval, seed=seed,
-                              device=device)
+                              device=device, capture=capture)
     toks = submit_decode_job(mgr, cfg, gen=steps, interval=interval,
                              seed=seed, device=device)
 
@@ -1286,6 +1292,8 @@ def run_farm(arch: str, steps: int, slots, interval: int = 2,
         "decode": {"tokens": np.concatenate(toks, axis=1).tolist()},
         "verify": {k: r.summary() for k, r in reps.items()},
     }
+    if capture is not None:
+        out["roofline"] = capture.report()
 
     ok = all(j["status"] == "done" for j in report["jobs"].values())
     ok = ok and not any(r.diverged for r in reps.values())
@@ -1305,11 +1313,6 @@ def run_farm(arch: str, steps: int, slots, interval: int = 2,
                            "preserved": soak.preserved()}
     out["ok"] = ok
     return out
-
-
-def _refused(args) -> str | None:
-    """The message for a flag that waits for a later slice, if any."""
-    return f"farm: --roofline {ROOFLINE_SLICE}" if args.roofline else None
 
 
 def _emit(out: dict):
@@ -1392,11 +1395,9 @@ def main(argv=None):
                     help="statically certify every submitted board "
                          "(ZP-Cert boardcheck) before it can reach a "
                          "slot; error findings dead-letter the job")
-    # what waits for a later slice: accepted so that it is refused by
-    # name, never silently ignored
     ap.add_argument("--roofline", action="store_true",
-                    help="measured-window roofline (the measured-window "
-                         "roofline slice)")
+                    help="measured-window roofline capture on the train "
+                         "board (its report under \"roofline\")")
     g = ap.add_mutually_exclusive_group()
     g.add_argument("--async", dest="mode", action="store_const",
                    const="async", default="async",
@@ -1407,10 +1408,6 @@ def main(argv=None):
                    help="single-thread round-robin host loop (the "
                         "bit-identity oracle)")
     args = ap.parse_args(argv)
-
-    refused = _refused(args)
-    if refused:
-        sys.exit(refused)
 
     dev = args.device
     if args.certify_smoke:
@@ -1452,7 +1449,8 @@ def main(argv=None):
                        interval=args.sample_interval,
                        synthetic_straggler=args.synthetic_straggler,
                        straggler_factor=args.straggler_factor,
-                       mode=args.mode, handle_sigint=True, scope=scope,
+                       roofline=args.roofline, mode=args.mode,
+                       handle_sigint=True, scope=scope,
                        certify=args.certify, device=dev)
     except KeyboardInterrupt:
         # ^C before the farm was running (job setup) or a second ^C

@@ -26,6 +26,15 @@ cache are bit-identical with the plane on or off. With
 CUDA graph (still one replay a window); unfused it runs eagerly after the
 replay.
 
+A measured-window roofline capture (``roofline/capture.py``) rides the
+decode: one decode step's cost counted on fake tensors before the decode
+clock starts (outside every CUDA-graph capture, leaving the cache
+untouched; once a process for a config and its shapes) and scaled by each
+window's size, each window's pipelined
+wall time and its device time (CUDA events around its enqueue), reported
+under "roofline"; ``--save-measured`` writes the record for
+``python -m repro_torch.roofline.report``.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --smoke --batch 4 --prompt-len 32 --gen 16 --sample-interval 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
@@ -50,14 +59,36 @@ from repro_torch.core.schedule import plan_windows
 from repro_torch.core.scope import ScopeSpec, as_plane, unwrap
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.models import build_model
+from repro_torch.roofline import WindowCapture, save_measured
+from repro_torch.roofline.cost import count_cost
 from repro_torch.serve import make_prefill_step
 from repro_torch.utils import (dtype_of, resolve_device, sync, tree_leaves,
-                               tree_map)
+                               tree_map, tree_structure)
 
 
 # a batch's stubbed modality-frontend outputs (whisper's frame embeddings,
 # internvl2's patch embeddings)
 _FRONTEND_INPUTS = ("frames", "patches")
+# one decode step's cost by the signature it was counted on: a count
+# depends only on the config and on the shapes, dtypes and devices of the
+# weights, the cache and the shell (as a jit compile on its arguments'
+# signature), so the serves of one cell count it once a process
+_STEP_COSTS: dict = {}
+
+
+def _signature(tree) -> tuple:
+    return (tree_structure(tree), tuple(
+        (tuple(x.shape), x.dtype, x.device.type) if torch.is_tensor(x)
+        else repr(x) for x in tree_leaves(tree)))
+
+
+def _step_cost(cfg, engine, params, state, shell) -> dict:
+    """One decode step's cost: ``count_cost`` of a one-step window on
+    fake tensors, counted once per signature."""
+    key = (cfg, _signature((params, state, shell)))
+    if key not in _STEP_COSTS:
+        _STEP_COSTS[key] = count_cost(engine, state, shell, np.arange(1))
+    return _STEP_COSTS[key]
 
 
 def decode_shell_config(sample_interval: int) -> ShellConfig:
@@ -132,7 +163,9 @@ def serve(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     the scheduler (its "device" phase wraps each window's dispatch).
     ``graph`` chooses the decode engine (``make_decode_engine``: CUDA-graph
     windows on a card by default); ``return_cache`` adds the final decode
-    cache to the record, under "cache"."""
+    cache to the record, under "cache". The record's "roofline" is the
+    decode's measured-window capture (its cost pass is not in
+    ``decode_s``)."""
     device = resolve_device(device)
     model = build_model(cfg)
     with torch.inference_mode():
@@ -170,10 +203,16 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
     sched = WindowScheduler(interval=max(1, sample_interval), overlap=True,
                             drain_fn=drain, timer=timer)
     sh = shell_init(decode_shell_config(sample_interval), device)
+    # one decode step's cost, counted on fake tensors (a WindowGraphs
+    # through its engine: nothing is captured, replayed or launched, and
+    # the cache is not written), scaled by each window's size
+    capture = WindowCapture().set_cost(
+        _step_cost(cfg, engine, params, (cache, tok), sh), window_size=1)
     plane = None
     ran = engine            # the engine whose windows run
     if scope is not None:
         plane = as_plane(scope)
+        capture.attach_scope(plane)
         # a fused plane's engine is a WindowGraphs of its own (the window
         # and the counter update in one capture); unfused, the update runs
         # after the inner engine's replay. The scheduler's bind finds the
@@ -183,7 +222,6 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
         if isinstance(instrumented, WindowGraphs):
             ran = instrumented
     graphed = isinstance(ran, WindowGraphs)
-    t_decode = t1
     if graphed:
         # capture every window length of the run, in the order the windows
         # come (full, then tail: the order the shared pool needs), before
@@ -193,8 +231,8 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
         for g in dict.fromkeys(p.size for p in plan_windows(
                 gen - 1, sample_interval)):
             ran.prepare((cache, tok), prep_sh, np.arange(g))
-        sync(device)
-        t_decode = time.perf_counter()
+    sync(device)
+    t_decode = time.perf_counter()
 
     out_tokens = [tok.cpu().numpy()]
     dispatch_t: dict = {}
@@ -222,9 +260,11 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
                         "count": fifo["count"], "dropped": fifo["dropped"],
                         "tokens_csr": int(records["csrs"]["tokens"])})
 
+    od, odr = capture.callbacks(on_dispatch=on_dispatch, on_drain=on_drain)
     (cache, tok), _, sh = sched.run(
         engine, sched.windows(range(gen - 1)), (cache, tok), sh,
-        on_dispatch=on_dispatch, on_drain=on_drain, scope=plane)
+        on_dispatch=od, on_drain=odr, scope=plane,
+        on_enqueue=capture.on_enqueue)
     sync(device)
     t2 = time.perf_counter()
     toks = np.concatenate(out_tokens, axis=1)
@@ -245,6 +285,7 @@ def _serve(model, cfg, batch, prompt_len, gen, seed, sample_interval,
         "windows_by_engine": dict(ran.windows) if graphed
         else {"graph": 0, "eager": n_windows},
         "capture_s": ran.capture_s if graphed else 0.0,
+        "roofline": capture.report(),
     }
     if plane is not None:
         out["scope"] = plane.report()
@@ -269,6 +310,9 @@ def main(argv=None):
                          "a read rate of every N window drains")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--save-measured", action="store_true",
+                    help="persist the run's measured-window roofline "
+                         "record for repro_torch.roofline.report")
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     scope = ScopeSpec(every_n_windows=args.scope) if args.scope > 0 \
@@ -276,6 +320,8 @@ def main(argv=None):
     out = serve(cfg, args.batch, args.prompt_len, args.gen, seed=args.seed,
                 sample_interval=args.sample_interval, device=args.device,
                 scope=scope)
+    if args.save_measured:
+        save_measured(out["roofline"], cfg.name, "serve")
     print(json.dumps(out, indent=1, default=float))
 
 

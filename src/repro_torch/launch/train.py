@@ -8,8 +8,10 @@
 full one. The model trains on the plain, differentiable "xla" path with
 the commit, coverage and router taps, as the reference's CLI does.
 ``--scope N`` runs the loop with the ZP-Scope plane read every N window
-drains (its report is printed under "scope"). ``--save-measured`` waits
-for the port's roofline and raises.
+drains (its report is printed under "scope"). The run's measured-window
+roofline is printed under "roofline"; ``--save-measured`` also writes it
+to ``experiments/measured/<arch>_train.json`` for
+``python -m repro_torch.roofline.report``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import json
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.scope import ScopeSpec
 from repro_torch.models import Runtime, build_model
+from repro_torch.roofline import save_measured
 from repro_torch.train import LoopConfig, OptConfig, train_loop
 
 
@@ -43,12 +46,8 @@ def main(argv=None):
                     help="torch device (default: cuda, which must exist)")
     ap.add_argument("--save-measured", action="store_true",
                     help="persist the run's measured-window roofline "
-                         "record (waits for the port's roofline)")
+                         "record for repro_torch.roofline.report")
     args = ap.parse_args(argv)
-    if args.save_measured:
-        raise NotImplementedError(
-            "--save-measured waits for the roofline slice of the port "
-            "(roofline/, out['roofline'])")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rt = Runtime(attention_impl="xla",
@@ -64,10 +63,13 @@ def main(argv=None):
                    grad_compress=args.grad_compress,
                    accum_steps=args.accum_steps, scope=scope),
         OptConfig(lr=args.lr, warmup_steps=10), device=args.device)
+    if args.save_measured:
+        save_measured(out["roofline"], cfg.name, "train")
     rec = {
         "arch": cfg.name,
         "loss_first": out["losses"][0], "loss_last": out["losses"][-1],
         "coverage": out["coverage"], "profile_s": out["profile"],
+        "roofline": out["roofline"],
     }
     if scope is not None:
         rec["scope"] = out["scope"]

@@ -27,7 +27,8 @@ is recomputed where the reference keeps it. Remat changes no value: a
 recompute runs the same operations on the same inputs. The
 reference's expert-parallel ``"a2a"`` dispatch and its ``mesh`` wait for
 the sharding slice and raise here. ``seq_parallel`` and ``cost_mode``
-arrive with the slices that read them (sharding, the roofline).
+arrive with the sharding slice (``cost_mode`` feeds the roofline's
+composer, ``roofline/compose.py``, which comes with it).
 """
 from __future__ import annotations
 

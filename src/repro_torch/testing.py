@@ -134,6 +134,23 @@ class NoSyncInWindow:
         self.windows += 1
 
 
+def decode_step_flops(cfg, batch: int, ring: int) -> int:
+    """The analytic FLOPs of one greedy decode step of a dense
+    attention model (``cfg``'s family "dense"): 2 x the parameters of
+    its products x the batch (every weight matrix, the lm head included,
+    once a token; the embedding's gather and the norms are no products)
+    and K2's 4·B·H·ring·hd for each layer's attention over the whole
+    ``ring``-slot cache."""
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: a dense attention model only")
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model
+    embed = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    matmul = cfg.param_count() - norms - embed
+    return (2 * matmul * batch
+            + cfg.num_layers * 4 * batch * cfg.num_heads * ring
+            * cfg.head_dim)
+
+
 def check_decode_attention(B, H, K, W, hd, pos, dtype, softcap=0.0, seed=0):
     """K2 on random inputs drawn on the card from ``seed``, against its
     plain version on the same inputs. Raises AssertionError where they

@@ -36,12 +36,16 @@ its read rate, the DUT stream bit-identical with the plane on or off; the
 last sample's gate bits fold into the coverage map and the plane's report
 comes back under "scope".
 
-Not ported yet: the measured-window roofline (``WindowCapture``, the
-reference's ``out["roofline"]``), which waits for ``roofline/``.
+A measured-window roofline capture (``roofline/capture.py``) rides every
+run: each window's pipelined wall time, its device time (CUDA events
+around its enqueue; None on the host) and, in the fused engine, its cost
+(one step of the group engine counted on fake tensors before the first
+window, scaled by each window's size), reported under "roofline".
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Optional
 
 from repro_torch.checkpoint import CheckpointManager
@@ -51,6 +55,7 @@ from repro_torch.core import (CoverageMap, DrainBarrier, PShell, Watchdog,
 from repro_torch.core.profiler import Profiler
 from repro_torch.core.scope import as_plane
 from repro_torch.data import SyntheticPipeline
+from repro_torch.roofline import WindowCapture
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.step import init_state, make_group_step, \
     make_train_step
@@ -81,7 +86,8 @@ def train_loop(model, loop_cfg: LoopConfig,
                resume: bool = True,
                oracle_step: Optional[Callable] = None,
                oracle_state: Any = None,
-               oracle_rtol: float = 1e-5, *, device=None) -> Dict[str, Any]:
+               oracle_rtol: float = 1e-5, *, device=None,
+               capture: Optional[WindowCapture] = None) -> Dict[str, Any]:
     """Train ``model`` from ``init_state(loop_cfg.seed)`` on ``device``
     (``cuda`` unless named), or from the latest checkpoint in
     ``loop_cfg.checkpoint_dir`` with ``resume``.
@@ -97,10 +103,12 @@ def train_loop(model, loop_cfg: LoopConfig,
     train step updates its state in place, so neither engine writes into
     the other's state or into the caller's.
 
+    ``capture`` is the run's measured-window roofline capture (a fresh
+    ``WindowCapture`` by default; pass one to keep its rows).
+
     Returns ``{"state", "losses", "coverage", "profile", "stragglers",
-    "final_step"}``, plus ``"scope"`` (the plane's report) where
-    ``loop_cfg.scope`` is set; the reference's ``"roofline"`` waits for
-    its slice."""
+    "final_step", "roofline"}`` (the capture's report), plus ``"scope"``
+    (the plane's report) where ``loop_cfg.scope`` is set."""
     device = resolve_device(device)
     cfg = model.cfg
 
@@ -122,9 +130,13 @@ def train_loop(model, loop_cfg: LoopConfig,
     prof = Profiler(sample_interval=loop_cfg.sample_interval)
     wd = Watchdog(timeout_s=loop_cfg.watchdog_timeout_s)
     cov = CoverageMap()
+    # the measured-window roofline capture rides every run; the fused
+    # engine counts its cost on fake tensors before the first window
+    capture = WindowCapture() if capture is None else capture
     scope_plane = None
     if loop_cfg.scope is not None:
         scope_plane = as_plane(loop_cfg.scope)
+        capture.attach_scope(scope_plane)
     pipe = SyntheticPipeline(cfg, loop_cfg.batch, loop_cfg.seq,
                              seed=loop_cfg.seed, start_step=start_step)
     losses: list = []
@@ -146,7 +158,7 @@ def train_loop(model, loop_cfg: LoopConfig,
         runner = _run_fused if loop_cfg.fused else _run_per_step
         state = runner(model, loop_cfg, opt_cfg, state, shell, sh, ingest,
                        pipe, prof, wd, cov, ckpt, losses, start_step,
-                       on_drain, verifier, scope_plane)
+                       on_drain, verifier, capture, scope_plane)
     finally:
         pipe.close()
         if orc_pipe is not None:
@@ -167,6 +179,7 @@ def train_loop(model, loop_cfg: LoopConfig,
         "profile": prof.live_stack().seconds,
         "stragglers": wd.stragglers(),
         "final_step": loop_cfg.steps,
+        "roofline": capture.report(),
     }
     if scope_plane is not None:
         out["scope"] = scope_plane.report()
@@ -198,7 +211,7 @@ def _step_counter(prof):
 
 def _run_fused(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
                prof, wd, cov, ckpt, losses, start_step, on_drain,
-               verifier=None, scope_plane=None):
+               verifier, capture, scope_plane):
     """Group-granular engine: one dispatch per clock-gated window (on the
     card one CUDA-graph replay), host drain of window i overlapped with
     window i+1 on the card."""
@@ -208,6 +221,15 @@ def _run_fused(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
                         accum_steps=loop_cfg.accum_steps),
         device=tree_leaves(state)[0].device)
     sched = shell.scheduler(overlap=True, timer=prof)
+    windows = _pipe_windows(pipe, loop_cfg, start_step)
+    # the cost of one step of the first window, counted on fake tensors
+    # (nothing runs, the state is not written) and scaled by each
+    # window's size
+    first = next(windows, None)
+    if first is not None:
+        windows = itertools.chain([first], windows)
+        capture.attach_cost(group_fn, state, sh, sched.stack_fn(first[:1]),
+                            window_size=1)
 
     def emit(plan, records, metrics):
         if verifier is not None:        # raising here vetoes the barrier
@@ -217,18 +239,19 @@ def _run_fused(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
         if on_drain:
             on_drain(plan.last, records)
 
+    od, odr = capture.callbacks(
+        on_dispatch=lambda plan, state: wd.heartbeat(), on_drain=emit)
     state, _, _ = sched.run(
-        group_fn, _pipe_windows(pipe, loop_cfg, start_step), state, sh,
-        start_step=start_step, on_drain=emit,
-        on_dispatch=lambda plan, state: wd.heartbeat(),
+        group_fn, windows, state, sh,
+        start_step=start_step, on_drain=odr, on_dispatch=od,
         on_window=_step_counter(prof), barriers=_barriers(ckpt, loop_cfg),
-        scope=scope_plane)
+        scope=scope_plane, on_enqueue=capture.on_enqueue)
     return state
 
 
 def _run_per_step(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
                   prof, wd, cov, ckpt, losses, start_step, on_drain,
-                  verifier=None, scope_plane=None):
+                  verifier, capture, scope_plane):
     """Per-step dispatch baseline (``overlap=False``: serial in-place
     drains at window boundaries). Loss tensors are fetched at the drain
     boundaries only."""
@@ -254,9 +277,10 @@ def _run_per_step(model, loop_cfg, opt_cfg, state, shell, sh, ingest, pipe,
         if on_drain:
             on_drain(plan.last, records)
 
+    od, odr = capture.callbacks(on_drain=emit)
     state, _, _ = sched.run(
         engine, _pipe_windows(pipe, loop_cfg, start_step), state, sh,
-        start_step=start_step, on_drain=emit,
+        start_step=start_step, on_drain=odr, on_dispatch=od,
         on_window=_step_counter(prof), barriers=_barriers(ckpt, loop_cfg),
-        scope=scope_plane)
+        scope=scope_plane, on_enqueue=capture.on_enqueue)
     return state

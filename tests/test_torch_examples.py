@@ -53,15 +53,26 @@ def test_train_cli_prints_its_keys(capsys):
                     "--seq", "16", "--sample-interval", "2", "--scope", "1"])
     out = json.loads(capsys.readouterr().out)
     assert set(out) == {"arch", "loss_first", "loss_last", "coverage",
-                        "profile_s", "scope"}
+                        "profile_s", "roofline", "scope"}
+    assert out["roofline"]["windows"] == 2 and out["roofline"]["steps"] == 4
+    assert out["roofline"]["scope"]["steps"] == 4
     assert out["arch"] == "granite-smoke"
     assert out["scope"]["steps"] == 4 and out["scope"]["windows"] == 2
     assert "scope_gates" in out["coverage"]["per_map"]
 
 
-def test_train_cli_refuses_save_measured_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="roofline"):
-        train_cli.main(["--device", "cpu", "--save-measured"])
+def test_train_cli_refuses_save_measured_and_a_missing_card(
+        monkeypatch, tmp_path, capsys):
+    """``--save-measured`` (refused until the roofline slice) writes the
+    run's measured-window record; without a card the CLI still raises."""
+    monkeypatch.chdir(tmp_path)
+    train_cli.main(["--device", "cpu", "--steps", "2", "--batch", "2",
+                    "--seq", "16", "--save-measured"])
+    out = json.loads(capsys.readouterr().out)
+    saved = json.loads((tmp_path / "experiments" / "measured"
+                        / "granite-smoke_train.json").read_text())
+    assert saved["arch"] == "granite-smoke" and saved["source"] == "train"
+    assert saved["steps"] == out["roofline"]["steps"] == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["--steps", "1"])

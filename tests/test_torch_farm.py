@@ -10,8 +10,8 @@ injected clock (an engine advances it by its own cost), never on the wall
 clock. The resume cases run in both host loops (``mode``); the async
 mode's own cases are in ``test_torch_farm_async.py``, the failure
 policy's and ZP-Chaos's in ``test_torch_farm_chaos.py``. The ledger and
-the roofline's ``WindowCapture`` wait for their slices (``ROADMAP.md``),
-and refuse here by name.
+the roofline's ``WindowCapture`` have their slices (their own cases are in
+``test_torch_farm_ledger.py`` and ``test_torch_roofline.py``).
 
 Against the reference (``verify_subsystems`` on the glm4-9b and
 recurrentgemma-2b smoke configs, weights redrawn from numpy by
@@ -332,18 +332,24 @@ def test_deferred_farm_options_raise_naming_their_slice(kw, match,
 
 
 def test_deferred_job_options_raise_naming_their_slice(tmp_path):
-    """A job's roofline capture still refuses, naming its slice;
-    recovery from an empty journal is an empty farm, and the
+    """The options that once waited for their slices now run: a job's
+    roofline capture is accepted and records each window (its slice has
+    come); recovery from an empty journal is an empty farm, and the
     process_kill injection arms (it fires only at its point); an unknown
     mode is a ValueError."""
     from repro_torch.farm import FarmLedger
     from repro_torch.farm.chaos import ChaosInjector, Injection
+    from repro_torch.roofline import WindowCapture
 
     mgr = _farm(slots=2)
     job = dict(name="j", engine=_engine, windows=_windows(0),
                state=torch.tensor(0.0), shell={}, stack_fn=_stack)
-    with pytest.raises(NotImplementedError, match="roofline"):
-        mgr.submit(FarmJob(**job, capture=object()))
+    cap = WindowCapture()
+    mgr.submit(FarmJob(**job, capture=cap))
+    assert mgr.run()["jobs"]["j"]["status"] == "done"
+    assert [r["window"] for r in cap.rows] == [0, 1, 2]
+    assert cap.report()["steps"] == 6
+    mgr = _farm(slots=2)
     rec = FarmManager.recover(FarmLedger(str(tmp_path)), device="cpu")
     assert rec.jobs == [] and rec.run()["jobs"] == {}
     inj = ChaosInjector()

@@ -132,29 +132,24 @@ def test_write_telemetry_merges_runs_by_key(tmp_path):
 # test_torch_farm_ledger.py). The next two refused until ZP-Cert and now
 # run: ``--certify`` the mixed farm behind the certification gate (every
 # board admitted), ``--certify-smoke`` the admission gate (both modes in
-# test_torch_certify_farm.py). The roofline still refuses.
-@pytest.mark.parametrize("flags,slice_", [
-    (["--ledger"], None),
-    (["--recover"], None),
-    (["--kill-after-commits", "3"], None),
-    (["--killrestart-smoke", "--lockstep"], None),
-    (["--certify", "--lockstep", "--steps", "4"], None),
-    (["--certify-smoke", "--lockstep"], None),
-    (["--roofline"], "roofline slice"),
+# test_torch_certify_farm.py). The last refused until the roofline slice
+# and now runs: ``--roofline`` the mixed farm with a capture on its train
+# board (both modes in chip_smoke.py's phase 57).
+@pytest.mark.parametrize("flags", [
+    ["--ledger"],
+    ["--recover"],
+    ["--kill-after-commits", "3"],
+    ["--killrestart-smoke", "--lockstep"],
+    ["--certify", "--lockstep", "--steps", "4"],
+    ["--certify-smoke", "--lockstep"],
+    ["--roofline", "--lockstep", "--steps", "4"],
 ], ids=["flags0-ledger slice", "flags1-ledger slice", "flags2-ledger slice",
         "flags3-ledger slice", "flags4-ZP-Cert", "flags5-ZP-Cert",
         "flags6-roofline slice"])
-def test_cli_refuses_what_waits_for_a_later_slice(flags, slice_, tmp_path,
-                                                  capsys):
-    """Each flag of the reference's CLI that waits for a later slice
-    exits non-zero naming it, before anything runs; none is ignored. The
-    ledger and ZP-Cert flags run and report ok."""
-    if slice_ is not None:
-        with pytest.raises(SystemExit) as e:
-            cli.main(flags + ["--device", "cpu"])
-        assert isinstance(e.value.code, str) and slice_ in e.value.code
-        assert flags[0] in e.value.code
-        return
+def test_cli_refuses_what_waits_for_a_later_slice(flags, tmp_path, capsys):
+    """Each flag of the reference's CLI that once waited for a later
+    slice now runs and reports ok; none is ignored: the ledger, ZP-Cert
+    and roofline flags."""
     led = ["--ledger", str(tmp_path), "--ledger-boards", "2",
            "--ledger-windows", "6", "--device", "cpu"]
     if flags[0] == "--kill-after-commits":
@@ -167,7 +162,8 @@ def test_cli_refuses_what_waits_for_a_later_slice(flags, slice_, tmp_path,
     elif flags[0] == "--recover":
         cli.main(led)                   # a finished campaign to recover
         capsys.readouterr()
-    if flags[0] in ("--killrestart-smoke", "--certify", "--certify-smoke"):
+    if flags[0] in ("--killrestart-smoke", "--certify", "--certify-smoke",
+                    "--roofline"):
         cli.main(flags + ["--device", "cpu"])
     else:
         cli.main(led + [f for f in flags if f != "--ledger"])
@@ -177,6 +173,13 @@ def test_cli_refuses_what_waits_for_a_later_slice(flags, slice_, tmp_path,
         assert all(j["status"] == "done" for j in out["jobs"].values())
         assert not any(c for c in out["telemetry"]["certifications"]
                        if not c["ok"])
+    elif flags[0] == "--roofline":
+        # the train board's capture: its 4 steps in windows of 2, each
+        # costed (the board's first window counted on fake tensors)
+        roof = out["roofline"]
+        assert (roof["windows"], roof["steps"]) == (2, 4)
+        assert roof["hlo_flops"] > 0 and roof["device_s"] is None
+        assert out["train"]["steps"] == 4
     elif flags[0] == "--certify-smoke":
         assert [r["job"] for r in out["certify_fail_records"]] == ["poison"]
         assert out["jobs"]["poison"]["status"] == "quarantined"

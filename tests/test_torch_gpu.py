@@ -1477,3 +1477,85 @@ def test_certify_card_boards_trace_only(cuda):
     assert reports["decode"].kernels == {
         "decode_attention": cfg.num_layers * 4}
     assert reports["layer0"].kernels == {"flash_attention": 2}
+
+
+# ------------------------------------------------- measured-window roofline --
+@pytest.mark.parametrize("graph", [True, False])
+def test_roofline_times_each_window_on_the_card(cuda, graph):
+    """serve's capture times every decode window with CUDA events around
+    its enqueue, graphed (one replay a window) and eager: each window's
+    device time above 0 and their sum within the decode's wall; the cost
+    is one step counted on fake tensors, scaled to the 7 steps."""
+    from repro_torch.roofline import WindowCapture
+    from repro_torch.roofline import capture as capture_mod
+
+    made = []
+    real = WindowCapture.__init__
+
+    def keep(self, *a, **kw):
+        real(self, *a, **kw)
+        made.append(self)
+
+    cfg = get_smoke_config("glm4-9b")
+    WindowCapture.__init__ = keep
+    try:
+        out = serve(cfg, batch=2, prompt_len=8, gen=8, sample_interval=3,
+                    device=cuda, graph=graph)
+    finally:
+        WindowCapture.__init__ = real
+    assert out["engine"] == ("graph" if graph else "eager")
+    (cap,) = made
+    assert [r["size"] for r in cap.rows] == [3, 3, 1]
+    assert all(r["device_s"] > 0 for r in cap.rows)
+    roof = out["roofline"]
+    assert roof["windows"] == 3 and roof["steps"] == 7
+    assert 0 < roof["device_s"] <= out["decode_s"]
+    assert roof["device_s_per_step"] == pytest.approx(roof["device_s"] / 7)
+    assert roof["hlo_flops"] > 0 and roof["peak_hbm_fraction"] > 0
+    assert capture_mod.HW_H100.name == "h100_sxm5_80gb"
+
+
+def test_roofline_cost_pass_launches_nothing_on_the_card(cuda):
+    """The cost pass over the graphed decode engine on card tensors: no
+    launch, build, replay or capture, the card's allocated bytes and
+    peak unchanged, the cache untouched; K2's cost is in the count (one
+    call a layer of the step) and the step's FLOPs are at least its
+    products'."""
+    from repro_torch.analysis import no_dispatch_guard, warm_fake_device
+    from repro_torch.core.graphs import WindowGraphs
+    from repro_torch.core.pshell import shell_init
+    from repro_torch.launch.serve import (decode_shell_config,
+                                          make_decode_engine)
+    from repro_torch.roofline.cost import count_cost
+    from repro_torch.serve import make_prefill_step
+
+    cfg = get_smoke_config("glm4-9b")
+    model = build_model(cfg)
+    with torch.inference_mode():
+        params = model.init(0, device=cuda)
+        b = {k: torch.from_numpy(v).to(cuda) for k, v in
+             make_batch_fn(cfg, 2, 8, 0)(0).items() if k != "labels"}
+        cache, logits = make_prefill_step(model, 24)(params, b)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        engine = make_decode_engine(model, params)
+        assert isinstance(engine, WindowGraphs)
+        sh = shell_init(decode_shell_config(4), cuda)
+        before = [t.clone() for t in tree_leaves((cache, tok, sh))
+                  if torch.is_tensor(t)]
+        warm_fake_device(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem = (torch.cuda.memory_allocated(),
+               torch.cuda.max_memory_allocated())
+        with no_dispatch_guard():
+            one = count_cost(engine, (cache, tok), sh, np.arange(1))
+        assert (torch.cuda.memory_allocated(),
+                torch.cuda.max_memory_allocated()) == mem
+        assert engine.windows == {"graph": 0, "eager": 0}
+        after = [t for t in tree_leaves((cache, tok, sh))
+                 if torch.is_tensor(t)]
+        assert all(torch.equal(a, b_) for a, b_ in zip(before, after))
+    from repro_torch.testing import decode_step_flops
+    assert one["flops"] == pytest.approx(decode_step_flops(cfg, 2, 24),
+                                         rel=0.02)
+    assert one["bytes"] > 0 and one["exps"] == 0

@@ -15,7 +15,8 @@ the port held against the JAX package:
 The reference's scheduler is reached through
 ``test_torch_ssm.import_reference`` (``repro.core`` reads names newer jax
 releases moved out of ``jax.core``). The reference's serve-through-the-
-scheduler case (its roofline capture) waits for the roofline slice.
+scheduler case (its roofline capture's counts) is in
+``test_torch_roofline.py``.
 """
 import numpy as np
 import pytest

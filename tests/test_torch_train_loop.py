@@ -206,8 +206,11 @@ def test_train_loop_engines_agree_with_tail(interval):
     assert_trees_equal(fused["state"], plain["state"], "loop state")
     assert fused["coverage"]["fraction"] == plain["coverage"]["fraction"]
     assert set(fused) == {"state", "losses", "coverage", "profile",
-                          "stragglers", "final_step"}
+                          "stragglers", "final_step", "roofline"}
     assert set(fused["profile"]) == {"data", "device", "host"}
+    # the measured-window roofline rode both engines: the same windows
+    assert fused["roofline"]["windows"] == plain["roofline"]["windows"] \
+        == -(-10 // interval)
 
 
 def test_train_loop_checkpoint_resume(tmp_path):
@@ -224,11 +227,13 @@ def test_train_loop_checkpoint_resume(tmp_path):
 
 def test_train_loop_waits_for_its_slices():
     """The ZP-Scope plane has its slice (a report under "scope"; anything
-    but a ScopeSpec or ScopePlane refused); the roofline still waits for
-    its own: no "roofline" key."""
+    but a ScopeSpec or ScopePlane refused), and so has the roofline: its
+    report under "roofline", with the plane's counters joined."""
     out = train_loop(_model(), _lc(scope=ScopeSpec()), device="cpu")
     assert out["scope"]["steps"] == len(out["losses"])
-    assert "roofline" not in out
+    assert out["roofline"]["steps"] == len(out["losses"])
+    assert out["roofline"]["scope"]["steps"] == len(out["losses"])
+    assert out["roofline"]["hlo_flops"] > 0
     with pytest.raises(TypeError, match="ScopeSpec"):
         train_loop(_model(), _lc(scope=object()), device="cpu")
 
