@@ -532,6 +532,53 @@ free memory printed first):
                from the victim's death (its exit reaped here) to the
                recovery's first commit.
 
+PanicRoom and the shard_map half of the sharded path (after phase 55):
+
+ 58. panicroom — PanicRoom's grouped-GEMM program (writes its operands to
+               the BlockFS, reads them back, multiplies them through K5's
+               wrapper, writes and reads back the product, prints its
+               checksum) at qwen3-moe-30b-a3b's decode gate product, x
+               (128, 8, 2048) and w (128, 2048, 768) in bf16 from seed 0,
+               on a BlockFS that holds them, under "sim" (K5's plain
+               version on host tensors) and "hw" (K5 on the card): stdout
+               equal up to the checksum's digits, the syscall counts
+               equal, the outputs within K5's bf16 tolerance (2e-2)
+               relative, exactly 1 K5 launch on "hw" and none on "sim";
+               both walls and the BSP's lines of code printed.
+ 59. sharded — the sharded bodies on SHARD_RANKS ranks spawned with
+               torch.multiprocessing ("spawn"), sharing the card over
+               gloo, joined within SHARD_DEADLINE_S (any rank's failure
+               or the deadline fails the run), each cell held against
+               the single-rank port on the same inputs, computed here
+               first: (a) glm4-9b's sequence-sharded flash-decode, one
+               attention layer's projected q, k, v for 63 teacher-forced
+               steps at phase 3's shape (B=8, a 2,120-slot ring holding
+               2,048 tokens), mesh (data 2, model 2): outputs within 2e-2
+               of the unsharded "xla" decode, the final ring bitwise; (b)
+               qwen3-moe-30b-a3b's a2a MoE (E=128, top-8, B=2, S=2048,
+               capacity factor 8) and (c) mixtral-8x7b's Expert-TP (E=8,
+               top-2, F split 7,168 a rank, B=2, S=1024) on (2, 2):
+               within 3e-2 relative of the unsharded sort with the plain
+               expert products (expert_impl "xla", so no K5 in the
+               reference), nothing dropped on either side, exactly 3 K5
+               launches a rank; (d) granite-8b's GPipe on 4 of 36 layers,
+               2 stages x 2 microbatches, B=4, S=1024, bf16, mesh (data
+               2, pipe 2): loss within 2e-2 and gradients within 6e-2 of
+               the plain Model.loss, and each leaf's gradient within
+               PIPE_GRAD_REL of its largest entry; (e) compressed_pmean over 4 ranks at glm4-9b's
+               MLP gate shape (4,096 x 13,696 f32): error at most
+               max|g|/127 + 1e-6, the residual nonzero; (f) glm4-9b's
+               2/40-layer train state at full width saved from blocks on
+               (2, 2) and restored onto (4, 1): every block of its spec's
+               shape and equal to the same block of the leaf saved, drawn
+               again on its rank, and the smallest split leaf rebuilt on
+               every rank (the all-gather) equal too. Each cell's wall,
+               peak memory a rank, host copies a rank (the collectives'
+               pinned staging) and K5 launches a rank printed; then K5
+               held against its plain version (check_grouped_gemm's
+               tolerances) and timed at (b)'s and (c)'s per-rank shapes.
+               The phase fails past SHARD_BUDGET_S.
+
 K2, K1, K3, K4 and K5 go into one JSON line; K1 and K2 carry their
 head_dim 256 numbers under "hd256", their head_dim 64 numbers under
 "hd64" (by arch) and the last four archs' launches, K2 its qwen3
@@ -674,6 +721,24 @@ LEDGER_PARENT_RESERVED = 2**30
 # the disk the phase needs under tempfile.gettempdir(): the 4 snapshots a
 # board kept (8 boards x 4 x 0.41 GB) and some room
 LEDGER_DISK_BYTES = 16 * 10**9
+
+# PanicRoom (phase 58): the grouped-GEMM program at qwen3-moe-30b-a3b's
+# decode gate product (E=128 experts, C=8 rows, D=2048, F=768), bf16
+PANIC_X, PANIC_W = (128, 8, 2048), (128, 2048, 768)
+# the sharded cells (phase 59): SHARD_RANKS spawned ranks share the card
+# over gloo, joined within SHARD_DEADLINE_S; the decode cell is phase 3's
+# (B=8, a ring of PROMPT + GEN + 8 slots, PROMPT tokens in it, GEN - 1
+# teacher-forced steps)
+SHARD_RANKS, SHARD_DEADLINE_S = 4, 480
+# the phase's own budget (the whole script has 1,200 s; PERF.md §2 keeps
+# the margin), and the GPipe cell's gradients against the plain loss's,
+# each leaf's largest difference over its largest entry
+SHARD_BUDGET_S = 180.0
+PIPE_GRAD_REL = 2e-2
+SHARD_DECODE = {"ring": PROMPT + GEN + 8, "start": PROMPT, "steps": GEN - 1}
+# the disk the restore cell's snapshot needs under tempfile.gettempdir():
+# glm4-9b's 2/40-layer train state (16.5 GB) and some room
+SHARD_DISK_BYTES = 24 * 10**9
 
 # the examples and their smoke budgets, run on the card last
 EXAMPLES = (("torch_quickstart.py", ["--steps", "4"]),
@@ -1619,6 +1684,7 @@ def k5_time(E, M, K, N, seed, paths=()):
     from repro_torch.kernels.grouped_gemm import ops as gg_ops
     from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
     from repro_torch.roofline.hw import bound
+    from repro_torch.testing import GG_BF16_NORM_REL, _compare
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
@@ -1637,6 +1703,11 @@ def k5_time(E, M, K, N, seed, paths=()):
     def library(i):
         return torch.bmm(*sets[i])
 
+    # K5 held against its plain version on the first set (raises where
+    # they disagree)
+    plain_err = _compare(kernel(0), plain(0), bf16,
+                         f"K5 vs plain, E={E} M={M} K={K} N={N}",
+                         GG_BF16_NORM_REL)
     lib_err = float((library(0).float() - kernel(0).float()).abs().max())
     ms = time_ms(torch, kernel, 2, reps=10)
     plain_ms = time_ms(torch, plain, 2, reps=1)
@@ -1660,6 +1731,7 @@ def k5_time(E, M, K, N, seed, paths=()):
                                        w.data_ptr()),
             "path_ms": path_ms,
             "shape": {"E": E, "M": M, "K": K, "N": N, "dtype": "bfloat16"},
+            "max_abs_err": plain_err[0], "normwise_err": plain_err[1],
             "library_max_abs_err": lib_err, "library_call": "torch.bmm"}
 
 
@@ -4007,6 +4079,263 @@ def last_four_phases(sms):
             "k1": k1, "k2": k2}
 
 
+def panicroom_phase():
+    """Phase 58: PanicRoom's grouped-GEMM program (see the module
+    docstring) under "sim" (K5's plain version on host tensors) and "hw"
+    (K5 on the card), each on a BlockFS that holds its operands."""
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.panicroom import BSP, BlockFS, run_benchmark
+    from repro_torch.panicroom.programs import (bsp_loc, fs_bytes,
+                                                grouped_gemm_program)
+    from repro_torch.testing import TOL
+
+    bf16 = torch.bfloat16
+    program = grouped_gemm_program(PANIC_X, PANIC_W, bf16, seed=0)
+    runs = {}
+    for platform in ("sim", "hw"):
+        bsp = BSP(fs=BlockFS(fs_bytes(PANIC_X, PANIC_W, bf16)))
+        reset_counts()
+        runs[platform] = run_benchmark(program, platform, bsp=bsp)
+        runs[platform]["launches"] = counts()
+        del bsp
+    sim, hw = runs["sim"], runs["hw"]
+    expect_counts(sim["launches"], {}, "panicroom sim")
+    expect_counts(hw["launches"], {"k5": 1}, "panicroom hw")
+    assert sim["stdout"].split("=")[0] == hw["stdout"].split("=")[0], \
+        (sim["stdout"], hw["stdout"])
+    assert sim["syscalls"] == hw["syscalls"], (sim["syscalls"],
+                                               hw["syscalls"])
+    assert sim["exit_code"] == hw["exit_code"] == 0
+    want, got = (r["result"]["out"].float() for r in (sim, hw))
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= TOL[bf16], rel
+    return {"wall_s": {p: r["wall_s"] for p, r in runs.items()},
+            "stdout": {p: r["stdout"] for p, r in runs.items()},
+            "syscalls": sim["syscalls"], "bsp_loc": bsp_loc(),
+            "max_rel_err": rel, "k5_launches": {
+                p: r["launches"]["k5"] for p, r in runs.items()},
+            "shape": {"x": PANIC_X, "w": PANIC_W, "dtype": "bfloat16"}}
+
+
+def _shard_plan():
+    """Phase 59's meshes and cells (``repro_torch.sharding.cells``)."""
+    cf8 = {"capacity_factor": 8.0}
+    meshes = {"m22": {"shape": [2, 2], "axes": ["data", "model"]},
+              "pipe": {"shape": [2, 2], "axes": ["data", "pipe"]},
+              "dp4": {"shape": [4], "axes": ["dp"]},
+              "m41": {"shape": [4, 1], "axes": ["data", "model"]}}
+    cells = [
+        {"name": "decode", "kind": "decode", "mesh": "m22", "arch": ARCH,
+         "dtype": "bfloat16", "body": True, "npz": "in_decode.npz",
+         **SHARD_DECODE},
+        {"name": "a2a", "kind": "moe", "impl": "a2a", "mesh": "m22",
+         "arch": MOE_ARCH, "dtype": "bfloat16", "overrides": cf8, "seed": 1,
+         "batch": [2, 2048]},
+        {"name": "etp", "kind": "moe", "impl": "sort", "mesh": "m22",
+         "arch": "mixtral-8x7b", "dtype": "bfloat16", "overrides": cf8,
+         "seed": 2, "batch": [2, 1024]},
+        {"name": "pipe", "kind": "pipe", "mesh": "pipe", "arch": COEMU_ARCH,
+         "dtype": "bfloat16", "overrides": {"num_layers": 4}, "seed": 3,
+         "batch": [4, 1024], "micro": 2},
+        {"name": "pmean", "kind": "pmean", "mesh": "dp4",
+         "ranks": SHARD_RANKS, "shape": [4096, 13696], "seed": 4},
+        {"name": "restore", "kind": "restore", "mesh": "m22", "to": "m41",
+         "arch": ARCH, "dtype": "bfloat16", "overrides": {"num_layers": 2},
+         "seed": 5}]
+    return {"device": "cuda", "meshes": meshes, "cells": cells}
+
+
+def _shard_references(plan, work):
+    """The single-rank port on each cell's inputs, here on the card, moved
+    to the host: (a) the unsharded "xla" decode on q, k and v projected
+    by one of glm4-9b's attention layers (written to the cell's .npz);
+    (b, c) the unsharded sort, its expert products the plain einsums; (d) the plain Model.loss and its
+    gradients; (e) the f32 mean and the int8 bound."""
+    import torch
+
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding import cells as sc
+    from repro_torch.utils import tree_paths_sorted
+
+    by = {c["name"]: c for c in plan["cells"]}
+    refs = {}
+    dev = torch.device(plan["device"])
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        c = by["decode"]
+        cfg = sc.cell_config(c)
+        g = torch.Generator(device=dev).manual_seed(0)
+        p = attn.init_attention(g, cfg, dev)
+        W, s0, T = c["ring"], c["start"], c["steps"]
+        K, hd = cfg.num_kv_heads, cfg.head_dim
+        B = c.get("batch", BATCH)
+        ring = {n: torch.randn((B, W, K, hd), generator=g,
+                               device=dev).to(bf16) for n in ("k", "v")}
+        x = torch.randn((T, B, 1, cfg.d_model), generator=g,
+                        device=dev).to(bf16)
+        qkv = [attn._project_qkv(
+            p, cfg, x[t], x[t], *[torch.full((B, 1), s0 + t,
+                                             dtype=torch.int32,
+                                             device=dev)] * 2, rope=True)
+            for t in range(T)]
+        q, k, v = (torch.stack(z) for z in zip(*qkv))
+        sc.save_npz(work / c["npz"], {"ring/k": ring["k"],
+                                      "ring/v": ring["v"], "q": q, "k": k,
+                                      "v": v})
+        ck, cv = ring["k"].clone(), ring["v"].clone()
+        outs = []
+        for t in range(T):
+            slot = torch.tensor([(s0 + t) % W], device=dev)
+            ck.index_copy_(1, slot, k[t])
+            cv.index_copy_(1, slot, v[t])
+            mask = (torch.arange(W, device=dev) <= s0 + t)[None, :]
+            outs.append(attn._attend(cfg, q[t], ck, cv, mask))
+        refs["decode"] = {"out": torch.stack(outs).cpu(),
+                          "ring/k": ck.cpu(), "ring/v": cv.cpu()}
+        del p, ring, x, qkv, q, k, v, ck, cv, outs
+        for name in ("a2a", "etp"):
+            c = by[name]
+            inp = sc.draw_inputs(c, dev)
+            y, st = moe_mod.moe_apply(
+                {"router": {"w": inp["router/w"]}, "gate": inp["gate"],
+                 "up": inp["up"], "down": inp["down"]}, sc.cell_config(c),
+                inp["x"], impl="sort", expert_impl="xla")
+            refs[name] = {"y": y.cpu(),
+                          "dropped": float(st["dropped_frac"])}
+            del inp, y, st
+        c = by["pmean"]
+        gs = sc.draw_inputs(c, dev)["g"]
+        refs["pmean"] = {"mean": gs.mean(dim=0).cpu(),
+                         "bound": float(gs.abs().max()) / 127.0 + 1e-6}
+        del gs
+    c = by["pipe"]
+    cfg = sc.cell_config(c)
+    inp = sc.draw_inputs(c, dev)
+    params = sc._params_tree(cfg, inp)
+    for _, t in tree_paths_sorted(params):
+        t.requires_grad_(True)
+    loss, _ = build_model(cfg, Runtime(attention_impl="xla")).loss(
+        params, {"tokens": inp["tokens"].long(),
+                 "labels": inp["labels"].long()})
+    loss.backward()
+    refs["pipe"] = {"loss": float(loss.detach()),
+                    "grads": {path: t.grad.cpu()
+                              for path, t in tree_paths_sorted(params)}}
+    del params, inp, loss
+    free_device_memory()
+    return refs
+
+
+def sharded_phase():
+    """Phase 59: the shard_map half of the sharded path on SHARD_RANKS
+    spawned ranks sharing the card (see the module docstring), each cell
+    held against the single-rank port on the same inputs; then K5 timed
+    at the cells' per-rank shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.sharding import cells as sc
+    from repro_torch.testing import TOL
+
+    plan = _shard_plan()
+    tmp = tempfile.gettempdir()
+    free_disk = shutil.disk_usage(tmp).free
+    assert free_disk > SHARD_DISK_BYTES, (tmp, free_disk)
+    out = {"free_disk_bytes": free_disk}
+    with tempfile.TemporaryDirectory(prefix="zp_shard_") as d:
+        work = Path(d)
+        t = time.perf_counter()
+        refs = _shard_references(plan, work)
+        out["references_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        wall, res = sc.run_plan(work, plan, SHARD_RANKS,
+                                timeout_s=SHARD_DEADLINE_S)
+        out["ranks_s"] = wall
+        # the outputs read back from the ranks' files
+        out["outputs_s"] = time.perf_counter() - t - wall
+        t = time.perf_counter()
+        for name, (got, metrics) in res.items():
+            out[name] = {
+                "wall_s": max(m["wall_s"] for m in metrics),
+                "peak_bytes": [m["peak_bytes"] for m in metrics],
+                "host_copies": [m["host_copies"] for m in metrics],
+                "k5_launches": [m.get("k5_launches", 0) for m in metrics]}
+        bf16 = TOL[torch.bfloat16]
+        got, ref = res["decode"][0], refs["decode"]
+        assert torch.allclose(got["out"].float(), ref["out"].float(),
+                              rtol=bf16, atol=bf16), "decode"
+        assert torch.equal(got["ring/k"], ref["ring/k"]) and \
+            torch.equal(got["ring/v"], ref["ring/v"]), "decode ring"
+        out["decode"]["max_abs_err"] = float(
+            (got["out"].float() - ref["out"].float()).abs().max())
+        for name in ("a2a", "etp"):
+            got, ref = res[name][0], refs[name]
+            y, want = got["y"].float(), ref["y"].float()
+            rel = float((y - want).abs().max() / want.abs().max())
+            assert rel < 3e-2, (name, rel)
+            assert ref["dropped"] == 0.0 == float(
+                got["stats/dropped_frac"]), name
+            # gate, up and down a rank (none on a host rehearsal)
+            k5 = 3 if plan["device"] == "cuda" else 0
+            assert out[name]["k5_launches"] == [k5] * SHARD_RANKS, \
+                (name, out[name]["k5_launches"])
+            out[name]["max_rel_err"] = rel
+        got, ref = res["pipe"][0], refs["pipe"]
+        loss_err = abs(float(got["loss"][0]) - ref["loss"])
+        grad_abs, grad_rel = {}, {}
+        dev = torch.device(plan["device"])
+        for p, g in ref["grads"].items():
+            # on the card: 1.27e9 bf16 entries are seconds on the host
+            g = g.to(dev).float()
+            d = (got[f"grad/{p}"].to(dev).float() - g).abs().max()
+            grad_abs[p] = float(d)
+            grad_rel[p] = float(d / g.abs().max().clamp_min(1e-30))
+            del g, d
+        grad_err, rel_err = max(grad_abs.values()), max(grad_rel.values())
+        # the reference's absolute limits, and each leaf relative to its
+        # largest entry (full-width gradients are far below 6e-2)
+        assert loss_err < 2e-2 and grad_err < 6e-2, (loss_err, grad_err)
+        assert rel_err < PIPE_GRAD_REL, max(grad_rel.items(),
+                                            key=lambda kv: kv[1])
+        out["pipe"].update(loss=float(got["loss"][0]), loss_err=loss_err,
+                           max_grad_err=grad_err, max_grad_rel_err=rel_err)
+        got, ref = res["pmean"][0], refs["pmean"]
+        err = float((got["out"] - ref["mean"]).abs().max())
+        resid = float(got["resid"].abs().max())
+        assert err <= ref["bound"] and resid > 0, (err, ref["bound"], resid)
+        out["pmean"].update(max_abs_err=err, bound=ref["bound"],
+                            resid_absmax=resid)
+        got, metrics = res["restore"]
+        n = int(got["leaves"][0])
+        assert int(got["equal"][0]) == n and int(got["step"][0]) == 1, got
+        assert all(m["shapes_ok"] == n and m["all_gather_equal"]
+                   for m in metrics), metrics
+        out["restore"].update(leaves=n, save_s=max(m["save_s"]
+                                                   for m in metrics),
+                              restore_s=max(m["restore_s"]
+                                            for m in metrics))
+        out["compare_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        del res, refs
+    free_device_memory()
+    out["cleanup_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # K5 at the cells' per-rank shapes, held against its plain version
+    # (k5_time raises where they disagree) and timed: a2a's local experts
+    # (E/2 of qwen3's 128 over 2 ranks' C=512 rows each), Expert-TP's F/2
+    # slice of mixtral's d_ff at C=2048
+    out["k5_time"] = {"a2a_gate_up": k5_time(64, 1024, 2048, 768, seed=8),
+                      "etp_gate_up": k5_time(8, 2048, 4096, 7168, seed=9)}
+    out["k5_time_s"] = time.perf_counter() - t
+    return out
+
+
 def host_us(torch, fn, calls=200, repeats=5):
     """A kernel wrapper's host time a call (its checks, the path choice,
     the outputs' allocation and the launch): ``calls`` calls of fn()
@@ -4613,6 +4942,23 @@ def main() -> int:
     k1["launches_ledger"] = {
         "oracle": farm_ledger["oracle"]["launches"]["k1"],
         "recovery": farm_ledger["recover"]["launches"]["k1"]}
+
+    # ----------------------------------------------------- 58. panicroom --
+    panic = panicroom_phase()
+    log(phase="panicroom", **panic)
+    record["panicroom"] = panic
+    k5["launches_panicroom"] = panic["k5_launches"]
+
+    # ------------------------------------------------------- 59. sharded --
+    t = time.perf_counter()
+    sharded = sharded_phase()
+    sharded["phase_s"] = time.perf_counter() - t
+    log(phase="sharded", **sharded)
+    assert sharded["phase_s"] < SHARD_BUDGET_S, sharded["phase_s"]
+    record["sharded"] = sharded
+    k5["launches_sharded"] = {n: sharded[n]["k5_launches"]
+                              for n in ("a2a", "etp")}
+    k5["sharded_shapes"] = sharded["k5_time"]
 
     kernels = [k2, k1, k3, k4, k5]
     record["kernels"] = kernels

@@ -25,8 +25,12 @@ Contract pieces:
     corrupt/partial one;
   - retention: keep the newest ``keep`` checkpoints.
 
-Restoring onto another mesh (``restore(shardings=...)``) waits for the
-sharding slice of the port and raises.
+Sharded states (the elastic path): ``save(shardings=, mesh=)`` gathers
+each whole leaf from the ranks' blocks onto the rank that writes (the
+mesh's first), one leaf at a time, and the snapshot keeps its on-disk
+format; ``restore(shardings=, mesh=)`` reads the whole-leaf snapshot one
+leaf at a time and returns this rank's block of every leaf under the
+specs given for the (possibly different) new mesh.
 """
 from __future__ import annotations
 
@@ -35,15 +39,19 @@ import pathlib
 import shutil
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.sharding import rules
 from repro_torch.utils import tree_paths_sorted, tree_unflatten_sorted
 
 # numpy has no bf16 or fp8: such a leaf is stored as its raw view and the
 # logical dtype name goes into the manifest (the reference's _EXOTIC)
+# leaf files written or read at once by one save or restore
+_IO_THREADS = 8
 _EXOTIC = {"bfloat16": (torch.bfloat16, torch.uint16),
            "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8),
            "float8_e5m2": (torch.float8_e5m2, torch.uint8)}
@@ -194,15 +202,30 @@ class CheckpointManager:
         self._error: Optional[BaseException] = None
 
     # ------------------------------------------------------------- save ---
-    def save(self, state, step: int, blocking: bool = False):
+    def save(self, state, step: int, blocking: bool = False, *,
+             shardings=None, mesh=None):
         """Snapshot to host memory now; write files asynchronously. A
         prior async save that FAILED (disk full, permission lost) raises
         here — a failed write must never be silently absorbed while the
-        caller keeps training past it."""
+        caller keeps training past it.
+
+        A sharded ``state`` (this rank's blocks under ``shardings``,
+        ``{path: spec}``, on ``mesh``) is saved by every rank of the
+        mesh: each whole leaf is gathered onto the mesh's first rank,
+        which alone writes; the others return once the gathers are
+        done."""
         self.wait()                                # one in-flight save max
         flat = tree_paths_sorted(state)
         paths = [p for p, _ in flat]
-        host_leaves = [_host_copy(x) for _, x in flat]
+        if shardings is None:
+            host_leaves = [_host_copy(x) for _, x in flat]
+        else:
+            # each gathered leaf is a new host tensor on the writer
+            writer = mesh.ranks[0]
+            host_leaves = [rules.gather(x, shardings[p], mesh, dst=writer)
+                           for p, x in flat]
+            if mesh.index != 0:
+                return
 
         def write():
             tmp = self.dir / f"step_{step:08d}.tmp"
@@ -210,20 +233,26 @@ class CheckpointManager:
             if tmp.exists():
                 shutil.rmtree(tmp)
             tmp.mkdir(parents=True)
-            manifest = {"step": step, "leaves": []}
-            for p, t in zip(paths, host_leaves):
+
+            def write_leaf(p, t):
                 fp = tmp / (p.replace("/", "__") + ".npy")
                 raw, dtype_name = _encode(t)
                 np.save(fp, raw)
-                manifest["leaves"].append({
+                return {
                     "path": p, "file": fp.name,
                     "shape": list(t.shape), "dtype": dtype_name,
                     # crc32 reads the array's own buffer: no copy, and
                     # zlib lets the other threads run meanwhile
                     "crc32": zlib.crc32(np.ascontiguousarray(raw)),
-                    # one device, no sharding (the sharding slice)
+                    # whole leaves, however the state was sharded
                     "sharding": "None",
-                })
+                }
+
+            # leaves written and checksummed in parallel (np.save's write
+            # and zlib release the interpreter lock), listed in order
+            with ThreadPoolExecutor(_IO_THREADS) as pool:
+                manifest = {"step": step, "leaves": list(
+                    pool.map(write_leaf, paths, host_leaves))}
             with open(tmp / "manifest.json", "w") as f:
                 json.dump(manifest, f)
             if final.exists():
@@ -276,42 +305,89 @@ class CheckpointManager:
             return False
         return True
 
-    def _load_step(self, like, step: int):
+    def _load_step(self, like, step: int, convert=None):
+        """The snapshot's leaves in ``like``'s structure, each passed
+        through ``convert(path, leaf)`` as soon as it is read and checked
+        (so one whole leaf at a time is held) where one is given."""
         d = self.dir / f"step_{step:08d}"
+
+        def unreadable(e):
+            # torn write: missing/truncated/unparseable
+            return SnapshotIntegrityError(
+                f"unreadable snapshot at step {step}: {e!r}", step=step)
+
         try:
             with open(d / "manifest.json") as f:
                 manifest = json.load(f)
             by_path = {l["path"]: l for l in manifest["leaves"]}
-            leaves = []
-            for p in _leaf_paths(like):
+        except Exception as e:  # noqa: BLE001 — unreadable IS corrupt
+            raise unreadable(e) from e
+        def read_leaf(p):
+            try:
                 meta = by_path[p]
                 raw = np.load(d / meta["file"])
-                if zlib.crc32(np.ascontiguousarray(raw)) != meta["crc32"]:
-                    raise SnapshotIntegrityError(
-                        f"checksum mismatch for {p} in step {step}",
-                        step=step)
-                leaves.append(_decode(raw, meta["dtype"]))
-        except SnapshotIntegrityError:
-            raise
-        except Exception as e:  # torn write: missing/truncated/unparseable
-            raise SnapshotIntegrityError(
-                f"unreadable snapshot at step {step}: {e!r}",
-                step=step) from e
+            except Exception as e:
+                raise unreadable(e) from e
+            if zlib.crc32(np.ascontiguousarray(raw)) != meta["crc32"]:
+                raise SnapshotIntegrityError(
+                    f"checksum mismatch for {p} in step {step}", step=step)
+            try:
+                return _decode(raw, meta["dtype"])
+            except Exception as e:
+                raise unreadable(e) from e
+
+        # leaves read and checked in parallel, at most _IO_THREADS ahead
+        # of the one taken (so few whole leaves are held at once), and
+        # taken in order
+        paths = _leaf_paths(like)
+        leaves = []
+        with ThreadPoolExecutor(_IO_THREADS) as pool:
+            ahead = [pool.submit(read_leaf, p)
+                     for p in paths[:_IO_THREADS]]
+            try:
+                for i, p in enumerate(paths):
+                    t = ahead[i].result()
+                    ahead[i] = None
+                    if i + _IO_THREADS < len(paths):
+                        ahead.append(pool.submit(read_leaf,
+                                                 paths[i + _IO_THREADS]))
+                    leaves.append(t if convert is None else convert(p, t))
+                    del t
+            finally:
+                for f in ahead:
+                    if f is not None:
+                        f.cancel()
         return tree_unflatten_sorted(like, leaves)
 
     def restore(self, like, step: Optional[int] = None,
-                shardings=None, fallback: bool = False) -> Any:
+                shardings=None, fallback: bool = False, *,
+                mesh=None) -> Any:
         """Load into the structure of ``like``, each leaf onto the device
         of ``like``'s leaf (the host for a meta-device ``like``). A
         corrupt or partially-written snapshot raises
         :class:`SnapshotIntegrityError`; with ``fallback=True`` the restore
         walks back to the newest OLDER snapshot that verifies instead (the
         returned step tells the caller how far back it landed). Returns
-        ``(tree, step)``."""
+        ``(tree, step)``.
+
+        With ``shardings`` (``{path: spec}`` for the new ``mesh``), the
+        elastic path: ``like`` gives the whole leaves' structure, shapes
+        and dtypes (meta tensors do), and the tree returned holds this
+        rank's block of each leaf, on ``mesh.device``, read one whole leaf
+        at a time."""
+        convert = None
         if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) waits for the sharding slice of "
-                "the port")
+            shapes = {p: (tuple(t.shape), t.dtype)
+                      for p, t in tree_paths_sorted(like)}
+
+            def convert(path, t):
+                if (tuple(t.shape), t.dtype) != shapes[path]:
+                    raise ValueError(
+                        f"{path}: the snapshot holds {t.dtype}"
+                        f"{list(t.shape)}, the state {shapes[path][1]}"
+                        f"{list(shapes[path][0])}")
+                block = rules.local_shard(t, shardings[path], mesh)
+                return block.to(mesh.device, copy=True).contiguous()
         steps = self.steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -321,7 +397,7 @@ class CheckpointManager:
         tree, landed, err = None, None, None
         for s in candidates:
             try:
-                tree, landed = self._load_step(like, s), s
+                tree, landed = self._load_step(like, s, convert), s
                 break
             except SnapshotIntegrityError as e:
                 err = err or e
@@ -329,4 +405,6 @@ class CheckpointManager:
             raise err or SnapshotIntegrityError(
                 f"no verifiable snapshot at or below step {step}",
                 step=step)
+        if shardings is not None:
+            return tree, landed
         return _place(tree, like, copy=False), landed

@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, dense_apply, init_dense
+from repro_torch.sharding import collectives as coll
 from repro_torch.utils import dtype_of
 
 NEG_INF = -1e30
@@ -181,7 +182,7 @@ def init_cache(cfg, batch: int, max_len: int, window: int, device):
 
 
 def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0,
-                           impl: str = "cuda"):
+                           impl: str = "cuda", mesh=None):
     """One-token decode. x: (B,1,D); pos: 0-d int32 device tensor (the
     current index).
 
@@ -191,11 +192,24 @@ def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0,
     the card, its plain version on host tensors), under "xla" plainly,
     slots above ``pos`` masked as in the reference. The slot is a device
     index: no host sync per layer per step.
+
+    With a ``mesh`` under "xla" the decode is the reference's
+    sequence-sharded flash-decode (``_decode_attention_sharded``): x and
+    the cache are this rank's blocks (``decode_specs``), the ring being
+    ``cache["k"].shape[1] * |model|`` slots, p is whole on every rank,
+    and the output is equal on the ranks of the model axis. A ring that
+    does not divide over the model axis, which the reference decodes
+    unsharded, is decoded here by a call without the mesh.
     """
     B = x.shape[0]
     W = cache["k"].shape[1]
     pvec = pos.reshape(1, 1).expand(B, 1)
     q, k, v = _project_qkv(p, cfg, x, x, pvec, pvec, rope=True)
+    if mesh is not None and impl == "xla":
+        out, cache = _decode_attention_sharded(
+            cfg, q, k, v, cache, pos, mesh=mesh,
+            softcap=cfg.attn_logit_softcap)
+        return _o_proj_sharded(p["o"], out, mesh), cache
     slot = torch.remainder(pos, W).reshape(1).long()
     ck, cv = cache["k"], cache["v"]
     ck.index_copy_(1, slot, k)
@@ -207,3 +221,86 @@ def decode_attention_apply(p, cfg, x, cache, pos, *, window: int = 0,
     out = da_ops.decode_attention(q[:, 0], ck, cv, pos=pos, window=W,
                                   softcap=cfg.attn_logit_softcap)
     return dense_apply(p["o"], out.reshape(B, 1, -1)), cache
+
+
+# ------------------------------------------- distributed flash-decode -------
+def decode_specs(batch: int, hd_total: int, mesh,
+                 data_axes=("data",), model_axis: str = "model"):
+    """The blocks of the sequence-sharded decode, as the reference's
+    shard_map specs lay them out: {"x": x and q/k/v (batch over the data
+    axes where they divide it), "cache": the ring (batch likewise,
+    sequence over the model axis), "out": the attention output (its
+    H*hd over the model axis where that divides)}."""
+    dp = tuple(a for a in data_axes if a in mesh.axis_names)
+    dp_size = mesh.axis_size(dp) if dp else 1
+    b = dp if dp and batch % dp_size == 0 else None
+    msize = mesh.shape[model_axis]
+    out = model_axis if hd_total % msize == 0 else None
+    return {"x": (b, None, None, None), "cache": (b, model_axis, None, None),
+            "out": (b, None, out)}
+
+
+def _decode_attention_sharded(cfg, q, k_new, v_new, cache, pos, *, mesh,
+                              model_axis: str = "model",
+                              softcap: float = 0.0):
+    """Decode over a sequence-sharded KV cache WITHOUT gathering it: the
+    reference's shard_map body. Each rank of the model axis holds
+    ``W_loc`` ring slots of the ``ring = W_loc * |model|`` (``cache``:
+    (b, W_loc, K, hd), updated in place); it computes partial flash statistics (max, exp-sum,
+    weighted values) over its slots and a pmax and two psums combine
+    them, so the wire carries O(B*H*hd) a layer instead of the cache. The
+    ring slot lands on the rank that owns ``pos % ring``, by a masked
+    device-side write: no host sync. q/k_new/v_new: (b, 1, ., hd), whole
+    on every rank of the model axis. Returns (out, cache): out is this
+    rank's (b, 1, H*hd / |model|) slice (the whole H*hd where that does
+    not divide), in q's dtype."""
+    b, _, H, hd = q.shape
+    K = k_new.shape[2]
+    G = H // K
+    msize = mesh.shape[model_axis]
+    ck, cv = cache["k"], cache["v"]
+    W_loc = ck.shape[1]
+    ring = W_loc * msize
+    r = mesh.axis_index(model_axis)
+    lslot = torch.remainder(pos, ring).long() - r * W_loc
+    mine = (lslot >= 0) & (lslot < W_loc)
+    li = lslot.clamp(0, W_loc - 1).reshape(1)
+    for c, new in ((ck, k_new), (cv, v_new)):
+        c.index_copy_(1, li, torch.where(mine, new, c.index_select(1, li)))
+
+    gslots = r * W_loc + torch.arange(W_loc, device=q.device)
+    valid = (gslots <= pos) | (pos + 1 >= ring)
+    qg = q.reshape(b, 1, K, G, hd)
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), ck.float())
+    s.mul_(hd ** -0.5)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s.masked_fill_(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)                    # (b,K,G,1,1)
+    M = coll.pmax(m, model_axis, mesh)
+    pr = torch.exp(s - M)
+    den = coll.psum(pr.sum(dim=-1), model_axis, mesh)  # (b,K,G,1)
+    num = coll.psum(
+        torch.einsum("bkgqt,btkh->bqkgh", pr.to(cv.dtype), cv),
+        model_axis, mesh)                               # (b,1,K,G,hd)
+    out = (num / den[..., None].permute(0, 3, 1, 2, 4)).reshape(b, 1,
+                                                               H * hd)
+    if (H * hd) % msize == 0:
+        sz = (H * hd) // msize
+        out = out[..., r * sz:(r + 1) * sz]
+    return out.to(q.dtype), cache
+
+
+def _o_proj_sharded(p, out, mesh, model_axis: str = "model"):
+    """The o-projection of the sharded decode's output: this rank's rows
+    of the whole o weight on its H*hd slice, summed over the model axis
+    (the bias added once), or the plain projection where the output is
+    whole."""
+    w = p["w"]
+    n = out.shape[-1]
+    if n == w.shape[0]:
+        return dense_apply(p, out)
+    r = mesh.axis_index(model_axis)
+    y = dense_apply({"w": w[r * n:(r + 1) * n]}, out)
+    y = coll.psum(y, model_axis, mesh)
+    return y + p["b"] if "b" in p else y

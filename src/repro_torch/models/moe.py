@@ -10,11 +10,13 @@ through the K5 wrapper, and the dense all-experts oracle.
   the reference's three einsums.
 - ``dense``: every expert on every token, weighted by the gates, in plain
   torch: O(T * E). The golden model of the tests; never on the card path.
+- ``a2a``:   expert parallelism over the model axis of a mesh, with
+  explicit all-to-all dispatch and return (``moe_apply(mesh=)``); with a
+  mesh ``sort`` is Expert-TP. Both run on a rank's blocks, as the
+  reference's shard_map bodies do; ``Runtime`` still refuses "a2a" and a
+  mesh, which wait for the sharded model slice.
 
-The reference's expert-parallel ``a2a`` dispatch and its sharded ``sort``
-wait for the sharding slice (``Runtime`` refuses both).
-
-Both impls share the router and emit the same stats tree, which feeds the
+All impls share the router and emit the same stats tree, which feeds the
 P-Shell: ``expert_toggles`` into the coverage CSR, ``load``,
 ``aux_loss`` and ``dropped_frac`` under the "router" tap.
 
@@ -36,6 +38,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.grouped_gemm import ops as gg_ops
 from repro_torch.models.layers import normal
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.rules import spec_of
 from repro_torch.utils import dtype_of
 
 
@@ -164,11 +168,126 @@ def _moe_sort(p, cfg, x2, expert_impl: str = "cuda"):
     return y.to(x2.dtype), _stats(cfg, idx, probs, dropped)
 
 
+# -------------------------------------------------------------------- a2a ---
+def _replicated_stats(st, mesh, all_axes):
+    """The stats made equal on every rank: the toggles pmax'd, the rest
+    pmean'd over every mesh axis."""
+    return {k: (coll.pmax(v.to(torch.int32), all_axes, mesh) > 0)
+            if v.dtype == torch.bool
+            else coll.pmean(v.float(), all_axes, mesh)
+            for k, v in st.items()}
+
+
+def _moe_a2a_local(p, cfg, x_block, mesh, axis: str, all_axes,
+                   expert_impl: str = "cuda"):
+    """The per-rank body of the expert-parallel dispatch. x_block:
+    (B_loc, S_loc, D); p's experts are this rank's E/|axis|. The tokens
+    are routed and dispatched locally into (E, C, D), each expert's rows
+    go to the rank that owns it by one all-to-all, the local experts run
+    on (e_loc, |axis|*C, D), and a second all-to-all returns them."""
+    B, S, D = x_block.shape
+    E = cfg.num_experts
+    ep = mesh.axis_size(axis)
+    e_loc = E // ep                              # local experts per rank
+    x2 = x_block.reshape(B * S, D)
+    gates, idx, probs = _route(p, cfg, x2)
+    disp, slot, keep, inv_order, _ = _sort_dispatch(cfg, x2, idx)
+    C = disp.shape[1]
+
+    send = disp.reshape(ep, e_loc * C, D)
+    recv = coll.all_to_all(send, axis, mesh)     # (ep, e_loc*C, D)
+    # rows grouped per local expert: (e_loc, ep*C, D)
+    h = recv.reshape(ep, e_loc, C, D).transpose(0, 1) \
+            .reshape(e_loc, ep * C, D)
+    y_loc = _expert_ffn(p, h, expert_impl)       # local experts' output
+    back = y_loc.reshape(e_loc, ep, C, D).transpose(0, 1) \
+               .reshape(ep, e_loc * C, D)
+    ret = coll.all_to_all(back, axis, mesh)      # (ep, e_loc*C, D)
+    y_ecd = ret.reshape(E, C, D)
+    y = _sort_combine(cfg, y_ecd, slot, keep, inv_order, gates, B * S, D)
+    dropped = 1.0 - keep.float().mean()
+    st = _replicated_stats(_stats(cfg, idx, probs, dropped), mesh,
+                           all_axes)
+    return y.reshape(B, S, D).to(x_block.dtype), st
+
+
+def _moe_a2a(p, cfg, x, mesh, model_axis, expert_impl):
+    """Expert parallelism: tokens seq-split over the model axis, experts
+    owned by its ranks. Requires num_experts % |model| == 0
+    (many-small-expert archs, e.g. qwen3 128e over 16). Few-large-expert
+    archs (mixtral 8e) use Expert-TP instead (``impl="sort"`` on a mesh):
+    no all-to-all, a single all-reduce, and zero load imbalance."""
+    E = cfg.num_experts
+    ep = mesh.shape[model_axis]
+    if E % ep != 0:
+        raise ValueError(
+            f"a2a EP needs num_experts ({E}) % model axis ({ep}) == 0; "
+            "use impl='sort' (Expert-TP) for few-expert archs")
+    if p["gate"].shape[0] != E // ep:
+        raise ValueError(f"a2a EP over {ep} ranks holds {E // ep} experts "
+                         f"a rank, not {p['gate'].shape[0]}")
+    return _moe_a2a_local(p, cfg, x, mesh, model_axis,
+                          tuple(mesh.axis_names), expert_impl)
+
+
+def _moe_sort_local(p, cfg, x, mesh, model_axis="model",
+                    expert_impl: str = "cuda"):
+    """The sort dispatch made rank-local (Expert-TP). Expert weights are
+    d_ff-sharded over the model axis; every rank of it routes its
+    (replicated) tokens identically, computes its F/|model| slice of each
+    selected expert, and one psum over the axis completes the
+    down-projection (silu is elementwise over F, so F-sharding is exact
+    and the load is balanced). The dispatch stays token-local, and the
+    psum carries the output in its working dtype (each partial is already
+    an f32 sum over F/|model| terms), as the reference's."""
+    b, s, d = x.shape
+    y, st = _moe_sort(p, cfg, x.reshape(b * s, d), expert_impl)
+    y = coll.psum(y.to(x.dtype), model_axis, mesh)
+    st = _replicated_stats(st, mesh, tuple(mesh.axis_names))
+    return y.reshape(b, s, d), st
+
+
+def moe_specs(impl: str, data_axes=("data",), model_axis: str = "model"):
+    """The blocks ``moe_apply(mesh=)`` takes and returns, as the
+    reference's shard_map specs: ({param path: spec}, the spec of x and
+    of y). "a2a": experts over the model axis, tokens' batch over the data
+    axes and sequence over the model axis; "sort" (Expert-TP): each
+    expert's d_ff over the model axis, tokens' batch over the data
+    axes."""
+    if impl == "a2a":
+        w = (model_axis, None, None)
+        params = {"down": w, "gate": w, "router/w": (None, None), "up": w}
+        xs = (data_axes, model_axis, None)
+    elif impl == "sort":
+        params = {"down": (None, model_axis, None),
+                  "gate": (None, None, model_axis),
+                  "router/w": (None, None),
+                  "up": (None, None, model_axis)}
+        xs = (data_axes, None, None)
+    else:
+        raise ValueError(f"no mesh layout for moe impl {impl!r}")
+    return params, spec_of(*xs)
+
+
 # ------------------------------------------------------------------ entry ---
-def moe_apply(p, cfg, x, *, impl: str = "sort", expert_impl: str = "cuda"):
+def moe_apply(p, cfg, x, *, impl: str = "sort", expert_impl: str = "cuda",
+              mesh=None, model_axis: str = "model"):
     """x: (B, S, D) -> (y, stats). ``expert_impl`` ("cuda" or "xla")
-    chooses the sort dispatch's expert products."""
+    chooses the expert products.
+
+    With a ``mesh`` (a ``launch.mesh.Mesh``) the dispatch is the
+    reference's sharded one, on this rank's blocks as ``moe_specs`` lays
+    them out (x cut along its data axes and ``model_axis``): "a2a" the
+    expert-parallel all-to-all, "sort" Expert-TP. y comes back in x's
+    layout; the stats are equal on every rank (pmax'd or pmean'd over
+    every axis)."""
     B, S, D = x.shape
+    if impl == "a2a":
+        if mesh is None:
+            raise ValueError("a2a MoE dispatch requires a mesh")
+        return _moe_a2a(p, cfg, x, mesh, model_axis, expert_impl)
+    if impl == "sort" and mesh is not None:
+        return _moe_sort_local(p, cfg, x, mesh, model_axis, expert_impl)
     x2 = x.reshape(B * S, D)
     if impl == "dense":
         y, st = _moe_dense(p, cfg, x2)

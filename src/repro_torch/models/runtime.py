@@ -24,11 +24,15 @@ the reference's ``checkpoint_dots_with_no_batch_dims`` does. torch's
 einsum runs a product without batch dimensions as a ``bmm`` of batch 1,
 so the one such einsum of the port, the all-experts "dense" MoE oracle,
 is recomputed where the reference keeps it. Remat changes no value: a
-recompute runs the same operations on the same inputs. The
-reference's expert-parallel ``"a2a"`` dispatch and its ``mesh`` wait for
-the sharding slice and raise here. ``seq_parallel`` and ``cost_mode``
-arrive with the sharding slice (``cost_mode`` feeds the roofline's
-composer, ``roofline/compose.py``, which comes with it).
+recompute runs the same operations on the same inputs. The whole model
+under a ``mesh``, with the reference's expert-parallel ``"a2a"`` dispatch,
+waits for the sharded model slice and raises here (the sharded bodies
+themselves take a mesh directly: ``attention.decode_attention_apply``,
+``moe.moe_apply``, ``train/pipeline.py``,
+``train.compress.compressed_pmean``). The reference's ``seq_parallel``
+comes with the sharded model slice, and ``cost_mode``, the cost proxies
+of the roofline's composer (``roofline/compose.py``), with the dry-run
+slice; neither is a field yet.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from typing import Any, FrozenSet
 
 import torch
 
-_SHARDING = "waits for the sharding slice of the port"
+_SHARDED = "waits for the sharded model slice of the port"
 _REMAT = ("none", "dots", "full")
 
 
@@ -66,11 +70,11 @@ class Runtime:
                 f"unknown attention impl {self.attention_impl!r}")
         if self.moe_impl == "a2a":
             raise NotImplementedError(
-                f"moe_impl 'a2a' (expert parallelism over a mesh) {_SHARDING}")
+                f"moe_impl 'a2a' (expert parallelism over a mesh) {_SHARDED}")
         if self.moe_impl not in ("sort", "dense"):
             raise ValueError(f"unknown moe impl {self.moe_impl!r}")
         if self.mesh is not None:
-            raise NotImplementedError(f"a device mesh {_SHARDING}")
+            raise NotImplementedError(f"a device mesh {_SHARDED}")
         if self.remat not in _REMAT:
             raise ValueError(f"unknown remat {self.remat!r}; one of "
                              f"{_REMAT}")

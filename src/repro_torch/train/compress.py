@@ -4,9 +4,9 @@ int8 with a per-tensor scale cuts a gradient exchange 4x against f32;
 error feedback carries the quantization residual into the next round
 (Seide et al. / EF-SGD), so the scheme is unbiased over time.
 ``make_compressor`` applies it leaf by leaf to the gradients in the train
-step (the wire format simulated end to end on one device).
-``compressed_pmean``, the exchange itself over a device axis, waits for
-the sharding slice of the port and raises.
+step (the wire format simulated end to end on one device);
+``compressed_pmean`` is the exchange itself, over an axis of a mesh of
+ranks (``launch.mesh.Mesh``).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.sharding import collectives as coll
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 
@@ -52,8 +53,25 @@ def make_compressor():
     return apply
 
 
-def compressed_pmean(x, axis_name, residual):
-    """The int8 gradient mean over a device axis (a collective)."""
-    raise NotImplementedError(
-        "compressed_pmean (a collective over a device axis) waits for the "
-        "sharding slice of the port")
+def compressed_pmean(x: torch.Tensor, axis_name, residual: torch.Tensor,
+                     mesh):
+    """int8-on-the-wire gradient mean with error feedback, over the ranks
+    along ``axis_name`` of ``mesh``: returns (mean, new residual).
+
+    A shared scale (the pmax of the local absmax: one scalar all-reduce)
+    makes the int8 payloads sum-compatible; they are summed as int32, and
+    the residual is taken against the shared scale, so feedback accounts
+    for exactly what the wire lost. The reference's operations in its
+    order, each rounding alike."""
+    corrected = x.float() + residual
+    local_max = corrected.abs().max()
+    scale = torch.clamp(coll.pmax(local_max, axis_name, mesh),
+                        min=1e-12) / 127.0
+    q = torch.clamp(torch.round(corrected / scale), -127, 127) \
+        .to(torch.int8)
+    new_residual = corrected - q.float() * scale
+    n = coll.psum(torch.ones((), dtype=torch.float32, device=x.device),
+                  axis_name, mesh)
+    summed_q = coll.psum(q.to(torch.int32), axis_name, mesh)  # int8 payload
+    out = summed_q.float() * scale / n
+    return out, new_residual

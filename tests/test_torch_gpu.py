@@ -1559,3 +1559,35 @@ def test_roofline_cost_pass_launches_nothing_on_the_card(cuda):
     assert one["flops"] == pytest.approx(decode_step_flops(cfg, 2, 24),
                                          rel=0.02)
     assert one["bytes"] > 0 and one["exps"] == 0
+
+
+def test_a2a_ranks_sharing_the_card_match_the_sort(cuda, tmp_path):
+    """Two spawned ranks share the card over gloo (mesh data 1 x model 2)
+    and run the expert-parallel MoE at qwen3's smoke width: the gathered
+    output within the reference's 3e-2 relative of the single-rank sort
+    with the plain expert products (no K5) on the same weights, nothing
+    dropped, three K5 launches a rank, and
+    the all-to-alls staged through pinned host memory (counted)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding import cells
+
+    cell = {"name": "a2a", "kind": "moe", "impl": "a2a", "mesh": "m12",
+            "arch": "qwen3-moe-30b-a3b", "smoke": True, "dtype": "bfloat16",
+            "overrides": {"capacity_factor": 8.0}, "seed": 3,
+            "batch": [2, 32]}
+    plan = {"device": "cuda", "cells": [cell],
+            "meshes": {"m12": {"shape": [1, 2], "axes": ["data", "model"]}}}
+    _, results = cells.run_plan(tmp_path, plan, 2, timeout_s=240)
+    out, metrics = results["a2a"]
+    inp = cells.draw_inputs(cell, cuda)
+    p = {"router": {"w": inp["router/w"]}, "gate": inp["gate"],
+         "up": inp["up"], "down": inp["down"]}
+    with torch.no_grad():
+        y, st = moe_mod.moe_apply(p, cells.cell_config(cell), inp["x"],
+                                  impl="sort", expert_impl="xla")
+    got, want = out["y"].float(), y.float().cpu()
+    assert float((got - want).abs().max() / want.abs().max()) < 3e-2
+    assert float(out["stats/dropped_frac"]) == float(st["dropped_frac"]) == 0
+    assert [m["k5_launches"] for m in metrics] == [3, 3]
+    # two all-to-alls a rank, each one copy down and one up
+    assert all(m["host_copies"] >= 4 for m in metrics)

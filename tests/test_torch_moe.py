@@ -262,10 +262,17 @@ def test_moe_sort_drops_the_same_tokens(arch, dtype):
 
 
 def test_runtime_refuses_the_sharded_dispatch():
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(NotImplementedError, match="sharded model slice"):
         Runtime(moe_impl="a2a")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(NotImplementedError, match="sharded model slice"):
         Runtime(mesh=object())
+    # seq_parallel and cost_mode are not fields until their slices
+    with pytest.raises(TypeError):
+        Runtime(seq_parallel=True)
+    with pytest.raises(TypeError):
+        Runtime(cost_mode="flops")
+    with pytest.raises(ValueError, match="requires a mesh"):
+        tmoe.moe_apply({}, None, torch.zeros(1, 1, 1), impl="a2a")
     with pytest.raises(ValueError, match="unknown moe impl"):
         Runtime(moe_impl="ragged")
     rt = Runtime()

@@ -51,6 +51,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import recurrent as trec  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.train import compress as tcomp  # noqa: E402
 from repro_torch.train import optim as toptim  # noqa: E402
 from repro_torch.train import (OptConfig, init_state,  # noqa: E402
@@ -258,8 +259,13 @@ def test_compressor_tree_and_the_collective_waits():
     for g, h, r in zip(tree_leaves(grads), tree_leaves(g_hat),
                        tree_leaves(res2)):
         torch.testing.assert_close(h + r, g, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        tcomp.compressed_pmean(grads["a"], "pod", res["a"])
+    # on a one-rank axis the collective is one error-feedback round,
+    # bitwise (the multi-rank cases: test_torch_distributed.py)
+    one = AbstractMesh((1,), ("pod",))
+    res["a"].normal_()
+    out, r2 = tcomp.compressed_pmean(grads["a"], "pod", res["a"], one)
+    want, want_r = tcomp.ef_compress_leaf(grads["a"], res["a"])
+    assert torch.equal(out, want) and torch.equal(r2, want_r)
 
 
 # ------------------------------------------- the "xla" functions (f32) ---

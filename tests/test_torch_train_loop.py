@@ -8,6 +8,7 @@ packages bit for bit (the reference's on-disk layout: sorted leaf paths,
 bf16 stored as its uint16 view).
 """
 import json
+import types
 
 import numpy as np
 import pytest
@@ -27,7 +28,8 @@ from repro_torch.models import Runtime, build_model  # noqa: E402
 from repro_torch.testing import assert_trees_equal  # noqa: E402
 from repro_torch.train import (LoopConfig, OptConfig,  # noqa: E402
                                init_state, make_train_step, train_loop)
-from repro_torch.utils import tree_clone, tree_leaves  # noqa: E402
+from repro_torch.utils import (tree_clone, tree_leaves,  # noqa: E402
+                               tree_paths_sorted)
 
 TAPS = frozenset({"commits", "coverage"})
 
@@ -94,8 +96,14 @@ def test_restore_falls_back_past_a_corrupt_newest_snapshot(tmp_path):
     restored, step = mgr.restore(state, fallback=True)
     assert step == 4
     assert_trees_equal(restored, state, "fallback restore")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        mgr.restore(state, shardings={})
+    # the sharded path walks back alike: every leaf whole (spec ()) on a
+    # one-rank layout is the state itself
+    specs = {p: () for p, _ in tree_paths_sorted(state)}
+    one_rank = types.SimpleNamespace(device=torch.device("cpu"))
+    restored, step = mgr.restore(state, fallback=True, shardings=specs,
+                                 mesh=one_rank)
+    assert step == 4
+    assert_trees_equal(restored, state, "sharded fallback restore")
 
 
 def test_a_failed_background_write_is_raised(tmp_path):
